@@ -1,0 +1,503 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``src/repro_torch``) on one NVIDIA card.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases, each printing its own lines; any failed check exits non-zero
+before the last line:
+
+1. device: the card's name and power limit, the torch and CUDA versions;
+   build the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. every kernel against its plain PyTorch version on the card, at the
+   main path's shapes, for the (storage, accum) pairs the policies use;
+   kernel / plain / library times (CUDA events over back-to-back calls)
+   and the bound;
+3. the main path: ``repro_torch.eigsh`` on a 4.19M-row road network
+   (``generate("road", 1 << 22, 2.1)``, the size of the paper's italy_osm)
+   with the defaults (FDF): ELL format, ``spmv_ell`` and ``lanczos_update``
+   launched k times each; eigenvalues against the same solve on the host
+   with the same start vector; true residuals against the reported bounds;
+   the Lanczos loop of every phase runs with no device->host sync;
+4. hybrid: a 1M-row power-law web graph under FFF;
+5. ``REPRO_ITER_UPDATE=fused_spmv`` on phase 3's matrix (``spmv_ell_alpha``);
+6. BSR: ``kron(road 1 << 16, dense symmetric 8 x 8)``, 0.5M rows, block fill 1;
+7. warm wall times of each phase's solve.
+
+Then one JSON line of kernel records, and as the last line
+``{"ok": true, "device": {...}}``.  Exits 2 without printing a result when
+no CUDA device is visible.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+K = 8
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+# Peak rates without tensor cores, NVIDIA H100 SXM data sheet (dense).
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
+RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}  # by accum dtype
+# (storage, accum) pairs the seven precision policies use.
+PAIRS = (
+    (torch.float32, torch.float32),
+    (torch.float32, torch.float64),
+    (torch.float64, torch.float64),
+    (torch.bfloat16, torch.float32),
+    (torch.float16, torch.float32),
+)
+MAIN_PAIR = (torch.float32, torch.float64)  # FDF: f32 storage, f64 accumulation
+
+
+class CheckFailed(Exception):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise CheckFailed(msg)
+
+
+def dname(dt) -> str:
+    return str(dt).replace("torch.", "")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def time_ms(fn, launches: int = 20, rounds: int = 5) -> float:
+    """Time of one ``fn()`` in ms: CUDA events around ``launches`` calls in a
+    row, over the count; the median of ``rounds`` such runs, after a warm-up.
+    Calls queue back to back, so a wrapper's host work hides behind the
+    device's unless it takes longer."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
+    return float(np.median(times))
+
+
+def to_port_csr(m):
+    from repro_torch.sparse import CSR
+
+    m = m.tocsr()
+    m.sort_indices()
+    return CSR(
+        indptr=m.indptr.astype(np.int64),
+        indices=m.indices.astype(np.int32),
+        data=m.data.astype(np.float64),
+        shape=m.shape,
+    )
+
+
+# ------------------------------------------------------------------ kernels
+
+
+def kernel_modules():
+    from repro_torch.kernels import lanczos_fused, lanczos_update, spmv_bsr, spmv_ell
+
+    return {
+        "spmv_ell": spmv_ell.spmv_ell_kernel_call,
+        "lanczos_update": lanczos_update.lanczos_update_kernel_call,
+        "spmv_ell_alpha": lanczos_fused.spmv_ell_alpha_kernel_call,
+        "spmv_bsr": spmv_bsr.spmv_bsr_kernel_call,
+    }
+
+
+KERNEL_META = {
+    "spmv_ell": ("src/repro_torch/kernels/csrc/spmv_ell.cu", "src/repro/kernels/spmv_ell.py:54"),
+    "lanczos_update": (
+        "src/repro_torch/kernels/csrc/lanczos_update.cu",
+        "src/repro/kernels/lanczos_update.py:50",
+    ),
+    "spmv_ell_alpha": (
+        "src/repro_torch/kernels/csrc/lanczos_fused.cu",
+        "src/repro/kernels/lanczos_fused.py:81",
+    ),
+    "spmv_bsr": ("src/repro_torch/kernels/csrc/spmv_bsr.cu", "src/repro/kernels/spmv_bsr.py:51"),
+}
+
+
+def reset_launches():
+    for fn in kernel_modules().values():
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: fn.launches for name, fn in kernel_modules().items()}
+
+
+def close(got: torch.Tensor, want: torch.Tensor, rtol: float, scale=None) -> float:
+    """Max abs error; checks it against ``rtol * scale`` (``scale`` defaults
+    to max |want|: the kernels and plain versions sum in different orders)."""
+    err = float((got.double() - want.double()).abs().max())
+    s = float(want.double().abs().max()) if scale is None else float(scale)
+    check(err <= rtol * max(s, 1e-300), f"error {err:.3e} > {rtol:.0e} * {s:.3e}")
+    return err
+
+
+def bound(bytes_moved: int, flops: float, dtype) -> tuple:
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernels(road, block_csr) -> dict:
+    """Phase 2: every kernel vs its plain version at the main path's shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.sparse import to_device_bsr, to_device_ell
+
+    fns = kernel_modules()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = {}
+
+    ell = to_device_ell(road, dtype=torch.float64, device=dev)  # layout of the main path
+    rows, width = ell.val.shape
+    x64 = torch.randn(road.n, generator=g, dtype=torch.float64, device=dev)
+    v64 = torch.randn(road.n, generator=g, dtype=torch.float64, device=dev)
+    print(f"[kernels] ELL layout {rows} x {width} (road, n={road.n:,}, nnz={road.nnz:,})")
+    for name in ("spmv_ell", "spmv_ell_alpha"):
+        rec = None
+        for S, A in PAIRS:
+            val, x, v = ell.val.to(S), x64.to(S), v64.to(A)
+            if name == "spmv_ell":
+                run = lambda: fns[name](val, ell.col, x, accum_dtype=A)  # noqa: E731
+                plain = lambda: ref.spmv_ell_ref(val, ell.col, x, A)  # noqa: E731
+                y, yr = run(), plain()
+                err = close(y, yr, RTOL[A])
+            else:
+                run = lambda: fns[name](val, ell.col, x, v, accum_dtype=A)  # noqa: E731
+                plain = lambda: ref.spmv_ell_alpha_ref(val, ell.col, x, v, A)  # noqa: E731
+                (w, al), (wr, alr) = run(), plain()
+                err = close(w, wr, RTOL[A])
+                terms = float((v.double().abs() * wr[: road.n].double().abs()).sum())
+                err = max(err, close(al.reshape(1), alr.reshape(1), RTOL[A], scale=terms))
+            print(f"[kernels] {name} ({dname(S)}, {dname(A)}): max_abs_err {err:.3e} ok")
+            if (S, A) == MAIN_PAIR:
+                moved = nbytes(val, ell.col, x) + rows * A.itemsize
+                if name == "spmv_ell_alpha":
+                    moved += nbytes(v) + A.itemsize
+                flops = 2.0 * road.nnz + (2.0 * road.n if name == "spmv_ell_alpha" else 0.0)
+                t_b, by = bound(moved, flops, A)
+                lib_ms = None
+                if name == "spmv_ell":
+                    csr_t = torch.sparse_csr_tensor(
+                        torch.as_tensor(road.indptr.astype(np.int32), device=dev),
+                        torch.as_tensor(road.indices.astype(np.int32), device=dev),
+                        torch.as_tensor(road.data, dtype=S, device=dev),
+                        size=road.shape,
+                    )
+                    lib_ms = time_ms(lambda: csr_t @ x)
+                rec = {
+                    "max_abs_err": err,
+                    "ms": time_ms(run),
+                    "plain_ms": time_ms(plain),
+                    "bound_ms": t_b,
+                    "bound_by": by,
+                    "library_ms": lib_ms,
+                }
+        out[name] = rec
+
+    # lanczos_update at the main path's vector length; FDF carries f64 vectors.
+    n = road.n
+    w64, vv64, vp64 = (torch.randn(n, generator=g, dtype=torch.float64, device=dev) for _ in range(3))
+    rec = None
+    for S, A in PAIRS:
+        w, v, vp = w64.to(S), vv64.to(S), vp64.to(S)
+        a = torch.tensor(0.37, dtype=A, device=dev)
+        b = torch.tensor(1.21, dtype=A, device=dev)
+        run = lambda: fns["lanczos_update"](w, v, vp, a, b, accum_dtype=A)  # noqa: E731
+        plain = lambda: ref.lanczos_update_ref(w, v, vp, a, b, A)  # noqa: E731
+        (u, nr), (ur, nrr) = run(), plain()
+        # u is rounded to S: allow one rounding of S on top of the accum order.
+        u_tol = max(RTOL[A], float(torch.finfo(S).eps))
+        err = close(u, ur, u_tol)
+        close(nr.reshape(1), nrr.reshape(1), RTOL[A])
+        print(f"[kernels] lanczos_update ({dname(S)}, {dname(A)}): max_abs_err {err:.3e} ok")
+        if (S, A) == (torch.float64, torch.float64):
+            t_b, by = bound(nbytes(w, v, vp, u) + 4 * A.itemsize, 6.0 * n, A)
+            rec = {
+                "max_abs_err": err,
+                "ms": time_ms(run),
+                "plain_ms": time_ms(plain),
+                "bound_ms": t_b,
+                "bound_by": by,
+                "library_ms": None,
+            }
+    out["lanczos_update"] = rec
+
+    bsr = to_device_bsr(block_csr, block_size=8, dtype=torch.float64, device=dev)
+    nbr, slots, bs, _ = bsr.val.shape
+    print(f"[kernels] BSR layout {nbr} x {slots} x {bs} x {bs} (n={block_csr.n:,}, nnz={block_csr.nnz:,})")
+    xb64 = torch.randn(nbr * bs, generator=g, dtype=torch.float64, device=dev)
+    rec = None
+    for S, A in PAIRS:
+        val, x = bsr.val.to(S), xb64.to(S)
+        run = lambda: fns["spmv_bsr"](val, bsr.bcol, x, accum_dtype=A)  # noqa: E731
+        plain = lambda: ref.spmv_bsr_ref(val, bsr.bcol, x, A)  # noqa: E731
+        err = close(run(), plain(), RTOL[A])
+        print(f"[kernels] spmv_bsr ({dname(S)}, {dname(A)}): max_abs_err {err:.3e} ok")
+        if (S, A) == MAIN_PAIR:
+            t_b, by = bound(nbytes(val, bsr.bcol, x) + nbr * bs * A.itemsize, 2.0 * val.numel(), A)
+            rec = {
+                "max_abs_err": err,
+                "ms": time_ms(run),
+                "plain_ms": time_ms(plain),
+                "bound_ms": t_b,
+                "bound_by": by,
+                "library_ms": library_bsr_ms(block_csr, S, x),
+            }
+    out["spmv_bsr"] = rec
+    return out
+
+
+def library_bsr_ms(block_csr, dtype, x):
+    """One PyTorch call for the BSR product (a yardstick, never used by the
+    port): ``torch.sparse_bsr_tensor`` times the vector; None when this
+    build of PyTorch has no BSR matrix-vector product for ``dtype``."""
+    dev = x.device
+    m = block_csr.to_scipy().tobsr(blocksize=(8, 8))
+    bsr_t = torch.sparse_bsr_tensor(
+        torch.as_tensor(m.indptr.astype(np.int64), device=dev),
+        torch.as_tensor(m.indices.astype(np.int64), device=dev),
+        torch.as_tensor(m.data, dtype=dtype, device=dev),
+        size=m.shape,
+    )
+    try:
+        torch.mv(bsr_t, x)
+    except (RuntimeError, NotImplementedError) as exc:
+        print(f"[kernels] spmv_bsr library yardstick unavailable: {type(exc).__name__}: {exc}")
+        return None
+    return time_ms(lambda: torch.mv(bsr_t, x))
+
+
+# ---------------------------------------------------------------- eigensolves
+
+
+def solve(A, dev, v0, **kw):
+    import repro_torch
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = repro_torch.eigsh(A, k=K, v0=v0, device=dev, **kw)
+    if dev == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return res, wall, read_launches()
+
+
+def check_eigs(tag, gpu, cpu, rtol):
+    eg = gpu.eigenvalues.double().cpu().numpy()
+    ec = cpu.eigenvalues.double().cpu().numpy()
+    check(eg.shape == (K,) and np.isfinite(eg).all(), f"{tag}: bad eigenvalues {eg}")
+    check(tuple(gpu.eigenvectors.shape) == (gpu.n, K), f"{tag}: eigenvectors {gpu.eigenvectors.shape}")
+    err = float(np.abs(eg - ec).max() / np.abs(ec).max())
+    check(err <= rtol, f"{tag}: eigenvalues differ from the host solve by {err:.3e} > {rtol:.0e}")
+    return err
+
+
+def check_residuals(tag, res, A):
+    """True residuals ||A x - lambda x|| (scipy, f64) against the Ritz bounds."""
+    X = res.eigenvectors.double().cpu().numpy()
+    lam = res.eigenvalues.double().cpu().numpy()
+    true = np.linalg.norm(A.to_scipy() @ X - X * lam, axis=0)
+    gap = np.abs(true - res.residuals)
+    ok = gap <= 1e-4 * np.abs(lam).max() + 1e-3 * res.residuals
+    check(bool(ok.all()), f"{tag}: true residuals {true} vs bounds {res.residuals}")
+    return float(gap.max())
+
+
+def phase_main(road, v0, smi):
+    res, wall, launches = solve(road, "cuda", v0)
+    print(f"[main] eigsh(road n={road.n:,} nnz={road.nnz:,}, k={K}) policy={res.policy} "
+          f"format={res.spmv_format} backend={res.backend} plan="
+          f"{res.partition['spmv']['iteration_plan']['effective']} launches={launches} "
+          f"wall {wall:.3f} s (cold, conversion included) on {smi}")
+    check(res.spmv_format == "ell", f"main path picked {res.spmv_format}, expected ell")
+    check(res.backend == "single", f"backend {res.backend}")
+    check(launches["spmv_ell"] == K and launches["lanczos_update"] == K,
+          f"main path launches {launches}, expected {K} spmv_ell and {K} lanczos_update")
+    cpu, cwall, _ = solve(road, "cpu", v0)
+    err = check_eigs("main", res, cpu, 1e-9)
+    gap = check_residuals("main", res, road)
+    print(f"[main] eigenvalues {np.round(res.eigenvalues.cpu().numpy(), 6).tolist()}")
+    print(f"[main] vs host solve: max rel err {err:.3e} (<= 1e-9); residual bound gap {gap:.3e}; "
+          f"host solve {cwall:.2f} s")
+    return res, launches
+
+
+def check_loop_never_syncs(tag, A, policy_name):
+    """Run the Lanczos loop with CUDA sync debugging set to "error": any
+    device->host read inside the loop raises."""
+    from repro_torch.core.lanczos import lanczos_tridiag, ops_for_operator
+    from repro_torch.core.operators import make_operator
+    from repro_torch.core.precision import POLICIES
+    from repro_torch.kernels.engine import make_engine
+
+    pol = POLICIES[policy_name]
+    eng = make_engine(A, accum_dtype=pol.phase_dtype("spmv"), device="cuda")
+    op = make_operator(A, dtype=pol.storage, engine=eng)
+    ops = ops_for_operator(op, pol, device="cuda")
+    v1 = torch.randn(A.n, dtype=pol.compute, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        lanczos_tridiag(op.bound_matvec(pol), v1, K, pol, ops=ops)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    print(f"[{tag}] Lanczos loop ({eng.format}, {policy_name}, "
+          f"{eng.iteration_plan.update}): no device->host sync in {K} steps")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device visible; it runs on an NVIDIA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repository)
+    from repro_torch.kernels import build
+    from repro_torch.sparse import generate
+
+    # ---- phase 1: device and build
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi)
+    print(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}; count {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    build.load()
+    regs = [ln.strip() for ln in build.BUILD_INFO["log"].splitlines() if "spill" in ln]
+    spills = sum(1 for ln in regs if not ln.startswith("0 bytes stack frame, 0 bytes spill"))
+    print(f"[device] kernels built in {build.BUILD_INFO['seconds']:.2f} s "
+          f"(cached={build.BUILD_INFO['cached']}); {len(regs)} kernel instantiations, "
+          f"{spills} with a stack frame or spills")
+
+    # ---- data (host, from seeds)
+    t0 = time.perf_counter()
+    road = generate("road", 1 << 22, 2.1, seed=0)
+    web = generate("web", 1 << 20, 11.0, seed=0)
+    small = generate("road", 1 << 16, 2.1, seed=0)
+    b = np.random.default_rng(1).random((8, 8))
+    block = to_port_csr(sp.kron(small.to_scipy(), sp.csr_matrix((b + b.T) / 2)))
+    rng = np.random.default_rng(0)
+    v_road, v_web, v_block = (rng.standard_normal(m.n) for m in (road, web, block))
+    print(f"[data] road n={road.n:,} nnz={road.nnz:,}; web n={web.n:,} nnz={web.nnz:,}; "
+          f"block n={block.n:,} nnz={block.nnz:,}; generated in {time.perf_counter() - t0:.1f} s")
+
+    # ---- phase 2: kernels vs plain versions
+    records = phase_kernels(road, block)
+
+    # ---- phase 3: the main path
+    main_res, main_launches = phase_main(road, v_road, smi)
+    check_loop_never_syncs("main", road, "FDF")
+
+    # ---- phase 4: hybrid
+    hyb, hwall, hl = solve(web, "cuda", v_web, policy="FFF")
+    print(f"[hybrid] eigsh(web n={web.n:,}, FFF) format={hyb.spmv_format} launches={hl} "
+          f"wall {hwall:.3f} s")
+    check(hyb.spmv_format == "hybrid", f"web graph picked {hyb.spmv_format}, expected hybrid")
+    check(hl["spmv_ell"] == K and hl["lanczos_update"] == K, f"hybrid launches {hl}")
+    hyb2, _, _ = solve(web, "cuda", v_web, policy="FFF")
+    check(torch.equal(hyb.eigenvalues, hyb2.eigenvalues), "hybrid: two runs differ in their bits")
+    hcpu, _, _ = solve(web, "cpu", v_web, policy="FFF")
+    err = check_eigs("hybrid", hyb, hcpu, 1e-5)
+    print(f"[hybrid] vs host solve: max rel err {err:.3e} (<= 1e-5); repeat run bit-identical")
+    check_loop_never_syncs("hybrid", web, "FFF")
+
+    # ---- phase 5: fused_spmv
+    os.environ["REPRO_ITER_UPDATE"] = "fused_spmv"
+    try:
+        fus, fwall, fl = solve(road, "cuda", v_road)
+        check_loop_never_syncs("fused_spmv", road, "FDF")
+    finally:
+        del os.environ["REPRO_ITER_UPDATE"]
+    print(f"[fused_spmv] eigsh(road, FDF, REPRO_ITER_UPDATE=fused_spmv) format={fus.spmv_format} "
+          f"launches={fl} wall {fwall:.3f} s")
+    check(fus.spmv_format == "ell", f"fused_spmv run picked {fus.spmv_format}")
+    check(fl["spmv_ell_alpha"] == K and fl["lanczos_update"] == K and fl["spmv_ell"] == 0,
+          f"fused_spmv launches {fl}")
+    err = check_eigs("fused_spmv", fus, main_res, 1e-9)
+    print(f"[fused_spmv] vs main path: max rel err {err:.3e} (<= 1e-9)")
+
+    # ---- phase 6: BSR
+    bres, bwall, bl = solve(block, "cuda", v_block)
+    print(f"[bsr] eigsh(kron(road 65536, dense 8x8) n={block.n:,}, FDF) format={bres.spmv_format} "
+          f"launches={bl} wall {bwall:.3f} s")
+    check(bres.spmv_format == "bsr", f"block matrix picked {bres.spmv_format}, expected bsr")
+    check(bl["spmv_bsr"] == K and bl["lanczos_update"] == K, f"bsr launches {bl}")
+    bcpu, _, _ = solve(block, "cpu", v_block)
+    err = check_eigs("bsr", bres, bcpu, 1e-9)
+    gap = check_residuals("bsr", bres, block)
+    print(f"[bsr] vs host solve: max rel err {err:.3e} (<= 1e-9); residual bound gap {gap:.3e}")
+    check_loop_never_syncs("bsr", block, "FDF")
+
+    # ---- phase 7: warm wall times
+    import repro_torch as rt
+
+    for tag, A, v, kw in (
+        ("ell road FDF", road, v_road, {}),
+        ("hybrid web FFF", web, v_web, {"policy": "FFF"}),
+        ("bsr kron FDF", block, v_block, {}),
+    ):
+        _, wall, _ = solve(A, "cuda", v, **kw)
+        sess = rt.prepare(A, device="cuda", **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = sess.eigsh(K, v0=v)
+        torch.cuda.synchronize()
+        t_solve = time.perf_counter() - t0
+        print(f"[warm] {tag}: eigsh wall {wall:.3f} s; prepare {sess.prepare_s:.3f} s; "
+              f"solve {t_solve * 1e3:.2f} ms (lanczos {r.timings['lanczos_s'] * 1e3:.2f} ms, "
+              f"jacobi {r.timings['jacobi_s'] * 1e3:.2f} ms, project {r.timings['project_s'] * 1e3:.2f} ms) "
+              f"on {smi}")
+    os.environ.pop("REPRO_ITER_UPDATE", None)
+
+    launches = {
+        "spmv_ell": main_launches["spmv_ell"],
+        "lanczos_update": main_launches["lanczos_update"],
+        "spmv_ell_alpha": fl["spmv_ell_alpha"],
+        "spmv_bsr": bl["spmv_bsr"],
+    }
+    kernels = []
+    for name in ("spmv_ell", "lanczos_update", "spmv_ell_alpha", "spmv_bsr"):
+        source, replaces = KERNEL_META[name]
+        kernels.append(
+            {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+             "launches": launches[name], **records[name]}
+        )
+    print(smi)
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except CheckFailed as exc:
+        print(f"chip_smoke.py: check failed: {exc}", file=sys.stderr)
+        sys.exit(1)

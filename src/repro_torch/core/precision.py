@@ -1,0 +1,149 @@
+"""Mixed-precision policies of the PyTorch port.
+
+The paper's (storage, compute, output) dtype triple with the reference's
+optional per-phase compute overrides (:data:`PHASES`), as torch dtypes.
+PyTorch always has float64, so :meth:`PrecisionPolicy.effective` is the
+identity: FDF (store f32, compute f64, output f32) runs as written, on the
+CPU and on the card.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+__all__ = [
+    "PHASES",
+    "PrecisionPolicy",
+    "FFF",
+    "FDF",
+    "DDD",
+    "BFF",
+    "HFF",
+    "FCF",
+    "BCF",
+    "POLICIES",
+    "dtype_name",
+    "compensated_sum",
+    "reduce_sum",
+]
+
+# The four compute phases of one solve, in hot-loop order (see the reference).
+PHASES = ("spmv", "alpha_beta", "reorth", "ritz")
+
+_DTYPE_ALIASES = {
+    "f16": "float16",
+    "f32": "float32",
+    "f64": "float64",
+    "bf16": "bfloat16",
+}
+
+
+def dtype_name(dt) -> str:
+    """``torch.float32`` -> ``"float32"`` (the reference's dtype names)."""
+    return str(dt).replace("torch.", "")
+
+
+def _parse_dtype(dt) -> torch.dtype:
+    """Accept a torch dtype or a (shorthand) name."""
+    if isinstance(dt, torch.dtype):
+        return dt
+    if isinstance(dt, str):
+        name = _DTYPE_ALIASES.get(dt.lower(), dt.lower())
+        got = getattr(torch, name, None)
+        if isinstance(got, torch.dtype) and got.is_floating_point:
+            return got
+    raise ValueError(f"unparseable phase dtype {dt!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class PrecisionPolicy:
+    """(storage, compute, output) dtype triple, the paper's precision knob;
+    see ``repro.core.precision.PrecisionPolicy`` for the field semantics."""
+
+    name: str
+    storage: Any
+    compute: Any
+    output: Any
+    compensated: bool = False
+    spmv: Any = None
+    alpha_beta: Any = None
+    reorth: Any = None
+    ritz: Any = None
+
+    def phase_dtype(self, phase: str):
+        """Compute dtype of one solver phase (the override, or ``compute``)."""
+        if phase not in PHASES:
+            raise ValueError(f"unknown precision phase {phase!r}; valid phases: {PHASES}")
+        override = getattr(self, phase)
+        return self.compute if override is None else override
+
+    def phase_map(self) -> Dict[str, str]:
+        return {ph: dtype_name(self.phase_dtype(ph)) for ph in PHASES}
+
+    def with_phases(self, **overrides) -> "PrecisionPolicy":
+        """New policy with per-phase compute dtypes, e.g.
+        ``FDF.with_phases(reorth="f32")``; ``None`` clears an override."""
+        bad = sorted(set(overrides) - set(PHASES))
+        if bad:
+            raise ValueError(f"unknown precision phase(s) {bad}; valid phases: {PHASES}")
+        parsed = {ph: (None if dt is None else _parse_dtype(dt)) for ph, dt in overrides.items()}
+        new = dataclasses.replace(self, **parsed)
+        tags = ",".join(
+            f"{ph}={dtype_name(getattr(new, ph))}" for ph in PHASES if getattr(new, ph) is not None
+        )
+        base = self.name.split("[")[0]
+        return dataclasses.replace(new, name=f"{base}[{tags}]" if tags else base)
+
+    def effective(self) -> "PrecisionPolicy":
+        """Identity: float64 is always available in PyTorch."""
+        return self
+
+
+FFF = PrecisionPolicy("FFF", torch.float32, torch.float32, torch.float32)
+FDF = PrecisionPolicy("FDF", torch.float32, torch.float64, torch.float32)
+DDD = PrecisionPolicy("DDD", torch.float64, torch.float64, torch.float64)
+BFF = PrecisionPolicy("BFF", torch.bfloat16, torch.float32, torch.float32)
+HFF = PrecisionPolicy("HFF", torch.float16, torch.float32, torch.float32)
+FCF = PrecisionPolicy("FCF", torch.float32, torch.float32, torch.float32, compensated=True)
+BCF = PrecisionPolicy("BCF", torch.bfloat16, torch.float32, torch.float32, compensated=True)
+
+POLICIES = {p.name: p for p in (FFF, FDF, DDD, BFF, HFF, FCF, BCF)}
+
+_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
+
+
+def compensated_sum(x: torch.Tensor, dtype) -> torch.Tensor:
+    """Neumaier compensated summation of a 1-D tensor, in the reference's
+    order: one native sum per 256-element chunk, then the chunk totals
+    combined sequentially with Neumaier compensation.
+
+    The sequential combine runs on the host (one device->host copy of the
+    n/256 chunk totals); the result comes back as a 0-d tensor on
+    ``x.device``.
+    """
+    x = x.to(dtype)
+    n = x.shape[0]
+    chunk = 256
+    pad = (-n) % chunk
+    xp = torch.nn.functional.pad(x, (0, pad))
+    parts = xp.reshape(-1, chunk).sum(dim=1).cpu().numpy()
+    np_dt = _NP_DTYPES[dtype]
+    s = np_dt(0.0)
+    c = np_dt(0.0)
+    for p in parts:
+        t = s + p
+        # Neumaier: pick the compensation direction by magnitude.
+        comp = (s - t) + p if abs(s) >= abs(p) else (p - t) + s
+        s, c = t, c + comp
+    return torch.tensor(s + c, dtype=dtype, device=x.device)
+
+
+def reduce_sum(x: torch.Tensor, policy: PrecisionPolicy) -> torch.Tensor:
+    """Policy-directed sum reduction (the paper's alpha/beta accumulators)."""
+    if policy.compensated:
+        return compensated_sum(x.reshape(-1), policy.compute)
+    return torch.sum(x.to(policy.compute))

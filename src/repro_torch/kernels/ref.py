@@ -1,0 +1,47 @@
+"""Plain PyTorch versions of the four Hopper kernels.
+
+Each is the semantic ground truth its CUDA kernel must match.  They run on
+any device: the wrappers in ``ops`` take them for CPU tensors, and
+``chip_smoke.py`` runs them on the card to hold each kernel against them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["spmv_ell_ref", "spmv_ell_alpha_ref", "lanczos_update_ref", "spmv_bsr_ref"]
+
+
+def spmv_ell_ref(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor, accum_dtype) -> torch.Tensor:
+    """ELL SpMV: ``y[r] = sum_s val[r, s] * x[col[r, s]]`` in ``accum_dtype``.
+    Returns ``(rows_pad,)``."""
+    gathered = x[col.long()].to(accum_dtype)
+    return (val.to(accum_dtype) * gathered).sum(dim=1)
+
+
+def spmv_ell_alpha_ref(
+    val: torch.Tensor, col: torch.Tensor, x: torch.Tensor, v: torch.Tensor, accum_dtype
+):
+    """``w = ELL(val, col) @ x`` and ``alpha = <v, w>`` over the first
+    ``len(v)`` rows (padding rows hold zero values: they add nothing).
+    Returns ``(w (rows_pad,), alpha 0-d)`` in ``accum_dtype``."""
+    w = spmv_ell_ref(val, col, x, accum_dtype)
+    return w, torch.sum(v.to(accum_dtype) * w[: v.shape[0]])
+
+
+def lanczos_update_ref(w, v, v_prev, alpha, beta, accum_dtype):
+    """Three-term recurrence plus the squared norm of its result:
+    ``u = w - alpha v - beta v_prev`` in ``accum_dtype``; returns
+    ``(u in w.dtype, ||u||^2 0-d in accum_dtype)``."""
+    acc = accum_dtype
+    u = w.to(acc) - alpha.to(acc) * v.to(acc) - beta.to(acc) * v_prev.to(acc)
+    return u.to(w.dtype), torch.sum(u * u)
+
+
+def spmv_bsr_ref(val: torch.Tensor, bcol: torch.Tensor, x: torch.Tensor, accum_dtype) -> torch.Tensor:
+    """Blocked-ELL SpMV: ``y_i = sum_s val[i, s] @ x[bcol[i, s]*BS : +BS]``.
+    ``x`` has ``n_block_rows * BS`` entries; returns ``(n_block_rows * BS,)``."""
+    nbr, slots, bs, _ = val.shape
+    gathered = x.reshape(-1, bs)[bcol.long()].to(accum_dtype)  # (nbr, slots, bs)
+    y = torch.einsum("rsij,rsj->ri", val.to(accum_dtype), gathered)
+    return y.reshape(nbr * bs)

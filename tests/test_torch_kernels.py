@@ -1,0 +1,210 @@
+"""The port's four kernels against the reference's Pallas kernels.
+
+On the CPU each port wrapper runs its plain PyTorch version; the reference
+kernels run in Pallas interpret mode, as ``tests/test_kernels.py`` runs
+them.  Both get the same data: the layouts are the reference's own
+containers, carried over with ``repro_torch.sparse.formats.from_reference``.
+
+Tolerances: f64 accumulation rtol 1e-12; f32 accumulation rtol 1e-5 — the
+arithmetic is the same, only the order of the sums differs.  The ``gpu``
+tests hold each CUDA kernel against its plain version on the card, with the
+same tolerances.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.lanczos_fused import spmv_ell_alpha_kernel_call as jax_spmv_ell_alpha
+from repro.kernels.lanczos_update import lanczos_update_kernel_call as jax_lanczos_update
+from repro.kernels.spmv_bsr import spmv_bsr_kernel_call as jax_spmv_bsr
+from repro.kernels.spmv_ell import spmv_ell_kernel_call as jax_spmv_ell
+from repro.sparse import generate, to_device_bsr, to_device_ell
+from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels.lanczos_fused import spmv_ell_alpha_kernel_call
+from repro_torch.kernels.lanczos_update import lanczos_update_kernel_call
+from repro_torch.kernels.spmv_bsr import spmv_bsr_kernel_call
+from repro_torch.kernels.spmv_ell import ell_group, spmv_ell_kernel_call
+from repro_torch.sparse.formats import from_reference
+
+# (storage, accum) pairs, as (jax dtype, torch dtype) each.
+PAIRS = {
+    "f32-f32": ((jnp.float32, torch.float32), (jnp.float32, torch.float32)),
+    "f32-f64": ((jnp.float32, torch.float32), (jnp.float64, torch.float64)),
+    "bf16-f32": ((jnp.bfloat16, torch.bfloat16), (jnp.float32, torch.float32)),
+    "f64-f64": ((jnp.float64, torch.float64), (jnp.float64, torch.float64)),
+}
+RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+def _arrays(container) -> dict:
+    return {f.name: np.asarray(getattr(container, f.name)) for f in dataclasses.fields(container)}
+
+
+def _t(a_jax) -> torch.Tensor:
+    """A reference array as a CPU tensor (bf16 bits carried over exactly)."""
+    a = np.asarray(a_jax)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def _close(got: torch.Tensor, want, acc) -> None:
+    want = np.asarray(want, dtype=np.float64)
+    got = got.double().numpy()
+    scale = max(float(np.abs(want).max()), 1e-300)
+    np.testing.assert_allclose(got, want, rtol=RTOL[acc], atol=RTOL[acc] * scale)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels build with nvcc for sm_90a")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("pair", list(PAIRS))
+@pytest.mark.parametrize("n", [1001, 2048])
+def test_spmv_ell_matches_reference(pair, n):
+    (jdt, tdt), (jacc, tacc) = PAIRS[pair]
+    csr = generate("urand", n, 6.0, seed=n, values="uniform")
+    ell = to_device_ell(csr, dtype=jdt)
+    x_np = np.random.default_rng(0).standard_normal(n)
+    x_j = jnp.asarray(x_np, dtype=jdt)
+    rows = ell.val.shape[0]  # one row tile: a short interpret-mode grid
+    want = jax_spmv_ell(ell.val, ell.col, x_j, block_r=rows, accum_dtype=jacc, interpret=True)[:n]
+    mat = from_reference(_arrays(ell))
+    got = ops.spmv_ell(mat, _t(x_j), accum_dtype=tacc)
+    assert got.dtype == tacc and got.shape == (n,)
+    _close(got, want, tacc)
+
+
+@pytest.mark.parametrize("pair", list(PAIRS))
+@pytest.mark.parametrize("n", [1001, 2048])
+def test_spmv_ell_alpha_matches_reference(pair, n):
+    (jdt, tdt), (jacc, tacc) = PAIRS[pair]
+    csr = generate("web", n, 6.0, seed=n + 1, values="uniform")
+    ell = to_device_ell(csr, dtype=jdt)
+    rows = ell.val.shape[0]
+    rng = np.random.default_rng(1)
+    x_j = jnp.asarray(rng.standard_normal(n), dtype=jdt)
+    v_np = np.zeros(rows)
+    v_np[:n] = rng.standard_normal(n)
+    v_j = jnp.asarray(v_np, dtype=jacc)
+    w_want, a_want = jax_spmv_ell_alpha(
+        ell.val, ell.col, x_j, v_j, block_r=rows, accum_dtype=jacc, interpret=True
+    )
+    mat = from_reference(_arrays(ell))
+    w, alpha = ops.spmv_ell_alpha(mat, _t(x_j), _t(v_j)[:n], accum_dtype=tacc)
+    _close(w, w_want[:n], tacc)
+    terms = float(np.sum(np.abs(v_np[:n]) * np.abs(np.asarray(w_want[:n], np.float64))))
+    assert abs(float(alpha) - float(a_want[0])) <= RTOL[tacc] * terms
+
+
+@pytest.mark.parametrize("pair", list(PAIRS))
+@pytest.mark.parametrize("n", [999, 4096])
+def test_lanczos_update_matches_reference(pair, n):
+    (jdt, tdt), (jacc, tacc) = PAIRS[pair]
+    rng = np.random.default_rng(n)
+    w, v, vp = (jnp.asarray(rng.standard_normal(n), dtype=jdt) for _ in range(3))
+    alpha, beta = jnp.asarray(0.37, jacc), jnp.asarray(1.21, jacc)
+    u_want, nrm_want = jax_lanczos_update(
+        w, v, vp, alpha, beta, block=n, accum_dtype=jacc, interpret=True
+    )
+    u, nrm = ops.lanczos_update(
+        _t(w), _t(v), _t(vp), _t(alpha), _t(beta), accum_dtype=tacc
+    )
+    assert u.dtype == tdt and u.shape == (n,)
+    # u is rounded to the storage dtype: allow one rounding of it.
+    u_tol = max(RTOL[tacc], float(torch.finfo(tdt).eps))
+    np.testing.assert_allclose(
+        u.double().numpy(), np.asarray(u_want, np.float64), rtol=u_tol, atol=u_tol
+    )
+    assert abs(float(nrm) - float(nrm_want[0])) <= RTOL[tacc] * float(nrm_want[0])
+
+
+@pytest.mark.parametrize("pair", list(PAIRS))
+@pytest.mark.parametrize("bs", [4, 8])
+def test_spmv_bsr_matches_reference(pair, bs):
+    (jdt, tdt), (jacc, tacc) = PAIRS[pair]
+    csr = generate("road", 529, 3.0, seed=bs, values="uniform")  # 529 rows: odd
+    bsr = to_device_bsr(csr, block_size=bs, dtype=jdt)
+    nbr = bsr.val.shape[0]
+    x_np = np.zeros(nbr * bs)
+    x_np[: csr.n] = np.random.default_rng(7).standard_normal(csr.n)
+    x_j = jnp.asarray(x_np, dtype=jdt)
+    want = jax_spmv_bsr(bsr.val, bsr.bcol, x_j, accum_dtype=jacc, interpret=True)[: csr.n]
+    mat = from_reference(_arrays(bsr))
+    got = ops.spmv_bsr(mat, _t(x_j)[: csr.n], accum_dtype=tacc)
+    assert got.shape == (csr.n,)
+    _close(got, want, tacc)
+
+
+def test_kernel_calls_refuse_host_tensors():
+    """A kernel call never runs a plain path: host tensors are refused."""
+    val = torch.zeros(8, 8)
+    col = torch.zeros(8, 8, dtype=torch.int32)
+    x = torch.zeros(8)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmv_ell_kernel_call(val, col, x, accum_dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmv_ell_alpha_kernel_call(val, col, x, x, accum_dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        lanczos_update_kernel_call(x, x, x, 0.5, 0.5, accum_dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmv_bsr_kernel_call(torch.zeros(1, 1, 8, 8), torch.zeros(1, 1, dtype=torch.int32), x,
+                             accum_dtype=torch.float32)
+    with pytest.raises(ValueError, match="no kernel path"):
+        ops.ell_matvec(val.to("meta"), col.to("meta"), x.to("meta"), torch.float32)
+
+
+def test_build_is_keyed_and_lazy():
+    """Importing the kernel modules builds nothing; the build key covers
+    every CUDA source and header, and the dtype codes match the C side."""
+    assert build._LIB is None
+    assert build._source_key() == build._source_key()
+    names = {p.name for p in build.CSRC.glob("*.cu*")}
+    assert set(build.SOURCES) <= names and "common.cuh" in names
+    assert [build.dtype_code(d) for d in (torch.float32, torch.float64, torch.float16,
+                                          torch.bfloat16)] == [0, 1, 2, 3]
+    with pytest.raises(TypeError):
+        build.dtype_code(torch.int32)
+    assert [ell_group(w) for w in (1, 3, 8, 9, 32, 200)] == [1, 4, 8, 16, 32, 32]
+
+
+# ------------------------------------------------------------ on the card
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", list(PAIRS))
+def test_cuda_kernels_match_plain_versions(pair, cuda):
+    (_, tdt), (_, tacc) = PAIRS[pair]
+    g = torch.Generator().manual_seed(0)
+    rows, width, n = 1003, 13, 1003
+    val = torch.randn(rows, width, generator=g).to(tdt).to(cuda)
+    col = torch.randint(0, n, (rows, width), generator=g, dtype=torch.int32).to(cuda)
+    x = torch.randn(n, generator=g).to(tdt).to(cuda)
+    _close(spmv_ell_kernel_call(val, col, x, accum_dtype=tacc).cpu(),
+           ref.spmv_ell_ref(val, col, x, tacc).cpu().numpy(), tacc)
+    v = torch.randn(n - 5, generator=g).to(tacc).to(cuda)
+    w, alpha = spmv_ell_alpha_kernel_call(val, col, x, v, accum_dtype=tacc)
+    w_ref, alpha_ref = ref.spmv_ell_alpha_ref(val, col, x, v, tacc)
+    _close(w.cpu(), w_ref.cpu().numpy(), tacc)
+    terms = float((v.abs() * w_ref[: n - 5].abs()).sum())
+    assert abs(float(alpha) - float(alpha_ref)) <= RTOL[tacc] * terms
+    ww, vv, vp = (torch.randn(5001, generator=g).to(tdt).to(cuda) for _ in range(3))
+    a = torch.tensor(0.37, dtype=tacc, device=cuda)
+    b = torch.tensor(1.21, dtype=tacc, device=cuda)
+    u, nrm = lanczos_update_kernel_call(ww, vv, vp, a, b, accum_dtype=tacc)
+    u_ref, nrm_ref = ref.lanczos_update_ref(ww, vv, vp, a, b, tacc)
+    assert torch.equal(u, u_ref)  # same operation order, products rounded
+    assert abs(float(nrm) - float(nrm_ref)) <= RTOL[tacc] * float(nrm_ref)
+    for bs in (4, 8, 16):
+        bv = torch.randn(37, 5, bs, bs, generator=g).to(tdt).to(cuda)
+        bc = torch.randint(0, 37, (37, 5), generator=g, dtype=torch.int32).to(cuda)
+        bx = torch.randn(37 * bs, generator=g).to(tdt).to(cuda)
+        _close(spmv_bsr_kernel_call(bv, bc, bx, accum_dtype=tacc).cpu(),
+               ref.spmv_bsr_ref(bv, bc, bx, tacc).cpu().numpy(), tacc)
