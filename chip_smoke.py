@@ -9,11 +9,13 @@ Phases, each printing its own lines; any failed check exits non-zero
 before the last line:
 
 1. device: the card's name and power limit, the torch and CUDA versions;
-   build the four CUDA kernels from ``src/repro_torch/kernels/csrc``;
+   build the six CUDA kernels from ``src/repro_torch/kernels/csrc``;
 2. every kernel against its plain PyTorch version on the card, at the
-   main path's shapes, for the (storage, accum) pairs the policies use;
-   kernel / plain / library times (CUDA events over back-to-back calls)
-   and the bound;
+   main path's shapes, for the (storage, accum) pairs the policies use
+   (``spmv_ell_packed`` on a real chunk of phase 8's matrix, in bf16 and
+   fp8 with int32 deltas, and on a one-chunk road network whose deltas fit
+   int16; ``mixed_dot`` at n = 4,194,304); kernel / plain / library times
+   (CUDA events over back-to-back calls) and the bound;
 3. the main path: ``repro_torch.eigsh`` on a 4.19M-row road network
    (``generate("road", 1 << 22, 2.1)``, the size of the paper's italy_osm)
    with the defaults (FDF): ELL format, ``spmv_ell`` and ``lanczos_update``
@@ -23,7 +25,23 @@ before the last line:
 4. hybrid: a 1M-row power-law web graph under FFF;
 5. ``REPRO_ITER_UPDATE=fused_spmv`` on phase 3's matrix (``spmv_ell_alpha``);
 6. BSR: ``kron(road 1 << 16, dense symmetric 8 x 8)``, 0.5M rows, block fill 1;
-7. warm wall times of each phase's solve.
+7. warm wall times of each phase's solve (run last);
+8. chunked: ``generate("road", 14_081_816, 2.4)`` (the row count of the
+   paper's road_central, 56.6M nnz, above the 25M-nnz chunked threshold),
+   written with ``save_diskcsr`` into a temporary directory (deleted at the
+   end); ``repro_torch.eigsh(path, k=8)`` with the defaults runs the
+   chunked backend, ELL, f32 staging, ``spmv_ell`` launched
+   ``num_chunks * k`` times; eigenvalues against ``backend="single"`` on
+   the in-RAM CSR, true residuals against the bounds, residency within
+   ``stage_depth + 1``; ``kernels.ops.mixed_dot`` (compensated, f64) forms
+   the Gram matrix of the eigenvectors; the staging counters and a split
+   of one warm solve (``torch.profiler``);
+9. packed staging on the same matrix: ``staging="bf16"`` and ``"fp8"``
+   under FDF and ``policy="BFF", staging="auto"`` launch
+   ``spmv_ell_packed`` ``num_chunks * k`` times and stay within the
+   reference tests' bounds of f32 staging; fp8 on
+   ``generate("road", 1 << 20, 2.1)`` (``chunk_nnz = 1 << 18``) matches the
+   same chunked solve on the host at rel 1e-9.
 
 Then one JSON line of kernel records, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result when
@@ -34,8 +52,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -112,13 +132,22 @@ def to_port_csr(m):
 
 
 def kernel_modules():
-    from repro_torch.kernels import lanczos_fused, lanczos_update, spmv_bsr, spmv_ell
+    from repro_torch.kernels import (
+        lanczos_fused,
+        lanczos_update,
+        mixed_dot,
+        spmv_bsr,
+        spmv_ell,
+        spmv_ell_packed,
+    )
 
     return {
         "spmv_ell": spmv_ell.spmv_ell_kernel_call,
         "lanczos_update": lanczos_update.lanczos_update_kernel_call,
         "spmv_ell_alpha": lanczos_fused.spmv_ell_alpha_kernel_call,
         "spmv_bsr": spmv_bsr.spmv_bsr_kernel_call,
+        "spmv_ell_packed": spmv_ell_packed.spmv_ell_packed_kernel_call,
+        "mixed_dot": mixed_dot.mixed_dot_kernel_call,
     }
 
 
@@ -133,7 +162,13 @@ KERNEL_META = {
         "src/repro/kernels/lanczos_fused.py:81",
     ),
     "spmv_bsr": ("src/repro_torch/kernels/csrc/spmv_bsr.cu", "src/repro/kernels/spmv_bsr.py:51"),
+    "spmv_ell_packed": (
+        "src/repro_torch/kernels/csrc/spmv_ell_packed.cu",
+        "src/repro/kernels/spmv_ell_packed.py:104",
+    ),
+    "mixed_dot": ("src/repro_torch/kernels/csrc/mixed_dot.cu", "src/repro/kernels/mixed_dot.py:51"),
 }
+KERNEL_ORDER = tuple(KERNEL_META)
 
 
 def reset_launches():
@@ -290,6 +325,83 @@ def library_bsr_ms(block_csr, dtype, x):
     return time_ms(lambda: torch.mv(bsr_t, x))
 
 
+def ell_chunk(csr, r0: int, r1: int):
+    """Rows ``[r0, r1)`` of a host CSR as the chunked operator stages them:
+    an ELL chunk with rows and width padded to 8, values rounded to f32."""
+    from repro_torch.sparse import CSR, to_device_ell
+
+    lo, hi = int(csr.indptr[r0]), int(csr.indptr[r1])
+    sub = CSR(indptr=csr.indptr[r0 : r1 + 1] - lo, indices=csr.indices[lo:hi],
+              data=csr.data[lo:hi], shape=(r1 - r0, r1 - r0))
+    ell = to_device_ell(sub, dtype=torch.float32, device="cpu")
+    return ell.val.numpy(), ell.col.numpy()
+
+
+def phase_kernels_chunked(big, small) -> dict:
+    """Phase 2, the chunked path's kernels: ``spmv_ell_packed`` on a real
+    chunk of phase 8's matrix (int32 deltas) and on a one-chunk road
+    network whose deltas fit int16, for both value dtypes and every
+    (storage, accum) pair; ``mixed_dot`` at n = 4,194,304."""
+    from repro_torch.core.operators import chunk_row_bounds
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.spmv_ell_packed import pack_ell_chunk
+
+    fns = kernel_modules()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    out = {}
+    r0, r1 = chunk_row_bounds(big.indptr, big.n, 1 << 20)[0]
+    chunks = {"int32": (ell_chunk(big, r0, r1), big.n), "int16": (ell_chunk(small, 0, small.n), small.n)}
+    rec = None
+    for want_idx, ((val, col), n_x) in chunks.items():
+        x64 = torch.randn(n_x, generator=g, dtype=torch.float64, device=dev)
+        for mode in ("bf16", "fp8"):
+            packed = [t.to(dev) for t in pack_ell_chunk(val, col, mode)]
+            idx = str(packed[3].dtype).replace("torch.", "")
+            check(idx == want_idx, f"packed chunk deltas are {idx}, expected {want_idx}")
+            rows, width = packed[0].shape
+            for S, A in PAIRS:
+                x = x64.to(S)
+                run = lambda: fns["spmv_ell_packed"](*packed, x, accum_dtype=A)  # noqa: E731
+                plain = lambda: ref.spmv_ell_packed_ref(*packed, x, A)  # noqa: E731
+                err = close(run(), plain(), RTOL[A])
+                print(f"[kernels] spmv_ell_packed {rows} x {width} ({mode}, {idx}, {dname(S)}, "
+                      f"{dname(A)}): max_abs_err {err:.3e} ok")
+                if (mode, idx, S, A) == ("bf16", "int32", *MAIN_PAIR):
+                    nnz = int(np.count_nonzero(val))
+                    touched = int(np.unique(col[val != 0]).size)
+                    moved = nbytes(*packed) + touched * S.itemsize + rows * A.itemsize
+                    t_b, by = bound(moved, 3.0 * nnz, A)
+                    rec = {"max_abs_err": err, "ms": time_ms(run), "plain_ms": time_ms(plain),
+                           "bound_ms": t_b, "bound_by": by, "library_ms": None}
+    out["spmv_ell_packed"] = rec
+
+    n = 1 << 22
+    a64, b64 = (torch.randn(n, generator=g, dtype=torch.float64, device=dev) for _ in range(2))
+    rec = None
+    for S in (torch.float32, torch.bfloat16, torch.float16, torch.float64):
+        a, b = a64.to(S), b64.to(S)
+        terms = float((a.double() * b.double()).abs().sum())
+        for A in (torch.float32, torch.float64):
+            for comp in (False, True):
+                run = lambda: fns["mixed_dot"](a, b, accum_dtype=A, compensated=comp)  # noqa: E731
+                plain = lambda: ref.mixed_dot_ref(a, b, A, compensated=comp)  # noqa: E731
+                got, want = run(), plain()
+                err = float((got.double().sum() - want.double().sum()).abs())
+                check(err <= RTOL[A] * terms, f"mixed_dot {S}/{A}: error {err:.3e} vs {terms:.3e}")
+                # The 0-d entry point returns the same sum.
+                check(float(ops.mixed_dot(a, b, A, comp)) == float(got.sum()), "ops.mixed_dot")
+                print(f"[kernels] mixed_dot n={n:,} ({dname(S)}, {dname(A)}, compensated={comp}): "
+                      f"abs err {err:.3e} (sum |a b| {terms:.3e}) ok")
+                if (S, A, comp) == (torch.float32, torch.float32, False):
+                    t_b, by = bound(nbytes(a, b) + 2 * A.itemsize, 2.0 * n, A)
+                    rec = {"max_abs_err": err, "ms": time_ms(run), "plain_ms": time_ms(plain),
+                           "bound_ms": t_b, "bound_by": by,
+                           "library_ms": time_ms(lambda: torch.dot(a, b))}
+    out["mixed_dot"] = rec
+    return out
+
+
 # ---------------------------------------------------------------- eigensolves
 
 
@@ -306,12 +418,16 @@ def solve(A, dev, v0, **kw):
 
 
 def check_eigs(tag, gpu, cpu, rtol):
-    eg = gpu.eigenvalues.double().cpu().numpy()
-    ec = cpu.eigenvalues.double().cpu().numpy()
+    """Max difference of two solves' eigenvalues, relative to |lambda|max.
+    Compared as sorted values: the road networks' +-lambda pairs differ in
+    magnitude by ~1e-5, so a perturbation of that size (fp8 staging) may
+    list the two members of a pair in either order."""
+    eg = np.sort(gpu.eigenvalues.double().cpu().numpy())
+    ec = np.sort(cpu.eigenvalues.double().cpu().numpy())
     check(eg.shape == (K,) and np.isfinite(eg).all(), f"{tag}: bad eigenvalues {eg}")
     check(tuple(gpu.eigenvectors.shape) == (gpu.n, K), f"{tag}: eigenvectors {gpu.eigenvectors.shape}")
     err = float(np.abs(eg - ec).max() / np.abs(ec).max())
-    check(err <= rtol, f"{tag}: eigenvalues differ from the host solve by {err:.3e} > {rtol:.0e}")
+    check(err <= rtol, f"{tag}: eigenvalues differ from the other solve by {err:.3e} > {rtol:.0e}")
     return err
 
 
@@ -370,6 +486,152 @@ def check_loop_never_syncs(tag, A, policy_name):
           f"{eng.iteration_plan.update}): no device->host sync in {K} steps")
 
 
+def staging_line(res) -> str:
+    st = res.partition["spmv"]["staging"]
+    return (f"mode {st['mode']}, transfers {st['transfers']}, bytes_staged {st['bytes_staged']:,}, "
+            f"bytes_plain {st['bytes_plain']:,}, stage_s {st['stage_s']:.3f}, effective "
+            f"{st['effective_bandwidth_gbps']:.3f} GB/s, compression {st['compression_ratio']:.4f}, "
+            f"max_resident {st['max_resident']}")
+
+
+def check_chunked(tag, res, launches, kernel, mode):
+    part = res.partition
+    st = part["spmv"]["staging"]
+    check(res.backend == "chunked", f"{tag}: backend {res.backend}, expected chunked")
+    check(res.spmv_format == "ell", f"{tag}: format {res.spmv_format}, expected ell")
+    check(st["mode"] == mode, f"{tag}: staging mode {st['mode']}, expected {mode}")
+    want = part["num_chunks"] * K
+    other = "spmv_ell" if kernel == "spmv_ell_packed" else "spmv_ell_packed"
+    check(launches[kernel] == want and launches[other] == 0 and launches["lanczos_update"] == K,
+          f"{tag}: launches {launches}, expected {want} {kernel} and {K} lanczos_update")
+    check(st["max_resident"] <= part["stage_depth"] + 1,
+          f"{tag}: {st['max_resident']} chunks resident > stage_depth + 1")
+    check(st["transfers"] == want, f"{tag}: {st['transfers']} transfers, expected {want}")
+
+
+def compression_range(csr, chunk_nnz: int, storage_bytes: int, value_bytes: int):
+    """The compression ratio packed staging must show on this matrix: every
+    chunk's deltas in int32 (low end) or all in int16 (high end)."""
+    from repro_torch.core.operators import chunk_row_bounds, chunk_rows_pad
+
+    row_nnz = csr.row_nnz()
+    plain = lo = hi = 0
+    for r0, r1 in chunk_row_bounds(csr.indptr, csr.n, chunk_nnz):
+        rows, width = chunk_rows_pad(r1 - r0), -(-max(1, int(row_nnz[r0:r1].max())) // 8) * 8
+        plain += rows * width * (storage_bytes + 4)
+        lo += rows * width * (value_bytes + 4) + 8 * rows
+        hi += rows * width * (value_bytes + 2) + 8 * rows
+    return plain / lo, plain / hi
+
+
+def device_split(sess, v0) -> dict:
+    """One profiled warm solve of a chunked session: device milliseconds of
+    host->device copies, of the SpMV kernels and of everything else on the
+    card, with the solve's wall time and its host staging seconds."""
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.perf_counter()
+        res = sess.eigsh(K, v0=v0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    split = {"h2d_ms": 0.0, "spmv_ms": 0.0, "other_ms": 0.0}
+    for e in prof.key_averages():
+        t = e.self_device_time_total / 1e3
+        if t <= 0 or e.key == "Activity Buffer Request":
+            continue
+        if "HtoD" in e.key:
+            split["h2d_ms"] += t
+        elif "spmv_ell" in e.key:
+            split["spmv_ms"] += t
+        else:
+            split["other_ms"] += t
+    split["wall_ms"] = wall * 1e3
+    split["stage_ms"] = res.partition["staging"]["stage_s"] * 1e3
+    return split
+
+
+def phase_chunked(road, v0, path, smi) -> tuple:
+    """Phase 8: the default call on a diskcsr path above the chunk threshold."""
+    import repro_torch
+    from repro_torch.kernels import ops
+
+    res, wall, launches = solve(path, "cuda", v0)
+    part = res.partition
+    print(f"[chunked] eigsh(diskcsr road n={road.n:,} nnz={road.nnz:,}, k={K}) backend={res.backend} "
+          f"format={res.spmv_format} chunks={part['num_chunks']} stage_depth={part['stage_depth']} "
+          f"disk_backed={part['disk_backed']} launches={launches} wall {wall:.3f} s (cold) on {smi}")
+    check(part["disk_backed"], "chunked: the diskcsr input is not disk-backed")
+    check_chunked("chunked", res, launches, "spmv_ell", "f32")
+    print(f"[chunked] staging: {staging_line(res)}")
+    single, swall, sl = solve(road, "cuda", v0, backend="single")
+    check(single.backend == "single" and sl["spmv_ell"] == K, f"single backend launches {sl}")
+    err = check_eigs("chunked", res, single, 1e-9)
+    gap = check_residuals("chunked", res, road)
+    print(f"[chunked] eigenvalues {np.round(res.eigenvalues.cpu().numpy(), 6).tolist()}")
+    print(f"[chunked] vs backend='single' (in-RAM CSR, {swall:.2f} s cold): max rel err {err:.3e} "
+          f"(<= 1e-9); residual bound gap {gap:.3e}")
+
+    # The Gram matrix of the eigenvectors through mixed_dot's entry point.
+    xt = res.eigenvectors.T.contiguous()
+    reset_launches()
+    gram = torch.stack([torch.stack([ops.mixed_dot(xt[i], xt[j], torch.float64, True)
+                                     for j in range(K)]) for i in range(K)])
+    dot_launches = read_launches()["mixed_dot"]
+    want = xt.double() @ xt.double().T
+    terms = xt.double().abs() @ xt.double().abs().T
+    check(bool(((gram - want).abs() <= 1e-12 * terms).all()), "mixed_dot Gram matrix")
+    check(dot_launches == K * K, f"mixed_dot launches {dot_launches}, expected {K * K}")
+    ortho = float((gram - torch.eye(K, dtype=torch.float64, device=gram.device)).abs().max())
+    print(f"[chunked] eigenvector Gram matrix by ops.mixed_dot (f64, compensated): "
+          f"launches {dot_launches}, max |X^T X - I| {ortho:.3e}; matches an f64 matmul ok")
+
+    sess = repro_torch.prepare(path, device="cuda")
+    sess.eigsh(K, v0=v0)  # warm-up: windows allocated, pinned
+    split = device_split(sess, v0)
+    print(f"[chunked] warm solve split (profiled): wall {split['wall_ms']:.1f} ms; host staging "
+          f"(chunk build + copy launch) {split['stage_ms']:.1f} ms; on the card: H2D copies "
+          f"{split['h2d_ms']:.2f} ms, spmv_ell {split['spmv_ms']:.2f} ms, other "
+          f"{split['other_ms']:.2f} ms; rest of the wall {split['wall_ms'] - split['stage_ms']:.1f} "
+          f"ms; on {smi}")
+    return res, launches, dot_launches
+
+
+def phase_packed(road, v0, path, f32_res, smi) -> dict:
+    """Phase 9: packed staging on the same matrix, and fp8 exactness on a
+    smaller one against the host."""
+    from repro_torch.sparse import generate
+
+    out = {}
+    for tag, kw, value_bytes, storage_bytes, tol in (
+        ("bf16 FDF", {"staging": "bf16"}, 2, 4, 8e-3),
+        ("fp8 FDF", {"staging": "fp8"}, 1, 4, 8e-2),
+        ("auto BFF", {"policy": "BFF", "staging": "auto"}, 2, 2, 8e-3),
+    ):
+        res, wall, launches = solve(path, "cuda", v0, **kw)
+        mode = kw["staging"] if kw["staging"] != "auto" else "bf16"
+        check_chunked(tag, res, launches, "spmv_ell_packed", mode)
+        ratio = res.partition["spmv"]["staging"]["compression_ratio"]
+        lo, hi = compression_range(road, 1 << 20, storage_bytes, value_bytes)
+        check(lo - 1e-9 <= ratio <= hi + 1e-9, f"{tag}: compression {ratio} outside [{lo}, {hi}]")
+        err = check_eigs(tag, res, f32_res, tol)
+        print(f"[packed] {tag}: launches={launches} wall {wall:.3f} s; {staging_line(res)} "
+              f"(expected in [{lo:.4f}, {hi:.4f}]); vs f32 staging: max rel err {err:.3e} "
+              f"(<= {tol:.0e}) on {smi}")
+        out[tag] = launches
+
+    small = generate("road", 1 << 20, 2.1, seed=0)
+    v_small = np.random.default_rng(3).standard_normal(small.n)
+    kw = {"backend": "chunked", "staging": "fp8", "chunk_nnz": 1 << 18}
+    gpu, _, gl = solve(small, "cuda", v_small, **kw)
+    check_chunked("fp8 small", gpu, gl, "spmv_ell_packed", "fp8")
+    cpu, cwall, _ = solve(small, "cpu", v_small, **kw)
+    err = check_eigs("fp8 small", gpu, cpu, 1e-9)
+    print(f"[packed] fp8 on road n={small.n:,} (chunk_nnz 1 << 18, {gpu.partition['num_chunks']} "
+          f"chunks): card vs host chunked solve max rel err {err:.3e} (<= 1e-9); host {cwall:.2f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device visible; it runs on an NVIDIA card", file=sys.stderr)
@@ -394,6 +656,11 @@ def main() -> int:
     print(f"[device] kernels built in {build.BUILD_INFO['seconds']:.2f} s "
           f"(cached={build.BUILD_INFO['cached']}); {len(regs)} kernel instantiations, "
           f"{spills} with a stack frame or spills")
+    log = build.BUILD_INFO["log"].splitlines()
+    for i, ln in enumerate(log):
+        if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill"):
+            entry = next((e for e in reversed(log[:i]) if "Compiling entry function" in e), "")
+            print(f"[device]   {ln.strip()} <- {entry.strip()[:150]}")
 
     # ---- data (host, from seeds)
     t0 = time.perf_counter()
@@ -402,13 +669,18 @@ def main() -> int:
     small = generate("road", 1 << 16, 2.1, seed=0)
     b = np.random.default_rng(1).random((8, 8))
     block = to_port_csr(sp.kron(small.to_scipy(), sp.csr_matrix((b + b.T) / 2)))
+    central = generate("road", 14_081_816, 2.4, seed=0)  # road_central's row count
+    tiny_road = generate("road", 1 << 15, 2.1, seed=0)  # one chunk, int16 deltas
     rng = np.random.default_rng(0)
-    v_road, v_web, v_block = (rng.standard_normal(m.n) for m in (road, web, block))
+    v_road, v_web, v_block, v_central = (rng.standard_normal(m.n) for m in (road, web, block, central))
     print(f"[data] road n={road.n:,} nnz={road.nnz:,}; web n={web.n:,} nnz={web.nnz:,}; "
-          f"block n={block.n:,} nnz={block.nnz:,}; generated in {time.perf_counter() - t0:.1f} s")
+          f"block n={block.n:,} nnz={block.nnz:,}; central road n={central.n:,} "
+          f"nnz={central.nnz:,} max row {int(central.row_nnz().max())}; "
+          f"generated in {time.perf_counter() - t0:.1f} s")
 
     # ---- phase 2: kernels vs plain versions
     records = phase_kernels(road, block)
+    records.update(phase_kernels_chunked(central, tiny_road))
 
     # ---- phase 3: the main path
     main_res, main_launches = phase_main(road, v_road, smi)
@@ -454,35 +726,59 @@ def main() -> int:
     print(f"[bsr] vs host solve: max rel err {err:.3e} (<= 1e-9); residual bound gap {gap:.3e}")
     check_loop_never_syncs("bsr", block, "FDF")
 
-    # ---- phase 7: warm wall times
-    import repro_torch as rt
+    # ---- phases 8 and 9: chunked, from a diskcsr directory
+    from repro_torch.sparse import save_diskcsr
 
-    for tag, A, v, kw in (
-        ("ell road FDF", road, v_road, {}),
-        ("hybrid web FFF", web, v_web, {"policy": "FFF"}),
-        ("bsr kron FDF", block, v_block, {}),
-    ):
-        _, wall, _ = solve(A, "cuda", v, **kw)
-        sess = rt.prepare(A, device="cuda", **kw)
-        torch.cuda.synchronize()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_diskcsr_")
+    try:
         t0 = time.perf_counter()
-        r = sess.eigsh(K, v0=v)
-        torch.cuda.synchronize()
-        t_solve = time.perf_counter() - t0
-        print(f"[warm] {tag}: eigsh wall {wall:.3f} s; prepare {sess.prepare_s:.3f} s; "
-              f"solve {t_solve * 1e3:.2f} ms (lanczos {r.timings['lanczos_s'] * 1e3:.2f} ms, "
-              f"jacobi {r.timings['jacobi_s'] * 1e3:.2f} ms, project {r.timings['project_s'] * 1e3:.2f} ms) "
-              f"on {smi}")
-    os.environ.pop("REPRO_ITER_UPDATE", None)
+        path = save_diskcsr(os.path.join(tmp, "road_central"), central)
+        print(f"[chunked] save_diskcsr: {sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path)):,} "
+              f"bytes in {time.perf_counter() - t0:.1f} s")
+        chunk_res, chunk_launches, dot_launches = phase_chunked(central, v_central, path, smi)
+        packed_launches = phase_packed(central, v_central, path, chunk_res, smi)
+
+        # ---- phase 7: warm wall times
+        import repro_torch as rt
+
+        for tag, A, v, kw in (
+            ("ell road FDF", road, v_road, {}),
+            ("hybrid web FFF", web, v_web, {"policy": "FFF"}),
+            ("bsr kron FDF", block, v_block, {}),
+            ("chunked diskcsr road_central FDF", path, v_central, {}),
+            ("chunked fp8 diskcsr road_central FDF", path, v_central, {"staging": "fp8"}),
+        ):
+            chunked = isinstance(A, str)
+            if not chunked:  # the chunked phases above timed their cold calls
+                _, wall, _ = solve(A, "cuda", v, **kw)
+            sess = rt.prepare(A, device="cuda", **kw)
+            if chunked:
+                sess.eigsh(K, v0=v)  # first query allocates the staging windows
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = sess.eigsh(K, v0=v)
+            torch.cuda.synchronize()
+            t_solve = time.perf_counter() - t0
+            cold = "" if chunked else f"eigsh wall {wall:.3f} s; "
+            print(f"[warm] {tag}: {cold}prepare {sess.prepare_s:.3f} s; "
+                  f"solve {t_solve * 1e3:.2f} ms (lanczos {r.timings['lanczos_s'] * 1e3:.2f} ms, "
+                  f"jacobi {r.timings['jacobi_s'] * 1e3:.2f} ms, project {r.timings['project_s'] * 1e3:.2f} ms) "
+                  f"on {smi}")
+        os.environ.pop("REPRO_ITER_UPDATE", None)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
     launches = {
         "spmv_ell": main_launches["spmv_ell"],
         "lanczos_update": main_launches["lanczos_update"],
         "spmv_ell_alpha": fl["spmv_ell_alpha"],
         "spmv_bsr": bl["spmv_bsr"],
+        "spmv_ell_packed": packed_launches["bf16 FDF"]["spmv_ell_packed"],
+        "mixed_dot": dot_launches,
     }
+    print(f"[chunked] default call launches {chunk_launches}")
     kernels = []
-    for name in ("spmv_ell", "lanczos_update", "spmv_ell_alpha", "spmv_bsr"):
+    for name in KERNEL_ORDER:
         source, replaces = KERNEL_META[name]
         kernels.append(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,

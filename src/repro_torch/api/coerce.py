@@ -1,14 +1,17 @@
 """Input coercion for the port's ``eigsh`` frontend.
 
 Accepted problem descriptions in this slice: dense arrays (NumPy or torch),
-the port's host :class:`~repro_torch.sparse.CSR`, any scipy sparse
-matrix/array, and the port's own :class:`LinearOperator` subclasses.
-Coercion returns the operator (when the input already is one) and the host
-CSR (when the input is an explicit sparse matrix).
+the port's host :class:`~repro_torch.sparse.CSR`, a
+:class:`~repro_torch.sparse.DiskCSR` or the path of a diskcsr directory,
+any scipy sparse matrix/array, and the port's own :class:`LinearOperator`
+subclasses.  Coercion returns the operator (when the input already is one)
+and the host CSR (when the input is an explicit sparse matrix; a DiskCSR
+stays a memory mapping).
 """
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -16,6 +19,7 @@ import torch
 
 from ..configs import env as envcfg
 from ..core.operators import DenseOperator, LinearOperator
+from ..sparse.diskcsr import DiskCSR, open_diskcsr
 from ..sparse.formats import CSR
 
 __all__ = ["CoercedInput", "coerce_input"]
@@ -23,7 +27,7 @@ __all__ = ["CoercedInput", "coerce_input"]
 
 class CoercedInput(NamedTuple):
     operator: Optional[LinearOperator]  # None when only a host CSR was given
-    csr: Optional[CSR]  # None for dense / operator inputs
+    csr: Optional[object]  # CSR or DiskCSR; None for dense / operator inputs
     n: int
 
 
@@ -73,6 +77,13 @@ def coerce_input(a, *, storage_dtype=torch.float32, device="cpu") -> CoercedInpu
     if isinstance(a, CSR):
         _validate_values(a.data, storage_dtype, "CSR data")
         return CoercedInput(operator=None, csr=a, n=a.n)
+    # A diskcsr directory or an open DiskCSR stays a mapping.  Its values
+    # are not scanned: that would read the whole payload from disk, the
+    # very thing the out-of-core path exists to avoid.
+    if isinstance(a, (str, os.PathLike)):
+        a = open_diskcsr(a)  # raises FileNotFoundError with a hint otherwise
+    if isinstance(a, DiskCSR):
+        return CoercedInput(operator=None, csr=a, n=a.n)
     if hasattr(a, "tocsr") and hasattr(a, "shape"):  # scipy sparse, duck-typed
         csr = _csr_from_scipy(a)
         _validate_values(csr.data, storage_dtype, "sparse data")
@@ -89,5 +100,6 @@ def coerce_input(a, *, storage_dtype=torch.float32, device="cpu") -> CoercedInpu
         )
     raise TypeError(
         f"eigsh does not understand input of type {type(a).__name__}: expected a "
-        "dense array, a repro_torch CSR, a scipy sparse matrix, or a LinearOperator"
+        "dense array, a repro_torch CSR or DiskCSR (or a diskcsr path), a scipy sparse "
+        "matrix, or a LinearOperator"
     )

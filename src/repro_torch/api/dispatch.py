@@ -20,9 +20,11 @@ that decision as an explicit, testable function of the input:
 Explicit ``backend=`` requests skip the policy but are validated (the
 distributed and chunked paths need an explicit sparse matrix).
 
-This is the reference's ``select_backend``, verbatim.  The port runs only
-``"single"`` so far: the session raises ``NotImplementedError`` for the
-others, naming the ROADMAP item that brings each.
+This is the reference's ``select_backend``, verbatim.  The port runs
+``"single"`` and ``"chunked"`` so far: the session raises
+``NotImplementedError`` for the others, naming the ROADMAP item that brings
+each.  The session passes ``disk_bytes`` for a DiskCSR input, as the
+reference's does.
 """
 
 from __future__ import annotations

@@ -8,7 +8,9 @@ The call coerces the input, picks the backend, builds the SpMV layout on
 ``device`` and runs the fixed-subspace solve, reporting in the
 :class:`EigenResult` schema of the reference (``repro.api.eigsh``).  The
 default ``device="cuda"`` raises when no card is visible: the port never
-falls back to the host silently.  This slice runs ``backend="single"``.
+falls back to the host silently.  This slice runs ``backend="single"`` and
+the out-of-core ``backend="chunked"``, which streams an in-RAM CSR or a
+diskcsr directory (a path or a ``DiskCSR``) to the device chunk by chunk.
 """
 
 from __future__ import annotations
@@ -67,8 +69,18 @@ class SolverConfig:
     num_iters: Optional[int] = None
     seed: int = 0
     format: str = "auto"
+    chunk_nnz: int = 1 << 20  # chunked backend: device-resident nnz per chunk
+    stage_depth: int = 1  # chunked backend: chunks staged ahead of compute
+    # Chunked backend: how staged ELL chunks travel host -> device.  "f32"
+    # ships the storage dtype; "bf16" / "fp8" quantize the values (per-row-
+    # block scales) and delta-encode the columns, decoded in the
+    # spmv_ell_packed kernel; "auto" packs when the storage dtype is narrow.
+    staging: str = "f32"
     jacobi: str = "host"
     recovery: Optional[str] = None  # None/"raise" (health probe on) or "none"
+    # Solve snapshots (the chunked engine's chunk-cursor checkpoints among
+    # them): not ported yet (ROADMAP queue A, item 12); setting one raises.
+    checkpoint_dir: Optional[str] = None
     device: str = "cuda"
 
 
@@ -96,8 +108,12 @@ def eigsh(
     v0=None,
     seed: int = 0,
     format: str = "auto",
+    chunk_nnz: int = 1 << 20,
+    stage_depth: int = 1,
+    staging: str = "f32",
     jacobi: str = "host",
     recovery: Optional[str] = None,
+    checkpoint_dir: Optional[str] = None,
     device: str = "cuda",
 ) -> EigenResult:
     """Top-K eigenpairs (largest |lambda|) of a symmetric matrix.
@@ -106,6 +122,10 @@ def eigsh(
     where the solve runs ("cuda" by default; "cpu" runs the kernels' plain
     versions).  ``v0`` is an optional start vector of length n; without
     one it is drawn from a ``torch.Generator`` seeded with ``seed``.
+    ``chunk_nnz``, ``stage_depth`` and ``staging`` shape the chunked
+    backend: nnz per staged chunk, chunks staged ahead of the one computing
+    (at most ``stage_depth + 1`` resident), and the chunks' wire format
+    ("f32", "bf16", "fp8" or "auto"; ``REPRO_CHUNK_STAGING`` pins it).
     """
     cfg = config or SolverConfig(
         policy=policy,
@@ -115,8 +135,12 @@ def eigsh(
         num_iters=num_iters,
         seed=seed,
         format=format,
+        chunk_nnz=chunk_nnz,
+        stage_depth=stage_depth,
+        staging=staging,
         jacobi=jacobi,
         recovery=recovery,
+        checkpoint_dir=checkpoint_dir,
         device=device,
     )
     from .session import EigenSession  # lazy: session imports this module

@@ -7,6 +7,11 @@ precision policy) and runs queries against it:
     sess = prepare(A, device="cuda")     # coerce, select format, convert
     r = sess.eigsh(8)                     # execute: no conversion
 
+Backends: ``"single"`` (the in-core layout on one device) and
+``"chunked"`` (:class:`~repro_torch.core.operators.ChunkedOperator`: the
+matrix stays on the host, in RAM or memory-mapped from a diskcsr directory,
+and streams to the device chunk by chunk).
+
 Not ported yet: the process-wide session cache, ``eigsh_many`` grouping,
 ``policy="auto"`` and ``recovery="auto"`` (ROADMAP queue A, item 8).
 """
@@ -22,9 +27,11 @@ import torch
 
 from ..core.eigensolver import solve_fixed
 from ..core.lanczos import ops_for_operator, resolve_update_mode
-from ..core.operators import DenseOperator, LinearOperator, make_operator
+from ..configs import env as envcfg
+from ..core.operators import ChunkedOperator, DenseOperator, LinearOperator, make_operator
 from ..core.precision import PrecisionPolicy
-from ..kernels.engine import FORMATS, SpmvEngine, make_engine
+from ..kernels.engine import FORMATS, SpmvEngine, ell_overhead_bound, make_engine
+from ..sparse.diskcsr import DiskCSR
 from ..sparse.formats import conversion_count
 from .coerce import coerce_input
 from .dispatch import select_backend
@@ -37,7 +44,7 @@ _UNSET = object()  # "inherit the session default"
 
 # Backends the reference runs that this port does not yet, and the ROADMAP
 # item (queue A) that brings each.
-_NOT_PORTED = {"restarted": 7, "distributed": 10, "chunked": 11}
+_NOT_PORTED = {"restarted": 7, "distributed": 10}
 
 
 def resolve_device(device) -> torch.device:
@@ -108,6 +115,7 @@ class EigenSession:
             tol=tol,
             # One device per solve until the distributed backend is ported.
             device_count=1,
+            disk_bytes=self.csr.nbytes_on_disk() if isinstance(self.csr, DiskCSR) else None,
         )
         if backend in _NOT_PORTED:
             raise NotImplementedError(
@@ -118,12 +126,14 @@ class EigenSession:
 
     def _ensure(self, backend: str, pol: PrecisionPolicy) -> Tuple[_Prepared, bool]:
         key = (backend, f"{pol.storage}-{pol.phase_dtype('spmv')}")
+        if backend == "chunked":  # the staging pin is part of the plan
+            key += (envcfg.raw("REPRO_CHUNK_STAGING") or self.cfg.staging,)
         hit = self._prepared.get(key)
         if hit is not None:
             return hit, False
         t0 = time.perf_counter()
         conv0 = conversion_count()
-        prep = self._build_single(pol)
+        prep = self._build_chunked(pol) if backend == "chunked" else self._build_single(pol)
         prep.build_s = time.perf_counter() - t0
         prep.conversions = conversion_count() - conv0
         self._prepared[key] = prep
@@ -139,11 +149,54 @@ class EigenSession:
                     op = DenseOperator(t.to(device=self.device, dtype=pol.storage))
                 return _Prepared(op, "dense", None)
             return _Prepared(op, getattr(op, "spmv_format", "matfree"), getattr(op, "engine", None))
+        # An in-core layout holds the whole matrix anyway: a mapping that
+        # reached this backend fits, and is read once.
+        csr = self.csr.to_csr() if isinstance(self.csr, DiskCSR) else self.csr
         engine = make_engine(
-            self.csr, self.cfg.format, accum_dtype=pol.phase_dtype("spmv"), device=self.device
+            csr, self.cfg.format, accum_dtype=pol.phase_dtype("spmv"), device=self.device
         )
-        op = make_operator(self.csr, dtype=pol.storage, engine=engine)
+        op = make_operator(csr, dtype=pol.storage, engine=engine)
         return _Prepared(op, engine.format, engine)
+
+    def _build_chunked(self, pol: PrecisionPolicy) -> _Prepared:
+        """The out-of-core plan: a :class:`ChunkedOperator` over the host CSR
+        or mapping, which stays where it is, with ELL chunks (or COO)."""
+        cfg, csr = self.cfg, self.csr
+        acc = pol.phase_dtype("spmv")
+        # REPRO_CHUNK_STAGING pins the staged-chunk encoding for A/B runs,
+        # over the config (ChunkedOperator validates the value).
+        kw = dict(chunk_nnz=cfg.chunk_nnz, dtype=pol.storage, stage_depth=cfg.stage_depth,
+                  staging=envcfg.raw("REPRO_CHUNK_STAGING") or cfg.staging, device=self.device)
+        fmt = cfg.format if cfg.format != "auto" else "ell"
+        # Per-chunk BSR / hybrid staging does not exist: ELL or COO.
+        engine = make_engine(csr, fmt, accum_dtype=acc, allowed=("coo", "ell"), device=self.device)
+        op = ChunkedOperator(csr, engine=engine, **kw)  # O(n) planning, nothing staged
+        if cfg.format == "auto":
+            # ELL when the chunks' padded slots stay within the ELL overhead
+            # bound and their bytes do not dwarf the COO triplets they
+            # replace: the reference's rule, charged with the operator's own
+            # padding (width and rows to 8), not the TPU's 128 lanes, under
+            # which the reference's rule sends a road network to COO.
+            nnz = max(1, csr.nnz)
+            itemsize = torch.empty((), dtype=pol.storage).element_size()
+            ell_bytes = op.padded_slots * (itemsize + 4)
+            if not (op.padded_slots / nnz <= ell_overhead_bound() and ell_bytes <= 4 * nnz * 12):
+                engine = make_engine(csr, "coo", stats=engine.stats, accum_dtype=acc,
+                                     device=self.device)
+                op = ChunkedOperator(csr, engine=engine, **kw)
+        return _Prepared(op, engine.format, engine)
+
+    @staticmethod
+    def _chunked_partition(op: ChunkedOperator, staging_before: dict) -> dict:
+        """The chunked result's ``partition``: the plan's shape and this
+        call's staging costs (the operator's counters run over a session's
+        queries)."""
+        return {
+            "num_chunks": op.num_chunks,
+            "stage_depth": op.stage_depth,
+            "disk_backed": bool(op.disk_backed),
+            "staging": op.staging_stats(since=staging_before),
+        }
 
     def eigsh(
         self,
@@ -180,12 +233,19 @@ class EigenSession:
             raise NotImplementedError(
                 "only jacobi='host' is ported; the device Jacobi waits (ROADMAP queue A, item 5)"
             )
+        if cfg.checkpoint_dir is not None:
+            raise NotImplementedError(
+                "checkpoint_dir= (solve snapshots, the chunked engine's chunk-cursor "
+                "checkpoints among them) is not ported yet (ROADMAP queue A, item 12)"
+            )
         rec = pick(recovery, cfg.recovery) or "raise"
         if rec not in ("raise", "none"):
             raise NotImplementedError(
                 f"recovery={rec!r} is not ported (only None/'raise'/'none'; ROADMAP queue A, item 8)"
             )
         prep, built = self._ensure(backend, pol)
+        chunked = isinstance(prep.operator, ChunkedOperator)
+        staging0 = dict(prep.operator.staging) if chunked else {}
         m = int(num_iters) if num_iters is not None else k
         sweep = solve_fixed(
             prep.operator,
@@ -205,7 +265,10 @@ class EigenSession:
         t["solve_s"] = t["total_s"]
         t["prepare_s"] = prep.build_s if built else 0.0
         t["total_s"] = t["prepare_s"] + t["solve_s"]
+        part = self._chunked_partition(prep.operator, staging0) if chunked else {}
         spmv = prep.engine.describe() if prep.engine is not None else {"format": prep.spmv_format}
+        if chunked:
+            spmv["staging"] = part["staging"]
         spmv["conversions"] = prep.conversions if built else 0
         spmv["reused"] = not built
         if prep.engine is not None:
@@ -227,7 +290,7 @@ class EigenSession:
             policy=pol.name,
             tol=tol_eff,
             num_devices=1,
-            partition={"spmv": spmv},
+            partition={**part, "spmv": spmv},
             timings=t,
             spmv_format=prep.spmv_format,
             tridiag=sweep.tridiag,
@@ -246,8 +309,12 @@ def prepare(
     tol: Optional[float] = None,
     num_iters: Optional[int] = None,
     seed: int = 0,
+    chunk_nnz: int = 1 << 20,
+    stage_depth: int = 1,
+    staging: str = "f32",
     jacobi: str = "host",
     recovery: Optional[str] = None,
+    checkpoint_dir: Optional[str] = None,
     device: str = "cuda",
 ) -> EigenSession:
     """Plan phase of :func:`repro_torch.eigsh`: coerce, select, convert —
@@ -260,8 +327,12 @@ def prepare(
         num_iters=num_iters,
         seed=seed,
         format=format,
+        chunk_nnz=chunk_nnz,
+        stage_depth=stage_depth,
+        staging=staging,
         jacobi=jacobi,
         recovery=recovery,
+        checkpoint_dir=checkpoint_dir,
         device=device,
     )
     return EigenSession(A, cfg).warmup()

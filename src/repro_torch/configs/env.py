@@ -83,6 +83,12 @@ _DECLARED: Iterable[EnvKnob] = (
         "nnz threshold above which eigsh routes to the out-of-core chunked engine.",
     ),
     _k(
+        "REPRO_CHUNK_STAGING",
+        "str",
+        "f32",
+        "Out-of-core chunk staging mode: 'f32' (plain), 'bf16'/'fp8' (packed), or 'auto'.",
+    ),
+    _k(
         "REPRO_VALIDATE_INPUT",
         "bool",
         True,

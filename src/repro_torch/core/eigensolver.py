@@ -36,6 +36,9 @@ class FixedSolveOutput(NamedTuple):
 
 def operator_device(op: LinearOperator) -> torch.device:
     """The device an operator's data lives on."""
+    dev = getattr(op, "device", None)
+    if dev is not None:
+        return torch.device(dev)
     eng = getattr(op, "engine", None)
     if eng is not None:
         return torch.device(eng.device)

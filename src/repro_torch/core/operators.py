@@ -1,22 +1,65 @@
-"""Linear operators consumed by the eigensolver (in-core part).
+"""Linear operators consumed by the eigensolver.
 
 The Lanczos phase needs only ``y = A @ x``.  ``SparseOperator`` runs it
 through an :class:`~repro_torch.kernels.engine.SpmvEngine` on the layout
-the engine chose; ``DenseOperator`` is a plain matrix product.
+the engine chose; ``DenseOperator`` is a plain matrix product;
+:class:`ChunkedOperator` streams a matrix that stays on the host (an in-RAM
+CSR or a memory-mapped :class:`~repro_torch.sparse.DiskCSR`) to the device
+chunk by chunk, the paper's out-of-core mode.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+import time
+from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 from ..kernels.engine import SpmvEngine
-from ..sparse.formats import CSR, to_device_bsr, to_device_coo, to_device_ell, to_device_hybrid
+from ..sparse.diskcsr import DiskCSR
+from ..sparse.formats import (
+    CSR,
+    count_conversions,
+    segment_sum,
+    to_device_bsr,
+    to_device_coo,
+    to_device_ell,
+    to_device_hybrid,
+)
 from .precision import PrecisionPolicy
 
-__all__ = ["LinearOperator", "DenseOperator", "SparseOperator", "make_operator"]
+__all__ = [
+    "LinearOperator",
+    "DenseOperator",
+    "SparseOperator",
+    "ChunkedOperator",
+    "chunk_row_bounds",
+    "chunk_rows_pad",
+    "make_operator",
+]
+
+
+def chunk_row_bounds(indptr: np.ndarray, n: int, chunk_nnz: int) -> list:
+    """Row-contiguous chunk bounds holding <= ``chunk_nnz`` non-zeros each
+    (single rows larger than the budget get a chunk of their own).  The
+    reference's function, verbatim: the same chunks mean the same fp8 scale
+    blocks."""
+    starts = [0]
+    while starts[-1] < n:
+        r0 = starts[-1]
+        r1 = int(np.searchsorted(indptr, indptr[r0] + chunk_nnz, side="right")) - 1
+        starts.append(min(n, max(r1, r0 + 1)))
+    return list(zip(starts[:-1], starts[1:]))
+
+
+def chunk_rows_pad(rows: int, block_r: int = 8) -> int:
+    """Padded row count of one staged ELL chunk: rows round up to a multiple
+    of ``block_r`` (8, also the packed chunks' scale block).  The reference
+    also floors the tile at the TPU sublane minimum of the staged dtype and
+    caps it at a power of two; neither means anything on the card."""
+    return -(-rows // block_r) * block_r
 
 
 class LinearOperator:
@@ -89,3 +132,434 @@ def make_operator(csr: CSR, dtype=torch.float32, engine: SpmvEngine = None) -> S
     else:
         mat = to_device_coo(csr, dtype=dtype, device=dev)
     return SparseOperator(mat, engine=engine)
+
+
+def _numpy_view(t: torch.Tensor) -> Optional[np.ndarray]:
+    """A NumPy view of a host tensor, or None for dtypes NumPy lacks."""
+    if t.dtype in (torch.bfloat16, torch.float8_e4m3fn):
+        return None
+    return t.numpy()
+
+
+class _Window:
+    """One staging slot: a host buffer (pinned when the device is a card)
+    and a device buffer per operand, sized for the largest chunk, plus the
+    events that order its reuse."""
+
+    def __init__(self, sizes, device: torch.device):
+        cuda = device.type == "cuda"
+        self.host = [torch.empty(nb, dtype=torch.uint8, pin_memory=cuda) for nb in sizes]
+        self.dev = [torch.empty(nb, dtype=torch.uint8, device=device) for nb in sizes]
+        self.chunk: Optional[int] = None  # chunk held, until its kernel is known done
+        self.copied = torch.cuda.Event() if cuda else None  # after its H2D copy
+        self.done = torch.cuda.Event() if cuda else None  # after the kernel that read it
+        self.pending = False  # `done` recorded and not yet waited on
+
+
+def _view(buf: torch.Tensor, dtype, shape) -> torch.Tensor:
+    """The leading bytes of a uint8 buffer as a contiguous ``shape`` tensor."""
+    count = int(np.prod(shape))
+    nbytes = count * torch.empty((), dtype=dtype).element_size()
+    return buf[:nbytes].view(dtype).view(shape)
+
+
+class ChunkedOperator(LinearOperator):
+    """Out-of-core SpMV: the matrix stays on the host (an in-RAM CSR or a
+    memory-mapped :class:`~repro_torch.sparse.DiskCSR`); each matvec streams
+    fixed-size chunks to the device and accumulates their partial products.
+
+    The reference's ``ChunkedOperator`` (``repro/core/operators.py``), with
+    the TPU's ``device_put`` + ``block_until_ready`` throttle replaced by
+    CUDA streams and events:
+
+    * ``stage_depth + 1`` staging windows, each a pinned host buffer and a
+      preallocated device buffer per operand, sized for the largest chunk
+      (the caching allocator never hands back memory a copy or kernel on
+      another stream still reads).  Chunk buffers are built straight into
+      the pinned host window, copied on a side stream (``non_blocking``),
+      and the kernel waits on the copy's event.
+    * Before a window is reused, the host waits on the event of the kernel
+      that last read it: the only host syncs of the loop, one per window
+      reuse.  So at most ``stage_depth + 1`` chunks are resident on either
+      side (``staging["max_resident"]``), while the host builds chunk
+      ``i + stage_depth`` as the card runs chunk ``i``.
+    * On the CPU (``device="cpu"``) the same code runs with plain copies.
+
+    **Host residency.**  Chunk buffers are built lazily per staged window
+    from the source, never as a second full copy of the matrix.
+    ``own_data=True`` opts into the eager pre-pin (each chunk built once,
+    into pinned memory on a card) and in exchange drops the source: only one
+    host copy survives construction.
+
+    **Formats and staging.**  With an ELL engine, chunks are row ranges
+    staged as per-chunk-width ELL tiles (width padded to the engine's
+    ``block_w``, 8; rows to a multiple of 8), run by ``spmv_ell``; with
+    ``staging="bf16" | "fp8"`` their values travel quantized with per-row-
+    block scales and their columns delta-encoded (``kernels/
+    spmv_ell_packed.py``), and ``spmv_ell_packed`` decodes them in
+    registers.  ``"auto"`` packs when the storage dtype is already narrow.
+    Without an ELL engine, COO slices of ``chunk_nnz`` triplets stream
+    (plain staging only: packed modes demote to ``"f32"``), summed per row
+    by the ordered segmented sum and added into ``y``.  Counters accumulate
+    in ``self.staging`` (``staging_stats()`` adds bandwidth and compression).
+
+    Not ported yet: the reference's ``mesh`` (row-sharded chunks, ROADMAP
+    item A10) and its chunk-I/O fault hooks (item A12).
+    """
+
+    STAGING_MODES = ("f32", "bf16", "fp8", "auto")
+
+    def __init__(
+        self,
+        csr,
+        chunk_nnz: int = 1 << 20,
+        dtype=torch.float32,
+        engine: Optional[SpmvEngine] = None,
+        stage_depth: int = 1,
+        own_data: bool = False,
+        staging: str = "f32",
+        device=None,
+    ):
+        from ..kernels.spmv_ell_packed import PACKED_VALUE_DTYPES
+
+        self.n = csr.n
+        self._dtype = dtype
+        self.engine = engine
+        self.device = torch.device(device if device is not None else
+                                   (engine.device if engine is not None else "cuda"))
+        self.stage_depth = max(0, int(stage_depth))
+        self.spmv_format = engine.format if engine is not None else "coo"
+        if self.spmv_format in ("bsr", "hybrid"):
+            raise ValueError(
+                "ChunkedOperator stages chunks as COO or ELL; per-chunk "
+                f"{self.spmv_format.upper()} is not supported (pick format='ell' or 'coo')"
+            )
+        if staging not in self.STAGING_MODES:
+            raise ValueError(
+                f"unknown staging mode {staging!r}; expected one of {self.STAGING_MODES}"
+            )
+        if staging == "auto":
+            # Pack when the storage dtype is already narrow: the quantization
+            # the policy accepted is the quantization the staging ships.
+            itemsize = torch.empty((), dtype=dtype).element_size()
+            staging = "bf16" if itemsize == 2 else ("fp8" if itemsize == 1 else "f32")
+        if staging != "f32" and self.spmv_format != "ell":
+            staging = "f32"  # packed staging is an ELL-kernel path
+        self.staging_mode = staging
+        self._packed_dtype = PACKED_VALUE_DTYPES.get(staging)
+        self.disk_backed = isinstance(csr, DiskCSR)
+        self.source_path = csr.path if self.disk_backed else None
+        self.staging = {
+            "conversions": 0,
+            "transfers": 0,
+            "max_resident": 0,
+            "bytes_staged": 0,
+            "bytes_plain": 0,
+            "stage_s": 0.0,
+            "mode": self.staging_mode,
+        }
+        self._csr = csr
+        self._row_nnz = np.asarray(csr.row_nnz())  # O(n), not O(nnz)
+        if self.spmv_format == "ell":
+            self._init_ell_meta(csr, chunk_nnz, engine)
+        else:
+            self._init_coo_meta(csr, chunk_nnz)
+        self._built = np.zeros(self.num_chunks, dtype=bool)
+        self._windows = None
+        self._copy_stream = None
+        self._pinned = None
+        # Chunk-cursor bindings (``set_step_hook`` / ``set_resume``): one
+        # streamed matvec per step can hand out or restore its cursor.
+        self._step_hook = None
+        self._resume = None
+        if own_data and not self.disk_backed:
+            self._pinned = [self._build_chunk(j, None) for j in range(self.num_chunks)]
+            self._csr = None
+            self._row_nnz = None
+
+    # ------------------------------ chunk planning ------------------------------
+
+    def _init_coo_meta(self, csr, chunk_nnz: int):
+        nnz = csr.nnz
+        self._coo_chunk_nnz = int(chunk_nnz)
+        self._coo_bounds = [
+            (lo, min(lo + chunk_nnz, nnz)) for lo in range(0, max(nnz, 1), chunk_nnz)
+        ]
+        indptr = csr.indptr
+        # Rows overlapping each [lo, hi): a row may span two chunks.
+        self._coo_rows = [
+            (
+                int(np.searchsorted(indptr, lo, side="right")) - 1,
+                int(np.searchsorted(indptr, hi, side="left")),
+            )
+            for lo, hi in self._coo_bounds
+        ]
+        self.num_chunks = len(self._coo_bounds)
+        item = torch.empty((), dtype=self._dtype).element_size()
+        self._sizes = [4 * chunk_nnz, 4 * chunk_nnz, item * chunk_nnz]  # row, col, val
+
+    def _init_ell_meta(self, csr, chunk_nnz: int, engine: SpmvEngine):
+        bounds = chunk_row_bounds(csr.indptr, csr.n, chunk_nnz)
+        bw, br = engine.tiles.block_w, engine.tiles.block_r
+        self._bounds, self._widths, self._rows_pads, self._r0s = [], [], [], []
+        n_out_pad = 0
+        self.padded_slots = 0
+        for r0, r1 in bounds:
+            local_nnz = self._row_nnz[r0:r1]
+            # Per-chunk width: a hub row pays for its own chunk only.
+            width = int(max(1, local_nnz.max() if local_nnz.size else 1))
+            width = -(-width // bw) * bw
+            rows_pad = chunk_rows_pad(r1 - r0, br)
+            self._bounds.append((r0, r1))
+            self._widths.append(width)
+            self._rows_pads.append(rows_pad)
+            self._r0s.append(r0)
+            n_out_pad = max(n_out_pad, r0 + rows_pad)
+            self.padded_slots += rows_pad * width
+        self.num_chunks = len(self._bounds)
+        self._n_out_pad = n_out_pad
+        slots = max(rp * w for rp, w in zip(self._rows_pads, self._widths))
+        rows = max(self._rows_pads)
+        if self._packed_dtype is None:
+            item = torch.empty((), dtype=self._dtype).element_size()
+            self._sizes = [item * slots, 4 * slots]  # val, col
+        else:
+            vitem = torch.empty((), dtype=self._packed_dtype).element_size()
+            # val, scale, base, dcol (int32 at most)
+            self._sizes = [vitem * slots, 4 * rows, 4 * rows, 4 * slots]
+
+    # ------------------------------ chunk building ------------------------------
+
+    def _build_chunk(self, j: int, bufs):
+        """Build chunk ``j``'s host staging buffers from the source CSR or
+        mapping, into ``bufs`` (a window's host buffers) or, with ``None``,
+        into buffers of its own (the ``own_data`` pre-pin).  Returns the
+        operand tensors in kernel order."""
+        if bufs is None:
+            pinned = self.device.type == "cuda"
+            bufs = [torch.empty(nb, dtype=torch.uint8, pin_memory=pinned) for nb in self._sizes]
+        if self.spmv_format == "ell":
+            arrs = self._build_ell_chunk(j, bufs)
+        else:
+            arrs = self._build_coo_chunk(j, bufs)
+        if not self._built[j]:
+            # Once per chunk per operator: rebuilding a window on a later
+            # sweep is staging traffic, not a new layout conversion.
+            self._built[j] = True
+            self.staging["conversions"] += 1
+            count_conversions(1)
+        return arrs
+
+    def _fill_values(self, out: torch.Tensor, flat: np.ndarray, vals: np.ndarray) -> None:
+        """Zero ``out`` and scatter f64 ``vals`` into its flat positions,
+        rounding once to ``out``'s dtype (nearest even, as the reference's
+        casts)."""
+        view = _numpy_view(out)
+        if view is not None:
+            v = view.reshape(-1)
+            v[:] = 0
+            v[flat] = vals
+            return
+        tmp = np.zeros(out.numel(), dtype=np.float64)
+        tmp[flat] = vals
+        out.view(-1).copy_(torch.from_numpy(tmp))
+
+    def _build_coo_chunk(self, j: int, bufs):
+        lo, hi = self._coo_bounds[j]
+        r_lo, r_hi = self._coo_rows[j]
+        indptr = self._csr.indptr
+        cnt, size = hi - lo, self._coo_chunk_nnz
+        counts = np.minimum(indptr[r_lo + 1 : r_hi + 1], hi) - np.maximum(indptr[r_lo:r_hi], lo)
+        row = _view(bufs[0], torch.int32, (size,))
+        col = _view(bufs[1], torch.int32, (size,))
+        val = _view(bufs[2], self._dtype, (size,))
+        r, c = row.numpy(), col.numpy()
+        r[:cnt] = np.repeat(np.arange(r_lo, r_hi, dtype=np.int32), counts)
+        r[cnt:] = 0
+        c[:cnt] = self._csr.indices[lo:hi]
+        c[cnt:] = 0
+        self._fill_values(val, np.arange(cnt), self._csr.values(lo, hi))
+        return [row, col, val]
+
+    def _build_ell_chunk(self, j: int, bufs):
+        from ..kernels.spmv_ell_packed import pack_ell_chunk
+
+        r0, r1 = self._bounds[j]
+        indptr = self._csr.indptr
+        lo, hi = int(indptr[r0]), int(indptr[r1])
+        width, rows_pad = self._widths[j], self._rows_pads[j]
+        # Flat ELL position of every stored entry: row * width + position.
+        starts = np.arange(r1 - r0, dtype=np.int64) * width - (np.asarray(indptr[r0:r1]) - lo)
+        flat = np.repeat(starts, self._row_nnz[r0:r1]) + np.arange(hi - lo)
+        vals = self._csr.values(lo, hi)
+        shape = (rows_pad, width)
+        if self._packed_dtype is None:
+            val = _view(bufs[0], self._dtype, shape)
+            col = _view(bufs[1], torch.int32, shape)
+            c = col.numpy().reshape(-1)
+            c[:] = 0
+            c[flat] = self._csr.indices[lo:hi]
+            self._fill_values(val, flat, vals)
+            return [val, col]
+        col_np = np.zeros(shape, dtype=np.int32)
+        col_np.reshape(-1)[flat] = self._csr.indices[lo:hi]
+        val_np = np.zeros(shape, dtype=np.float32)
+        val_np.reshape(-1)[flat] = vals  # rounded to f32 first, as the reference
+        packed = pack_ell_chunk(val_np, col_np, self.staging_mode)
+        out = []
+        for buf, t in zip(bufs, packed):
+            v = _view(buf, t.dtype, tuple(t.shape))
+            v.copy_(t)
+            out.append(v)
+        return out
+
+    def _plain_chunk_bytes(self, j: int) -> int:
+        """Bytes plain staging ships for chunk ``j`` (the numerator of the
+        compression ratio)."""
+        item = torch.empty((), dtype=self._dtype).element_size()
+        if self.spmv_format == "ell":
+            return self._rows_pads[j] * self._widths[j] * (item + 4)  # val + int32 col
+        return self._coo_chunk_nnz * (8 + item)
+
+    # ------------------------------- staging loop -------------------------------
+
+    def _ensure_windows(self) -> None:
+        if self._windows is None:
+            self._windows = [_Window(self._sizes, self.device) for _ in range(self.stage_depth + 1)]
+            if self.device.type == "cuda":
+                self._copy_stream = torch.cuda.Stream(device=self.device)
+
+    def _release(self, win: _Window) -> None:
+        """Free a window for its next chunk: wait (on the host) for the
+        kernel that last read it.  That kernel ran after the window's copy,
+        so the pinned host buffer is free too."""
+        if win.pending:
+            win.done.synchronize()
+            win.pending = False
+        win.chunk = None
+
+    def _stream(self, consume, start: int = 0) -> None:
+        """Stream chunks ``start..`` through ``consume(i, operands)``, staging
+        up to ``stage_depth`` chunks ahead of the one computing."""
+        self._ensure_windows()
+        wins, depth = self._windows, self.stage_depth
+        cuda = self.device.type == "cuda"
+        staged = {}
+
+        def stage(j):
+            if j >= self.num_chunks or j in staged:
+                return
+            t0 = time.perf_counter()
+            win = wins[j % len(wins)]
+            self._release(win)
+            src = self._pinned[j] if self._pinned is not None else self._build_chunk(j, win.host)
+            dev = [_view(d, h.dtype, tuple(h.shape)) for d, h in zip(win.dev, src)]
+            if cuda:
+                with torch.cuda.stream(self._copy_stream):
+                    for d, h in zip(dev, src):
+                        d.copy_(h, non_blocking=True)
+                    win.copied.record(self._copy_stream)
+            else:
+                for d, h in zip(dev, src):
+                    d.copy_(h)
+            win.chunk = j
+            staged[j] = dev
+            self.staging["stage_s"] += time.perf_counter() - t0
+            self.staging["transfers"] += 1
+            self.staging["bytes_staged"] += sum(h.numel() * h.element_size() for h in src)
+            self.staging["bytes_plain"] += self._plain_chunk_bytes(j)
+            resident = sum(w.chunk is not None for w in wins)
+            self.staging["max_resident"] = max(self.staging["max_resident"], resident)
+
+        for j in range(start, min(start + depth, self.num_chunks)):
+            stage(j)
+        for i in range(start, self.num_chunks):
+            stage(i)
+            win = wins[i % len(wins)]
+            if cuda:
+                torch.cuda.current_stream(self.device).wait_event(win.copied)
+            consume(i, staged.pop(i))
+            if cuda:
+                win.done.record(torch.cuda.current_stream(self.device))
+                win.pending = True
+            if depth:
+                stage(i + depth)  # into the window of chunk i - 1, while chunk i computes
+
+    def staging_stats(self, since: Optional[dict] = None) -> dict:
+        """Staging counters plus bandwidth and compression (what
+        ``partition["spmv"]["staging"]`` reports).  With ``since`` (an
+        earlier copy of ``self.staging``), the per-call costs (transfers,
+        bytes, seconds) are the differences; ``conversions`` and
+        ``max_resident`` stay the plan's own."""
+        out = dict(self.staging)
+        for key in ("transfers", "bytes_staged", "bytes_plain", "stage_s"):
+            out[key] -= (since or {}).get(key, 0)
+        staged = out["bytes_staged"]
+        out["effective_bandwidth_gbps"] = (
+            out["bytes_plain"] / out["stage_s"] / 1e9 if out["stage_s"] > 0 else 0.0
+        )
+        out["compression_ratio"] = out["bytes_plain"] / staged if staged else 1.0
+        return out
+
+    # --------------------------------- matvec -----------------------------------
+
+    def set_step_hook(self, hook) -> None:
+        """Install ``hook(chunk_index, partial_accumulator)`` to observe the
+        running accumulator of the next matvecs after each chunk (the
+        chunk-cursor checkpoint writer)."""
+        self._step_hook = hook
+
+    def set_resume(self, start_chunk: int, partial_y) -> None:
+        """Arm the next matvec to skip chunks ``< start_chunk`` and seed its
+        accumulator from ``partial_y``; consumed by exactly one matvec."""
+        self._resume = (int(start_chunk), partial_y)
+
+    def matvec(self, x, accum_dtype=None, *, start_chunk: int = 0, partial_y=None,
+               on_chunk=None):
+        """Streamed SpMV.  ``start_chunk`` / ``partial_y`` resume a partial
+        product (chunks run in a fixed order, so a resume is bit-identical to
+        an uninterrupted sweep); ``on_chunk(i, y)`` gets a copy of the
+        running accumulator after each chunk."""
+        if start_chunk == 0 and partial_y is None and self._resume is not None:
+            start_chunk, partial_y = self._resume
+            self._resume = None
+        if on_chunk is None:
+            on_chunk = self._step_hook
+        acc = accum_dtype or self._dtype
+        length = self._n_out_pad if self.spmv_format == "ell" else self.n
+        if partial_y is not None:
+            y = torch.as_tensor(partial_y).to(device=self.device, dtype=acc, copy=True)
+        else:
+            y = torch.zeros(length, dtype=acc, device=self.device)
+        if self.spmv_format == "ell":
+            eng = self.engine
+            if eng.accum_dtype != acc:
+                eng = dataclasses.replace(eng, accum_dtype=acc)
+            packed = self._packed_dtype is not None
+
+            def consume(i, arrs):
+                yk = eng.packed_ell_matvec(*arrs, x) if packed else eng.ell_matvec(*arrs, x)
+                r0 = self._r0s[i]
+                y[r0 : r0 + yk.shape[0]] += yk
+                if on_chunk is not None:
+                    on_chunk(i, y.clone())
+
+            self._stream(consume, start=start_chunk)
+            return y[: self.n]
+
+        def consume(i, arrs):
+            row, col, val = arrs
+            lo, hi = self._coo_bounds[i]
+            r_lo, r_hi = self._coo_rows[i]
+            cnt = hi - lo
+            prod = val[:cnt].to(acc) * x.index_select(0, col[:cnt]).to(acc)
+            # Row offsets of this slice, found on the device from its sorted
+            # rows; the ordered segmented sum, not index_add_'s atomics.
+            bounds = torch.arange(r_lo, r_hi + 1, dtype=torch.int32, device=self.device)
+            offsets = torch.searchsorted(row[:cnt], bounds)
+            y[r_lo:r_hi] += segment_sum(prod, offsets)
+            if on_chunk is not None:
+                on_chunk(i, y.clone())
+
+        self._stream(consume, start=start_chunk)
+        return y

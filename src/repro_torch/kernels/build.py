@@ -1,6 +1,6 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) for Hopper.
 
-The four sources compile with ``nvcc -gencode arch=compute_90a,code=sm_90a``
+The six sources compile with ``nvcc -gencode arch=compute_90a,code=sm_90a``
 into one shared library with a plain C interface, loaded with ``ctypes``:
 seconds to build, against minutes for an extension that includes PyTorch's
 headers.  The build happens at first use, from the sources in this package
@@ -35,13 +35,21 @@ __all__ = [
     "load",
     "check",
     "dtype_code",
+    "index_code",
     "ptr",
     "stream_of",
     "require_cuda",
 ]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("spmv_ell.cu", "lanczos_update.cu", "lanczos_fused.cu", "spmv_bsr.cu")
+SOURCES = (
+    "spmv_ell.cu",
+    "lanczos_update.cu",
+    "lanczos_fused.cu",
+    "spmv_bsr.cu",
+    "spmv_ell_packed.cu",
+    "mixed_dot.cu",
+)
 # --fmad=false: every product is rounded before it is added, as in the plain
 # PyTorch versions, so kernel and plain version differ only in sum order.
 NVCC_FLAGS = (
@@ -55,8 +63,16 @@ NVCC_FLAGS = (
     "-Xptxas",
     "-v",
 )
-# Mirrors the DT_* codes of csrc/common.cuh.
-_DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3}
+# Mirror the DT_* codes of csrc/common.cuh: value dtypes, then the index
+# dtypes of the packed chunks' column deltas.
+_DTYPE_CODES = {
+    torch.float32: 0,
+    torch.float64: 1,
+    torch.float16: 2,
+    torch.bfloat16: 3,
+    torch.float8_e4m3fn: 4,
+}
+_INDEX_CODES = {torch.int16: 5, torch.int32: 6}
 
 # What the last build() did: seconds, library path, whether it was already
 # built, and the compiler's output (register / spill report).
@@ -73,6 +89,8 @@ _SIGNATURES = {
     "repro_spmv_ell_alpha": (_I, [_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _L, _I, _I, _P]),
     "repro_lanczos_update": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P]),
     "repro_spmv_bsr": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _I, _P]),
+    "repro_spmv_ell_packed": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P]),
+    "repro_mixed_dot": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _I, _P]),
     "repro_ell_blocks": (_L, [_L, _I]),
     "repro_update_blocks": (_L, [_L]),
     "repro_error_string": (ctypes.c_char_p, [_I]),
@@ -181,6 +199,13 @@ def dtype_code(dt: torch.dtype) -> int:
         return _DTYPE_CODES[dt]
     except KeyError:
         raise TypeError(f"no CUDA kernel instantiation for dtype {dt}") from None
+
+
+def index_code(dt: torch.dtype) -> int:
+    try:
+        return _INDEX_CODES[dt]
+    except KeyError:
+        raise TypeError(f"no CUDA kernel instantiation for index dtype {dt}") from None
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -2,7 +2,7 @@
 //
 // Every kernel is templated on (S, A): S is the dtype the arrays are stored
 // in, A the dtype products are accumulated in.  The C entry points take the
-// pair as two dtype codes (DT_* below, mirrored in kernels/_build.py) and
+// pair as two dtype codes (DT_* below, mirrored in kernels/build.py) and
 // return a cudaError_t as int: 0 on success, the launch error otherwise, and
 // ERR_UNSUPPORTED_DTYPES for a pair that is not instantiated.
 //
@@ -13,11 +13,20 @@
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-enum DType : int { DT_F32 = 0, DT_F64 = 1, DT_F16 = 2, DT_BF16 = 3 };
+enum DType : int {
+  DT_F32 = 0,
+  DT_F64 = 1,
+  DT_F16 = 2,
+  DT_BF16 = 3,
+  DT_FP8_E4M3 = 4,  // packed chunk values (spmv_ell_packed)
+  DT_I16 = 5,       // delta-encoded columns (spmv_ell_packed)
+  DT_I32 = 6,
+};
 constexpr int ERR_UNSUPPORTED_DTYPES = -1;
 
 // Threads per block of every launch: a multiple of 32, so row groups never
@@ -32,6 +41,10 @@ template <typename A> __device__ __forceinline__ A to_acc(__half v) {
 }
 template <typename A> __device__ __forceinline__ A to_acc(__nv_bfloat16 v) {
   return static_cast<A>(__bfloat162float(v));
+}
+// fp8 e4m3 -> float is exact; so is float -> double.
+template <typename A> __device__ __forceinline__ A to_acc(__nv_fp8_e4m3 v) {
+  return static_cast<A>(static_cast<float>(v));
 }
 
 // Round an accumulator value to the storage dtype (round to nearest even).

@@ -278,6 +278,12 @@ class SpmvEngine:
         """y = ELL(val, col) @ x -> (rows_pad,) in the accum dtype."""
         return kops.ell_matvec(val, col, x, self.accum_dtype)
 
+    def packed_ell_matvec(self, val, scale, base, dcol, x) -> torch.Tensor:
+        """y = dequant(val, scale) @ x over delta-encoded columns (a packed
+        out-of-core chunk; see ``kernels/spmv_ell_packed.py``) -> (rows_pad,)
+        in the accum dtype."""
+        return kops.packed_ell_matvec(val, scale, base, dcol, x, self.accum_dtype)
+
     def bsr_matvec(self, val, bcol, x) -> torch.Tensor:
         """y = BSR(val, bcol) @ x -> (nbr * BS,) in the accum dtype."""
         return kops.bsr_matvec(val, bcol, x, self.accum_dtype)

@@ -1,4 +1,4 @@
-"""Public wrappers around the four kernels.
+"""Public wrappers around the six kernels.
 
 Each wrapper picks its path from where its tensors lie: a CPU tensor runs
 the plain PyTorch version (``ref``), a CUDA tensor launches the Hopper
@@ -14,17 +14,21 @@ import torch
 from . import ref
 from .lanczos_fused import spmv_ell_alpha_kernel_call
 from .lanczos_update import lanczos_update_kernel_call
+from .mixed_dot import mixed_dot_kernel_call
 from .spmv_bsr import spmv_bsr_kernel_call
 from .spmv_ell import spmv_ell_kernel_call
+from .spmv_ell_packed import spmv_ell_packed_kernel_call
 
 __all__ = [
     "on_cpu",
     "ell_matvec",
+    "packed_ell_matvec",
     "bsr_matvec",
     "spmv_ell",
     "spmv_ell_alpha",
     "spmv_bsr",
     "lanczos_update",
+    "mixed_dot",
 ]
 
 
@@ -42,6 +46,13 @@ def ell_matvec(val, col, x, accum_dtype) -> torch.Tensor:
     if on_cpu(val):
         return ref.spmv_ell_ref(val, col, x, accum_dtype)
     return spmv_ell_kernel_call(val, col, x, accum_dtype=accum_dtype)
+
+
+def packed_ell_matvec(val, scale, base, dcol, x, accum_dtype) -> torch.Tensor:
+    """SpMV of a packed ELL chunk (``spmv_ell_packed``) -> ``(rows,)``."""
+    if on_cpu(val):
+        return ref.spmv_ell_packed_ref(val, scale, base, dcol, x, accum_dtype)
+    return spmv_ell_packed_kernel_call(val, scale, base, dcol, x, accum_dtype=accum_dtype)
 
 
 def bsr_matvec(val, bcol, x, accum_dtype) -> torch.Tensor:
@@ -90,3 +101,24 @@ def lanczos_update(w, v, v_prev, alpha, beta, accum_dtype=None):
     if on_cpu(w):
         return ref.lanczos_update_ref(w, v, v_prev, alpha, beta, acc)
     return lanczos_update_kernel_call(w, v, v_prev, alpha, beta, accum_dtype=acc)
+
+
+def mixed_dot(a, b, accum_dtype=None, compensated: bool = False, block: int = 4096):
+    """``a . b`` as a 0-d tensor in ``accum_dtype`` (f32 by default): per-tile
+    sums, then the tiles in order, with Neumaier compensation when asked.
+    Any length: both operands are zero-padded up to the tile (padding adds
+    nothing to the sum or its compensation), as in the reference wrapper.
+    Unlike there, f64 accumulation runs the kernel too: the card has f64."""
+    acc = accum_dtype or torch.float32
+    n = a.shape[0]
+    if n == 0:
+        raise ValueError("mixed_dot: empty operands")
+    block = min(block, n)
+    pad = (-n) % block
+    if pad:
+        a, b = torch.nn.functional.pad(a, (0, pad)), torch.nn.functional.pad(b, (0, pad))
+    if on_cpu(a):
+        out = ref.mixed_dot_ref(a, b, acc, block=block, compensated=compensated)
+    else:
+        out = mixed_dot_kernel_call(a, b, block=block, accum_dtype=acc, compensated=compensated)
+    return out.sum()

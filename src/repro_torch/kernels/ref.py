@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the four Hopper kernels.
+"""Plain PyTorch versions of the six Hopper kernels.
 
 Each is the semantic ground truth its CUDA kernel must match.  They run on
 any device: the wrappers in ``ops`` take them for CPU tensors, and
@@ -7,9 +7,17 @@ any device: the wrappers in ``ops`` take them for CPU tensors, and
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["spmv_ell_ref", "spmv_ell_alpha_ref", "lanczos_update_ref", "spmv_bsr_ref"]
+__all__ = [
+    "spmv_ell_ref",
+    "spmv_ell_alpha_ref",
+    "lanczos_update_ref",
+    "spmv_bsr_ref",
+    "spmv_ell_packed_ref",
+    "mixed_dot_ref",
+]
 
 
 def spmv_ell_ref(val: torch.Tensor, col: torch.Tensor, x: torch.Tensor, accum_dtype) -> torch.Tensor:
@@ -45,3 +53,36 @@ def spmv_bsr_ref(val: torch.Tensor, bcol: torch.Tensor, x: torch.Tensor, accum_d
     gathered = x.reshape(-1, bs)[bcol.long()].to(accum_dtype)  # (nbr, slots, bs)
     y = torch.einsum("rsij,rsj->ri", val.to(accum_dtype), gathered)
     return y.reshape(nbr * bs)
+
+
+def spmv_ell_packed_ref(val, scale, base, dcol, x, accum_dtype) -> torch.Tensor:
+    """Packed-ELL SpMV: values ``val * scale`` at columns
+    ``base + cumsum(dcol)`` along each row, times ``x``, summed in
+    ``accum_dtype``.  Returns ``(rows,)``."""
+    vals = val.to(accum_dtype) * scale.to(accum_dtype)
+    # int32 running sum (torch.cumsum of int16 would widen to int64).
+    cols = base + torch.cumsum(dcol.to(torch.int32), 1, dtype=torch.int32)
+    return torch.sum(vals * x[cols.long()].to(accum_dtype), 1)
+
+
+def mixed_dot_ref(a, b, accum_dtype, block: int = 4096, compensated: bool = False) -> torch.Tensor:
+    """``(sum, comp)`` of ``a . b``: per-tile sums of ``block`` products in
+    ``accum_dtype``, then a running sum over the tiles in order, with the
+    Neumaier compensation term when ``compensated`` (the TPU grid's
+    recurrence).  ``block`` must divide the length.  Returns ``(2,)``."""
+    n = a.shape[0]
+    if n == 0 or n % block:
+        raise ValueError(f"mixed_dot: length {n} not divisible by block {block}")
+    tiles = (a.to(accum_dtype) * b.to(accum_dtype)).reshape(-1, block).sum(1)
+    # The recurrence is serial: run it on host scalars of the accum dtype,
+    # which round every operation as the accum dtype does.
+    part = tiles.cpu().numpy()
+    s, comp = part[0], part.dtype.type(0)
+    for p in part[1:]:
+        if compensated:
+            t = s + p
+            comp = comp + ((s - t) + p if abs(s) >= abs(p) else (p - t) + s)
+            s = t
+        else:
+            s = s + p
+    return torch.from_numpy(np.array([s, comp], dtype=part.dtype)).to(a.device)

@@ -1,3 +1,4 @@
+from .diskcsr import DiskCSR, is_diskcsr, open_diskcsr, save_diskcsr
 from .formats import (
     CSR,
     DeviceBSR,
@@ -16,6 +17,10 @@ from .generate import SUITE, generate, suite_matrix
 
 __all__ = [
     "CSR",
+    "DiskCSR",
+    "is_diskcsr",
+    "open_diskcsr",
+    "save_diskcsr",
     "DeviceBSR",
     "DeviceCOO",
     "DeviceELL",

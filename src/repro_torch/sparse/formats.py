@@ -81,6 +81,10 @@ class CSR:
     def row_nnz(self) -> np.ndarray:
         return np.diff(self.indptr)
 
+    def values(self, lo: int, hi: int) -> np.ndarray:
+        """Stored values ``[lo, hi)`` as float64 (as ``DiskCSR.values``)."""
+        return np.asarray(self.data[lo:hi], dtype=np.float64)
+
     def to_scipy(self):
         import scipy.sparse as sp
 

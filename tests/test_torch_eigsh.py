@@ -91,7 +91,8 @@ def test_default_device_needs_a_card():
 def test_import_leaves_jax_and_repro_out():
     code = (
         "import sys, repro_torch, repro_torch.api.session, repro_torch.kernels.ops, "
-        "repro_torch.kernels.build, repro_torch.sparse.generate\n"
+        "repro_torch.kernels.build, repro_torch.sparse.generate, repro_torch.core.operators, "
+        "repro_torch.sparse.diskcsr, repro_torch.kernels.mixed_dot\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
         "print(','.join(bad))\n"
@@ -165,7 +166,7 @@ def test_result_round_trips_through_json():
 
 @pytest.mark.parametrize("kwargs,match", [
     ({"tol": 1e-6}, "restarted"),
-    ({"backend": "chunked"}, "chunked"),
+    ({"backend": "chunked", "checkpoint_dir": "snapshots"}, "checkpoint_dir"),
     ({"backend": "distributed"}, "distributed"),
     ({"recovery": "auto"}, "recovery"),
     ({"jacobi": "jax"}, "jacobi"),

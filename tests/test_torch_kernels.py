@@ -1,4 +1,4 @@
-"""The port's four kernels against the reference's Pallas kernels.
+"""The port's six kernels against the reference's Pallas kernels.
 
 On the CPU each port wrapper runs its plain PyTorch version; the reference
 kernels run in Pallas interpret mode, as ``tests/test_kernels.py`` runs
@@ -8,7 +8,9 @@ containers, carried over with ``repro_torch.sparse.formats.from_reference``.
 Tolerances: f64 accumulation rtol 1e-12; f32 accumulation rtol 1e-5 — the
 arithmetic is the same, only the order of the sums differs.  The ``gpu``
 tests hold each CUDA kernel against its plain version on the card, with the
-same tolerances.
+same tolerances.  ``mixed_dot``'s tolerance is relative to the sum of the
+|a_i b_i| (the scale of its rounding errors), since the sum itself can
+cancel.
 """
 
 import dataclasses
@@ -19,15 +21,20 @@ import pytest
 import torch
 
 from repro.kernels.lanczos_fused import spmv_ell_alpha_kernel_call as jax_spmv_ell_alpha
+from repro.kernels import ops as jax_ops
 from repro.kernels.lanczos_update import lanczos_update_kernel_call as jax_lanczos_update
+from repro.kernels.spmv_ell_packed import pack_ell_chunk as jax_pack_ell_chunk
+from repro.kernels.spmv_ell_packed import spmv_ell_packed_kernel_call as jax_spmv_ell_packed
 from repro.kernels.spmv_bsr import spmv_bsr_kernel_call as jax_spmv_bsr
 from repro.kernels.spmv_ell import spmv_ell_kernel_call as jax_spmv_ell
 from repro.sparse import generate, to_device_bsr, to_device_ell
 from repro_torch.kernels import build, ops, ref
 from repro_torch.kernels.lanczos_fused import spmv_ell_alpha_kernel_call
 from repro_torch.kernels.lanczos_update import lanczos_update_kernel_call
+from repro_torch.kernels.mixed_dot import mixed_dot_kernel_call
 from repro_torch.kernels.spmv_bsr import spmv_bsr_kernel_call
 from repro_torch.kernels.spmv_ell import ell_group, spmv_ell_kernel_call
+from repro_torch.kernels.spmv_ell_packed import pack_ell_chunk, spmv_ell_packed_kernel_call
 from repro_torch.sparse.formats import from_reference
 
 # (storage, accum) pairs, as (jax dtype, torch dtype) each.
@@ -45,10 +52,12 @@ def _arrays(container) -> dict:
 
 
 def _t(a_jax) -> torch.Tensor:
-    """A reference array as a CPU tensor (bf16 bits carried over exactly)."""
+    """A reference array as a CPU tensor (bf16 / fp8 bits carried over exactly)."""
     a = np.asarray(a_jax)
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    if a.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(a.view(np.uint8).copy()).view(torch.float8_e4m3fn)
     return torch.from_numpy(a.copy())
 
 
@@ -157,6 +166,11 @@ def test_kernel_calls_refuse_host_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         spmv_bsr_kernel_call(torch.zeros(1, 1, 8, 8), torch.zeros(1, 1, dtype=torch.int32), x,
                              accum_dtype=torch.float32)
+    packed = pack_ell_chunk(val.numpy(), col.numpy(), "bf16")
+    with pytest.raises(ValueError, match="CUDA"):
+        spmv_ell_packed_kernel_call(*packed, x, accum_dtype=torch.float32)
+    with pytest.raises(ValueError, match="CUDA"):
+        mixed_dot_kernel_call(x, x, block=8, accum_dtype=torch.float32)
     with pytest.raises(ValueError, match="no kernel path"):
         ops.ell_matvec(val.to("meta"), col.to("meta"), x.to("meta"), torch.float32)
 
@@ -169,10 +183,95 @@ def test_build_is_keyed_and_lazy():
     names = {p.name for p in build.CSRC.glob("*.cu*")}
     assert set(build.SOURCES) <= names and "common.cuh" in names
     assert [build.dtype_code(d) for d in (torch.float32, torch.float64, torch.float16,
-                                          torch.bfloat16)] == [0, 1, 2, 3]
+                                          torch.bfloat16, torch.float8_e4m3fn)] == [0, 1, 2, 3, 4]
+    assert [build.index_code(d) for d in (torch.int16, torch.int32)] == [5, 6]
     with pytest.raises(TypeError):
         build.dtype_code(torch.int32)
     assert [ell_group(w) for w in (1, 3, 8, 9, 32, 200)] == [1, 4, 8, 16, 32, 32]
+
+
+def _packed_chunk(rows: int, width: int, n_cols: int, seed: int):
+    """A host ELL chunk as the staging builds one: sorted columns per row,
+    f32 values of mixed magnitude, and zero padding (val 0, col 0) at the
+    end of every row shorter than the width."""
+    rng = np.random.default_rng(seed)
+    col = np.zeros((rows, width), np.int32)
+    val = np.zeros((rows, width), np.float32)
+    for r in range(rows):
+        k = int(rng.integers(1, width + 1))
+        col[r, :k] = np.sort(rng.choice(n_cols, size=k, replace=False))
+        val[r, :k] = rng.standard_normal(k) * 10.0 ** rng.integers(-3, 3)
+    return val, col
+
+
+# (mode, columns): 2,000 columns keep every delta in int16; 100,000 make
+# the padding's return-to-0 delta overflow it, so dcol stays int32.
+PACK_CASES = [("bf16", 2000), ("fp8", 2000), ("bf16", 100_000), ("fp8", 100_000)]
+
+
+@pytest.mark.parametrize("mode,n_cols", PACK_CASES)
+def test_pack_ell_chunk_bytes_equal_reference(mode, n_cols):
+    val, col = _packed_chunk(64, 12, n_cols, seed=n_cols)
+    want = jax_pack_ell_chunk(val, col, mode)
+    got = pack_ell_chunk(val, col, mode)
+    assert got[3].dtype == (torch.int16 if n_cols < (1 << 15) else torch.int32)
+    for g, w in zip(got, want):
+        w = np.asarray(w)
+        assert g.shape == w.shape
+        assert g.contiguous().view(torch.uint8).numpy().tobytes() == w.tobytes()
+
+
+@pytest.mark.parametrize("mode,n_cols", PACK_CASES)
+@pytest.mark.parametrize("pair", ["f32-f32", "f32-f64", "bf16-f32", "f64-f64"])
+def test_spmv_ell_packed_matches_reference(mode, n_cols, pair):
+    (jdt, tdt), (jacc, tacc) = PAIRS[pair]
+    val, col = _packed_chunk(64, 12, n_cols, seed=7)
+    packed = jax_pack_ell_chunk(val, col, mode)
+    x_j = jnp.asarray(np.random.default_rng(3).standard_normal(n_cols), dtype=jdt)
+    want = jax_spmv_ell_packed(*packed, x_j, accum_dtype=jacc, interpret=True)
+    got = ops.packed_ell_matvec(*(_t(a) for a in packed), _t(x_j), tacc)
+    assert got.dtype == tacc and got.shape == (64,)
+    # rtol 1e-6 under f32 accumulation (sum order), 1e-12 under f64.
+    rtol = 1e-6 if tacc == torch.float32 else 1e-12
+    scale = float(np.abs(np.asarray(want, np.float64)).max())
+    np.testing.assert_allclose(got.double().numpy(), np.asarray(want, np.float64), rtol=rtol,
+                               atol=rtol * scale)
+
+
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("dt", ["f32", "bf16", "f64"])
+@pytest.mark.parametrize("n", [4096 * 3, 10_000])
+def test_mixed_dot_matches_reference(compensated, dt, n):
+    jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16),
+                "f64": (jnp.float64, torch.float64)}[dt]
+    jacc, tacc = (jnp.float64, torch.float64) if dt == "f64" else (jnp.float32, torch.float32)
+    rng = np.random.default_rng(n)
+    a_j, b_j = (jnp.asarray(rng.standard_normal(n) * 3.0, dtype=jdt) for _ in range(2))
+    want = float(jax_ops.mixed_dot(a_j, b_j, accum_dtype=jacc, compensated=compensated,
+                                   interpret=True))
+    got = ops.mixed_dot(_t(a_j), _t(b_j), accum_dtype=tacc, compensated=compensated)
+    assert got.dtype == tacc and got.dim() == 0
+    terms = float(np.sum(np.abs(np.asarray(a_j, np.float64) * np.asarray(b_j, np.float64))))
+    # Per-tile sums in another order: 1e-6 (f32 accum) / 1e-12 (f64) of sum |a_i b_i|.
+    assert abs(float(got) - want) <= (1e-6 if tacc == torch.float32 else 1e-12) * terms
+
+
+def test_mixed_dot_compensation_matches_reference_exactly():
+    """Tile totals 1e8 then six 1s: an f32 running sum drops every 1 (the
+    ulp at 1e8 is 8); the compensation term keeps all six, and sum + comp
+    rounds to 1e8 + 8, in both packages."""
+    a = np.ones(7 * 4096, np.float32)
+    b = np.zeros(7 * 4096, np.float32)
+    b[0] = 1e8
+    b[4096::4096] = 1.0
+    for compensated, want in ((False, 1e8), (True, 1e8 + 8)):
+        ref_out = float(jax_ops.mixed_dot(jnp.asarray(a), jnp.asarray(b), compensated=compensated,
+                                          interpret=True))
+        got = ops.mixed_dot(torch.from_numpy(a), torch.from_numpy(b), compensated=compensated)
+        assert ref_out == float(got) == want
+    pair = ref.mixed_dot_ref(torch.from_numpy(a), torch.from_numpy(b), torch.float32,
+                             compensated=True)
+    assert pair.tolist() == [1e8, 6.0]
 
 
 # ------------------------------------------------------------ on the card
@@ -208,3 +307,24 @@ def test_cuda_kernels_match_plain_versions(pair, cuda):
         bx = torch.randn(37 * bs, generator=g).to(tdt).to(cuda)
         _close(spmv_bsr_kernel_call(bv, bc, bx, accum_dtype=tacc).cpu(),
                ref.spmv_bsr_ref(bv, bc, bx, tacc).cpu().numpy(), tacc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", list(PAIRS) + ["f16-f32"])
+def test_cuda_packed_and_mixed_dot_match_plain_versions(pair, cuda):
+    tdt, tacc = {"f16-f32": (torch.float16, torch.float32)}.get(pair, None) or (
+        PAIRS[pair][0][1], PAIRS[pair][1][1])
+    for mode, n_cols in PACK_CASES:
+        val, col = _packed_chunk(1000, 37, n_cols, seed=1)  # width 37: two tiles of 32 lanes
+        packed = [t.to(cuda) for t in pack_ell_chunk(val, col, mode)]
+        x = torch.randn(n_cols, generator=torch.Generator().manual_seed(2)).to(tdt).to(cuda)
+        _close(spmv_ell_packed_kernel_call(*packed, x, accum_dtype=tacc).cpu(),
+               ref.spmv_ell_packed_ref(*packed, x, tacc).cpu().numpy(), tacc)
+    g = torch.Generator().manual_seed(3)
+    a, b = (torch.randn(4096 * 5 + 17, generator=g).to(tdt).to(cuda) for _ in range(2))
+    terms = float((a.double() * b.double()).abs().sum())
+    for acc in (torch.float32, torch.float64):
+        for comp in (False, True):
+            got = ops.mixed_dot(a, b, accum_dtype=acc, compensated=comp)
+            want = ops.mixed_dot(a.cpu(), b.cpu(), accum_dtype=acc, compensated=comp)
+            assert abs(float(got) - float(want)) <= RTOL[acc] * terms
