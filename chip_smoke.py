@@ -14,8 +14,12 @@ before the last line:
    main path's shapes, for the (storage, accum) pairs the policies use
    (``spmv_ell_packed`` on a real chunk of phase 8's matrix, in bf16 and
    fp8 with int32 deltas, and on a one-chunk road network whose deltas fit
-   int16; ``mixed_dot`` at n = 4,194,304); kernel / plain / library times
-   (CUDA events over back-to-back calls) and the bound;
+   int16; ``mixed_dot`` at n = 4,194,304, which fits in L2, and at phase
+   8's n = 14,077,504, which does not); for every kernel and library call
+   its series time (``ms``: CUDA events over back-to-back calls) and its
+   device time per call (``device_ms``: the card's own kernel, memset and
+   copy time under ``torch.profiler``), the plain version's time and the
+   bound; ``spmv_ell`` also on one 261,816-row chunk of phase 8;
 3. the main path: ``repro_torch.eigsh`` on a 4.19M-row road network
    (``generate("road", 1 << 22, 2.1)``, the size of the paper's italy_osm)
    with the defaults (FDF): ELL format, ``spmv_ell`` and ``lanczos_update``
@@ -113,6 +117,46 @@ def time_ms(fn, launches: int = 20, rounds: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / launches)
     return float(np.median(times))
+
+
+# Device-side records of the profiler itself, not of the program.
+_PROFILER_RECORDS = ("Activity Buffer Request",)
+
+
+def device_ms(fn, calls: int = 20, tag: str = "") -> float:
+    """Device time of one ``fn()`` in ms, from ``torch.profiler``: for each
+    kind of device activity (kernel, memset, copy) that ``calls`` calls put
+    on the card, the median duration times the number of them, summed, over
+    the count (after a warm-up).  Unlike :func:`time_ms`, the wrapper's host
+    work and the gaps between launches do not count; the median keeps one
+    slow launch (the first under a new profiler session) out.  With ``tag``,
+    prints each kind's count and min / median / max in us.  Fails if the
+    profiler saw no device work."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in device_events(prof):
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    total_us = sum(float(np.median(d)) * len(d) for d in by_name.values())
+    check(total_us > 0, "torch.profiler recorded no device time")
+    for name, d in by_name.items() if tag else ():
+        print(f"[kernels]   {tag} device: {len(d)}/{calls} x {name[:90]}: min {min(d):.2f} "
+              f"median {float(np.median(d)):.2f} max {max(d):.2f} us")
+    return total_us / 1e3 / calls
+
+
+def device_events(prof):
+    """The profile's device activities (kernels, memsets, copies), each once.
+    ``key_averages()`` would count an ATen operator's kernels twice: once
+    as the kernel and once in the operator's self device time."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.name not in _PROFILER_RECORDS]
 
 
 def to_port_csr(m):
@@ -233,7 +277,7 @@ def phase_kernels(road, block_csr) -> dict:
                     moved += nbytes(v) + A.itemsize
                 flops = 2.0 * road.nnz + (2.0 * road.n if name == "spmv_ell_alpha" else 0.0)
                 t_b, by = bound(moved, flops, A)
-                lib_ms = None
+                lib = None
                 if name == "spmv_ell":
                     csr_t = torch.sparse_csr_tensor(
                         torch.as_tensor(road.indptr.astype(np.int32), device=dev),
@@ -241,15 +285,8 @@ def phase_kernels(road, block_csr) -> dict:
                         torch.as_tensor(road.data, dtype=S, device=dev),
                         size=road.shape,
                     )
-                    lib_ms = time_ms(lambda: csr_t @ x)
-                rec = {
-                    "max_abs_err": err,
-                    "ms": time_ms(run),
-                    "plain_ms": time_ms(plain),
-                    "bound_ms": t_b,
-                    "bound_by": by,
-                    "library_ms": lib_ms,
-                }
+                    lib = lambda: csr_t @ x  # noqa: E731
+                rec = timed(run, plain, lib, err, t_b, by)
         out[name] = rec
 
     # lanczos_update at the main path's vector length; FDF carries f64 vectors.
@@ -270,14 +307,7 @@ def phase_kernels(road, block_csr) -> dict:
         print(f"[kernels] lanczos_update ({dname(S)}, {dname(A)}): max_abs_err {err:.3e} ok")
         if (S, A) == (torch.float64, torch.float64):
             t_b, by = bound(nbytes(w, v, vp, u) + 4 * A.itemsize, 6.0 * n, A)
-            rec = {
-                "max_abs_err": err,
-                "ms": time_ms(run),
-                "plain_ms": time_ms(plain),
-                "bound_ms": t_b,
-                "bound_by": by,
-                "library_ms": None,
-            }
+            rec = timed(run, plain, None, err, t_b, by)
     out["lanczos_update"] = rec
 
     bsr = to_device_bsr(block_csr, block_size=8, dtype=torch.float64, device=dev)
@@ -293,19 +323,28 @@ def phase_kernels(road, block_csr) -> dict:
         print(f"[kernels] spmv_bsr ({dname(S)}, {dname(A)}): max_abs_err {err:.3e} ok")
         if (S, A) == MAIN_PAIR:
             t_b, by = bound(nbytes(val, bsr.bcol, x) + nbr * bs * A.itemsize, 2.0 * val.numel(), A)
-            rec = {
-                "max_abs_err": err,
-                "ms": time_ms(run),
-                "plain_ms": time_ms(plain),
-                "bound_ms": t_b,
-                "bound_by": by,
-                "library_ms": library_bsr_ms(block_csr, S, x),
-            }
+            rec = timed(run, plain, library_bsr(block_csr, S, x), err, t_b, by)
     out["spmv_bsr"] = rec
     return out
 
 
-def library_bsr_ms(block_csr, dtype, x):
+def timed(run, plain, lib, err, t_b, by) -> dict:
+    """A kernel's record: series and device times of the kernel and of its
+    library yardstick ``lib`` (None where no single call computes the same
+    function), the plain version's series time, and the bound."""
+    return {
+        "max_abs_err": err,
+        "ms": time_ms(run),
+        "device_ms": device_ms(run, tag="kernel"),
+        "plain_ms": time_ms(plain),
+        "bound_ms": t_b,
+        "bound_by": by,
+        "library_ms": None if lib is None else time_ms(lib),
+        "library_device_ms": None if lib is None else device_ms(lib, tag="library"),
+    }
+
+
+def library_bsr(block_csr, dtype, x):
     """One PyTorch call for the BSR product (a yardstick, never used by the
     port): ``torch.sparse_bsr_tensor`` times the vector; None when this
     build of PyTorch has no BSR matrix-vector product for ``dtype``."""
@@ -322,7 +361,7 @@ def library_bsr_ms(block_csr, dtype, x):
     except (RuntimeError, NotImplementedError) as exc:
         print(f"[kernels] spmv_bsr library yardstick unavailable: {type(exc).__name__}: {exc}")
         return None
-    return time_ms(lambda: torch.mv(bsr_t, x))
+    return lambda: torch.mv(bsr_t, x)
 
 
 def ell_chunk(csr, r0: int, r1: int):
@@ -372,9 +411,9 @@ def phase_kernels_chunked(big, small) -> dict:
                     touched = int(np.unique(col[val != 0]).size)
                     moved = nbytes(*packed) + touched * S.itemsize + rows * A.itemsize
                     t_b, by = bound(moved, 3.0 * nnz, A)
-                    rec = {"max_abs_err": err, "ms": time_ms(run), "plain_ms": time_ms(plain),
-                           "bound_ms": t_b, "bound_by": by, "library_ms": None}
+                    rec = timed(run, plain, None, err, t_b, by)
     out["spmv_ell_packed"] = rec
+    out["spmv_ell_chunk"] = chunk_ell_record(big, chunks["int32"][0], g)
 
     n = 1 << 22
     a64, b64 = (torch.randn(n, generator=g, dtype=torch.float64, device=dev) for _ in range(2))
@@ -395,11 +434,75 @@ def phase_kernels_chunked(big, small) -> dict:
                       f"abs err {err:.3e} (sum |a b| {terms:.3e}) ok")
                 if (S, A, comp) == (torch.float32, torch.float32, False):
                     t_b, by = bound(nbytes(a, b) + 2 * A.itemsize, 2.0 * n, A)
-                    rec = {"max_abs_err": err, "ms": time_ms(run), "plain_ms": time_ms(plain),
-                           "bound_ms": t_b, "bound_by": by,
-                           "library_ms": time_ms(lambda: torch.dot(a, b))}
+                    rec = timed(run, plain, lambda: torch.dot(a, b), err, t_b, by)
+                    rec["shape"] = f"L2-resident: n={n:,}, f32, acc f32"
+    del a64, b64, a, b
+    rec["out_of_l2"] = mixed_dot_out_of_l2(big.n, g)
     out["mixed_dot"] = rec
     return out
+
+
+def chunk_ell_record(big, chunk, g) -> dict:
+    """``spmv_ell`` (val f32, acc f64) on one chunk of phase 8's matrix, the
+    chunked path's launch shape: device time per launch and its bound."""
+    from repro_torch.kernels import ref
+
+    fn = kernel_modules()["spmv_ell"]
+    dev = torch.device("cuda")
+    val, col = (torch.as_tensor(t, device=dev) for t in chunk)
+    x = torch.randn(big.n, generator=g, dtype=torch.float32, device=dev)
+    rows, width = val.shape
+    run = lambda: fn(val, col, x, accum_dtype=torch.float64)  # noqa: E731
+    err = close(run(), ref.spmv_ell_ref(val, col, x, torch.float64), RTOL[torch.float64])
+    touched = int(torch.unique(col[val != 0]).numel())
+    t_b, by = bound(nbytes(val, col) + touched * x.element_size() + rows * 8, 2.0 * int((val != 0).sum()),
+                    torch.float64)
+    rec = {"rows": rows, "width": width, "max_abs_err": err, "ms": time_ms(run),
+           "device_ms": device_ms(run, tag="chunk"), "bound_ms": t_b, "bound_by": by}
+    print(f"[kernels] spmv_ell on one chunk {rows} x {width} (f32, f64): max_abs_err {err:.3e}; "
+          f"device {rec['device_ms']:.4f} ms, series {rec['ms']:.4f} ms, bound {t_b:.4f} ms")
+    return rec
+
+
+def mixed_dot_out_of_l2(n: int, g) -> dict:
+    """``mixed_dot`` at phase 8's Gram shape (n = 14,077,504 rows, f32
+    eigenvectors, f64 accumulation; 113 MB of operands, more than the 50 MB
+    L2), uncompensated and compensated: the kernel on operands of whole
+    4096-element tiles (n rounded up, the tail zero), and ``ops.mixed_dot``
+    on the first n elements as phase 8 calls it (which pads to whole tiles
+    wherever the kernel does not take a ragged tile).  Series and device
+    times per call, against ``torch.dot`` of the same dtype (the
+    uncompensated function)."""
+    from repro_torch.kernels import ops, ref
+
+    fn = kernel_modules()["mixed_dot"]
+    dev = torch.device("cuda")
+    n_pad = n + (-n) % 4096
+    a, b = (torch.randn(n_pad, generator=g, dtype=torch.float32, device=dev) for _ in range(2))
+    a[n:], b[n:] = 0.0, 0.0
+    an, bn = a[:n], b[:n]
+    terms = float((an.double() * bn.double()).abs().sum())
+    rec = {"n": n, "kernel_n": n_pad, "dtype": "float32", "accum": "float64"}
+    for comp in (False, True):
+        run = lambda: fn(a, b, accum_dtype=torch.float64, compensated=comp)  # noqa: E731
+        entry = lambda: ops.mixed_dot(an, bn, torch.float64, comp)  # noqa: E731
+        want = ref.mixed_dot_ref(a, b, torch.float64, compensated=comp)
+        got = run()
+        err = float((got.sum() - want.sum()).abs())
+        check(err <= RTOL[torch.float64] * terms, f"mixed_dot out of L2: error {err:.3e} vs {terms:.3e}")
+        check(float(entry()) == float(got.sum()), "mixed_dot out of L2: ops.mixed_dot != padded kernel")
+        rec["compensated" if comp else "uncompensated"] = {
+            "max_abs_err": err, "ms": time_ms(run), "device_ms": device_ms(run, tag="kernel"),
+            "entry_ms": time_ms(entry), "entry_device_ms": device_ms(entry, tag="ops.mixed_dot")}
+    t_b, by = bound(nbytes(an, bn) + 16, 2.0 * n, torch.float64)
+    rec.update(bound_ms=t_b, bound_by=by, library_ms=time_ms(lambda: torch.dot(an, bn)),
+               library_device_ms=device_ms(lambda: torch.dot(an, bn), tag="torch.dot"))
+    u, c = rec["uncompensated"], rec["compensated"]
+    print(f"[kernels] mixed_dot n={n:,} (float32, float64), out of L2: kernel device "
+          f"{u['device_ms']:.4f} ms (compensated {c['device_ms']:.4f}); ops.mixed_dot device "
+          f"{u['entry_device_ms']:.4f} ms (compensated {c['entry_device_ms']:.4f}); torch.dot "
+          f"{rec['library_device_ms']:.4f} ms; bound {t_b:.4f} ms")
+    return rec
 
 
 # ---------------------------------------------------------------- eigensolves
@@ -536,13 +639,11 @@ def device_split(sess, v0) -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     split = {"h2d_ms": 0.0, "spmv_ms": 0.0, "other_ms": 0.0}
-    for e in prof.key_averages():
-        t = e.self_device_time_total / 1e3
-        if t <= 0 or e.key == "Activity Buffer Request":
-            continue
-        if "HtoD" in e.key:
+    for e in device_events(prof):
+        t = e.time_range.elapsed_us() / 1e3
+        if "HtoD" in e.name:
             split["h2d_ms"] += t
-        elif "spmv_ell" in e.key:
+        elif "spmv_ell" in e.name:
             split["spmv_ms"] += t
         else:
             split["other_ms"] += t
@@ -632,16 +733,12 @@ def phase_packed(road, v0, path, f32_res, smi) -> dict:
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke.py: no CUDA device visible; it runs on an NVIDIA card", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.join(ROOT, "src"))
-    import repro_torch  # noqa: F401  (fails outside a checkout of the repository)
+def phase_device() -> str:
+    """Phase 1: the card's name and power limit (``nvidia-smi``, returned),
+    the versions, and the build of the kernels with each new kernel's
+    registers and spills from the compiler's report."""
     from repro_torch.kernels import build
-    from repro_torch.sparse import generate
 
-    # ---- phase 1: device and build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -661,8 +758,36 @@ def main() -> int:
         if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill"):
             entry = next((e for e in reversed(log[:i]) if "Compiling entry function" in e), "")
             print(f"[device]   {ln.strip()} <- {entry.strip()[:150]}")
+    for src in ("spmv_ell.cu", "mixed_dot.cu"):
+        for entry, regs_line, spill_line in kernel_resources(log, src):
+            print(f"[device] {src} {entry}: {regs_line}; {spill_line}")
+    return smi
 
-    # ---- data (host, from seeds)
+
+def kernel_resources(log, source: str):
+    """(entry, registers, spills) of each kernel of one source in the build
+    log of ``nvcc -Xptxas -v``."""
+    out, section, entry, spill = [], None, None, None
+    for ln in log:
+        ln = ln.strip()
+        if ln.startswith("== "):
+            section = ln[3:]
+        elif section != source:
+            continue
+        elif "Compiling entry function" in ln:
+            entry = ln.split("'")[1] if "'" in ln else ln
+        elif "bytes spill" in ln:
+            spill = ln
+        elif "ptxas info" in ln and ": Used" in ln and entry is not None:
+            out.append((entry, ln.split(":", 1)[1].strip(), spill or ""))
+            entry = spill = None
+    return out
+
+
+def make_data() -> dict:
+    """The matrices and start vectors of every phase, from seeds (host)."""
+    from repro_torch.sparse import generate
+
     t0 = time.perf_counter()
     road = generate("road", 1 << 22, 2.1, seed=0)
     web = generate("web", 1 << 20, 11.0, seed=0)
@@ -672,15 +797,42 @@ def main() -> int:
     central = generate("road", 14_081_816, 2.4, seed=0)  # road_central's row count
     tiny_road = generate("road", 1 << 15, 2.1, seed=0)  # one chunk, int16 deltas
     rng = np.random.default_rng(0)
-    v_road, v_web, v_block, v_central = (rng.standard_normal(m.n) for m in (road, web, block, central))
+    mats = {"road": road, "web": web, "block": block, "central": central}
+    v = {k: rng.standard_normal(m.n) for k, m in mats.items()}
     print(f"[data] road n={road.n:,} nnz={road.nnz:,}; web n={web.n:,} nnz={web.nnz:,}; "
           f"block n={block.n:,} nnz={block.nnz:,}; central road n={central.n:,} "
           f"nnz={central.nnz:,} max row {int(central.row_nnz().max())}; "
           f"generated in {time.perf_counter() - t0:.1f} s")
+    return {**mats, "tiny_road": tiny_road, "v": v}
 
-    # ---- phase 2: kernels vs plain versions
-    records = phase_kernels(road, block)
-    records.update(phase_kernels_chunked(central, tiny_road))
+
+def phase_kernel_records(data) -> dict:
+    """Phase 2: every kernel against its plain version; the records of the
+    ``{"kernels": [...]}`` line, less the launch counts."""
+    records = phase_kernels(data["road"], data["block"])
+    records.update(phase_kernels_chunked(data["central"], data["tiny_road"]))
+    records["spmv_ell"]["chunk"] = records.pop("spmv_ell_chunk")
+    for name in KERNEL_ORDER:
+        r = records[name]
+        lib = ("" if r["library_ms"] is None else
+               f"; library {r['library_device_ms']:.4f} ms device, {r['library_ms']:.4f} ms series")
+        print(f"[kernels] {name}: device {r['device_ms']:.4f} ms, series {r['ms']:.4f} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), plain {r['plain_ms']:.4f} ms{lib}")
+    return records
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device visible; it runs on an NVIDIA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import repro_torch  # noqa: F401  (fails outside a checkout of the repository)
+
+    smi = phase_device()
+    data = make_data()
+    road, web, block, central = data["road"], data["web"], data["block"], data["central"]
+    v_road, v_web, v_block, v_central = (data["v"][k] for k in ("road", "web", "block", "central"))
+    records = phase_kernel_records(data)
 
     # ---- phase 3: the main path
     main_res, main_launches = phase_main(road, v_road, smi)
