@@ -85,12 +85,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "repro_spmv_ell": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _I, _P]),
+    "repro_spmv_ell": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
     "repro_spmv_ell_alpha": (_I, [_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _L, _I, _I, _P]),
     "repro_lanczos_update": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P]),
     "repro_spmv_bsr": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _I, _P]),
     "repro_spmv_ell_packed": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P]),
-    "repro_mixed_dot": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _I, _P]),
+    "repro_mixed_dot": (_I, [_I, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _P]),
     "repro_ell_blocks": (_L, [_L, _I]),
     "repro_update_blocks": (_L, [_L]),
     "repro_error_string": (ctypes.c_char_p, [_I]),
@@ -174,8 +174,11 @@ def build() -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use."""
+    """The kernel library, built on first use.  Once it is loaded, a call
+    takes no lock."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))

@@ -64,3 +64,5 @@ extern "C" int repro_spmv_ell_alpha(int sdt, int adt, const void* val, const voi
   return dispatch_pair<SpmvEllAlpha>(sdt, adt, val, col, x, v, nv, w, partials, alpha, rows, width,
                                      group, static_cast<cudaStream_t>(stream));
 }
+
+extern "C" long long repro_ell_blocks(long long rows, int group) { return ell_blocks(rows, group); }

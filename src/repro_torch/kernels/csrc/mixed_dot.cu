@@ -5,49 +5,99 @@
 // Replaces the TPU kernel src/repro/kernels/mixed_dot.py:
 // mixed_dot_kernel_call.  There the grid ran over 4096-element tiles in
 // order on one core and carried the running sum and its compensation in the
-// output block from one step to the next.  Blocks on the card run in no
-// order, so the two halves split: pass 1 gives each tile one block, which
-// sums its products in a fixed order (strided lanes, then the block tree)
-// and writes one partial; pass 2 is one thread that runs the TPU grid's
-// recurrence over the partials, in tile order.  No float atomics: the same
-// inputs give the same bits on every run.
+// output block from one step to the next.
 //
-// Bound on the card: bytes (two element reads for two flops).  Pass 2 is
-// serial over n / block partials, 1,024 steps at n = 4M: a few
-// microseconds, against about 10 us for pass 1 at that length in f32.
+// Bound on the card: bytes (two element reads for two flops), plus the
+// recurrence over the tile totals, which the reference's semantics make
+// serial: tile i's rounding depends on the running sum of tiles 0..i-1.
+//
+// Design:
+// - One block per tile.  Each thread reads 16 B vectors of a and b
+//   (read-only path), kChunks of each in flight before any arithmetic, and
+//   sums its elements in element order; the block tree then sums the
+//   threads in a fixed order.  The last tile may be ragged: its lanes past
+//   n read zeros, and since s + 0 == s exactly, the result equals a call on
+//   operands zero-padded to whole tiles, bit for bit.  Operands whose base
+//   (or tile start) is not 16-byte aligned take scalar loads in the same
+//   element-to-lane order: the same bits.
+// - The recurrence runs with no serial chain of global loads: the tile
+//   totals are staged through shared memory kStage at a time, warps 1..7
+//   filling the next stage while thread 0 walks the current one.
+//   <variant note>
+// No float atomics: the same inputs give the same bits on every run.
+//
+// ptxas -v (sm_90a, CUDA 12, NVIDIA H100 80GB HBM3; chip_smoke.py phase 1):
+// <filled from the build log>
+#include <climits>
+
 #include "common.cuh"
 
 namespace {
+
+constexpr int kChunks = 4;   // 16 B vectors in flight per thread and operand
+constexpr int kStage = 512;  // tile totals staged per round of the walk
+
+template <typename S> __device__ __forceinline__ S zero_of() { return S(0); }
+template <> __device__ __forceinline__ __half zero_of<__half>() { return __float2half_rn(0.0f); }
+template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.0f);
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void load_ro(const T* p, T (&out)[N]) {
+  static_assert(sizeof(T) * N == 16, "one 16-byte vector");
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  memcpy(out, &u, 16);
+}
 
 template <typename A>
 __device__ __forceinline__ A magnitude(A v) {
   return v < A(0) ? -v : v;
 }
 
+// This thread's share of one tile [lo, lo + len): 16 B chunks t, t + kThreads,
+// ... in order, each chunk's elements in order.
 template <typename S, typename A>
-__global__ void __launch_bounds__(kThreads)
-    tile_dot_kernel(const S* __restrict__ a, const S* __restrict__ b, A* __restrict__ partials,
-                    long long n, int block) {
-  __shared__ A scratch[kThreads / 32];
-  const long long lo = static_cast<long long>(blockIdx.x) * block;
-  const long long hi = lo + block < n ? lo + block : n;
+__device__ __forceinline__ A tile_share(const S* __restrict__ a, const S* __restrict__ b, long long lo,
+                                        long long len, bool vec_ok) {
+  constexpr int V = 16 / sizeof(S);
+  const long long chunks = (len + V - 1) / V;
   A acc = A(0);
-  for (long long i = lo + threadIdx.x; i < hi; i += kThreads) acc += to_acc<A>(a[i]) * to_acc<A>(b[i]);
-  acc = block_sum(acc, scratch);
-  if (threadIdx.x == 0) partials[blockIdx.x] = acc;
+  for (long long c0 = threadIdx.x; c0 < chunks; c0 += static_cast<long long>(kChunks) * kThreads) {
+    S va[kChunks][V], vb[kChunks][V];
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u) {
+      const long long e = (c0 + static_cast<long long>(u) * kThreads) * V;
+      if (vec_ok && e + V <= len) {
+        load_ro(a + lo + e, va[u]);
+        load_ro(b + lo + e, vb[u]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          const bool in = e + j < len;
+          va[u][j] = in ? a[lo + e + j] : zero_of<S>();
+          vb[u][j] = in ? b[lo + e + j] : zero_of<S>();
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kChunks; ++u)
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc += to_acc<A>(va[u][j]) * to_acc<A>(vb[u][j]);
+  }
+  return acc;
 }
 
-// The TPU grid's recurrence (mixed_dot.py:_kernel): tile 0 sets the sum,
-// every later tile adds in, and with compensation the rounding error of
-// each add is collected in `comp` (Neumaier: the larger operand decides).
-template <typename A>
-__global__ void tile_sum_kernel(const A* __restrict__ partials, long long tiles, int compensated,
-                                A* __restrict__ out) {
-  A s = partials[0];
-  A comp = A(0);
-  for (long long i = 1; i < tiles; ++i) {
-    const A p = partials[i];
-    if (compensated) {
+// The TPU grid's recurrence (mixed_dot.py:_kernel) over stage[0..m): tile 0
+// sets the sum, every later tile adds in, and with compensation the rounding
+// error of each add is collected in `comp` (Neumaier: the larger operand
+// decides).  Run by one thread.
+template <typename A, bool kCompensated>
+__device__ __forceinline__ void walk(const A* stage, int i, int m, A& s, A& comp) {
+#pragma unroll 8
+  for (; i < m; ++i) {
+    const A p = stage[i];
+    if (kCompensated) {
       const A t = s + p;
       comp = comp + (magnitude(s) >= magnitude(p) ? (s - t) + p : (p - t) + s);
       s = t;
@@ -55,41 +105,117 @@ __global__ void tile_sum_kernel(const A* __restrict__ partials, long long tiles,
       s = s + p;
     }
   }
-  out[0] = s;
-  out[1] = comp;
+}
+
+// The whole block walks `tiles` totals in tile order and writes (sum, comp).
+template <typename A>
+__device__ void walk_tiles(const A* __restrict__ partials, long long tiles, int compensated,
+                           A* __restrict__ out) {
+  __shared__ A stage[2][kStage];
+  for (long long i = threadIdx.x; i < tiles && i < kStage; i += kThreads) stage[0][i] = __ldcg(partials + i);
+  __syncthreads();
+  A s = A(0), comp = A(0);
+  int cur = 0;
+  for (long long base = 0; base < tiles; base += kStage, cur ^= 1) {
+    const long long next = base + kStage;
+    if (threadIdx.x >= 32) {
+      for (long long i = next + threadIdx.x - 32; i < tiles && i < next + kStage; i += kThreads - 32)
+        stage[cur ^ 1][i - next] = __ldcg(partials + i);
+    } else if (threadIdx.x == 0) {
+      const int m = static_cast<int>(tiles - base < kStage ? tiles - base : kStage);
+      int i = 0;
+      if (base == 0) s = stage[cur][i++];
+      if (compensated)
+        walk<A, true>(stage[cur], i, m, s, comp);
+      else
+        walk<A, false>(stage[cur], i, m, s, comp);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) {
+    out[0] = s;
+    out[1] = comp;
+  }
 }
 
 template <typename S, typename A>
-int run_mixed_dot(const void* a, const void* b, void* partials, void* out, long long n, int block,
-                  int compensated, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads)
+    mixed_dot_kernel(const S* __restrict__ a, const S* __restrict__ b, A* __restrict__ partials,
+                     unsigned* __restrict__ ticket, A* __restrict__ out, long long n, int block,
+                     int compensated, int vec_ok, int walk_here) {
+  __shared__ A scratch[kThreads / 32];
+  __shared__ bool last;
+  const long long lo = static_cast<long long>(blockIdx.x) * block;
+  const long long len = n - lo < block ? n - lo : block;
+  A acc = tile_share<S, A>(a, b, lo, len, vec_ok);
+  acc = block_sum(acc, scratch);
+  if (threadIdx.x == 0) {
+    partials[blockIdx.x] = acc;
+    if (walk_here) {
+      __threadfence();  // this total is visible before the ticket counts it
+      last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    }
+  }
+  if (!walk_here) return;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  walk_tiles(partials, gridDim.x, compensated, out);
+}
+
+template <typename A>
+__global__ void __launch_bounds__(kThreads)
+    walk_kernel(const A* __restrict__ partials, long long tiles, int compensated, A* __restrict__ out) {
+  walk_tiles(partials, tiles, compensated, out);
+}
+
+template <typename S, typename A>
+int run_mixed_dot(const void* a, const void* b, void* out, void* partials, void* ticket, long long n,
+                  int block, int compensated, int one_launch, cudaStream_t stream) {
+  if (n < 1 || block < 1) return static_cast<int>(cudaErrorInvalidValue);
   const long long tiles = ceil_div(n, block);
-  if (tiles == 0) return static_cast<int>(cudaErrorInvalidValue);
-  tile_dot_kernel<S, A><<<static_cast<unsigned>(tiles), kThreads, 0, stream>>>(
-      static_cast<const S*>(a), static_cast<const S*>(b), static_cast<A*>(partials), n, block);
+  if (tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int V = 16 / sizeof(S);
+  const int vec_ok = ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b)) & 15) == 0 &&
+                     (tiles == 1 || block % V == 0);
+  if (one_launch) {
+    const int err = static_cast<int>(cudaMemsetAsync(ticket, 0, sizeof(unsigned), stream));
+    if (err) return err;
+  }
+  mixed_dot_kernel<S, A><<<static_cast<unsigned>(tiles), kThreads, 0, stream>>>(
+      static_cast<const S*>(a), static_cast<const S*>(b), static_cast<A*>(partials),
+      static_cast<unsigned*>(ticket), static_cast<A*>(out), n, block, compensated, vec_ok, one_launch);
   const int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  tile_sum_kernel<A><<<1, 1, 0, stream>>>(static_cast<const A*>(partials), tiles, compensated,
-                                          static_cast<A*>(out));
+  if (err || one_launch) return err;
+  walk_kernel<A><<<1, kThreads, 0, stream>>>(static_cast<const A*>(partials), tiles, compensated,
+                                             static_cast<A*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename A>
-int by_storage(int sdt, const void* a, const void* b, void* partials, void* out, long long n,
-               int block, int compensated, cudaStream_t stream) {
-  if (sdt == DT_F32) return run_mixed_dot<float, A>(a, b, partials, out, n, block, compensated, stream);
-  if (sdt == DT_F64) return run_mixed_dot<double, A>(a, b, partials, out, n, block, compensated, stream);
-  if (sdt == DT_F16) return run_mixed_dot<__half, A>(a, b, partials, out, n, block, compensated, stream);
+int by_storage(int sdt, const void* a, const void* b, void* out, void* partials, void* ticket,
+               long long n, int block, int compensated, int one_launch, cudaStream_t stream) {
+  if (sdt == DT_F32)
+    return run_mixed_dot<float, A>(a, b, out, partials, ticket, n, block, compensated, one_launch, stream);
+  if (sdt == DT_F64)
+    return run_mixed_dot<double, A>(a, b, out, partials, ticket, n, block, compensated, one_launch, stream);
+  if (sdt == DT_F16)
+    return run_mixed_dot<__half, A>(a, b, out, partials, ticket, n, block, compensated, one_launch, stream);
   if (sdt == DT_BF16)
-    return run_mixed_dot<__nv_bfloat16, A>(a, b, partials, out, n, block, compensated, stream);
+    return run_mixed_dot<__nv_bfloat16, A>(a, b, out, partials, ticket, n, block, compensated, one_launch,
+                                           stream);
   return ERR_UNSUPPORTED_DTYPES;
 }
 
 }  // namespace
 
-extern "C" int repro_mixed_dot(int sdt, int adt, const void* a, const void* b, void* partials,
-                               void* out, long long n, int block, int compensated, void* stream) {
+extern "C" int repro_mixed_dot(int sdt, int adt, const void* a, const void* b, void* out,
+                               void* partials, void* ticket, long long n, int block,
+                               int compensated, int one_launch, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (adt == DT_F32) return by_storage<float>(sdt, a, b, partials, out, n, block, compensated, s);
-  if (adt == DT_F64) return by_storage<double>(sdt, a, b, partials, out, n, block, compensated, s);
+  if (adt == DT_F32)
+    return by_storage<float>(sdt, a, b, out, partials, ticket, n, block, compensated, one_launch, s);
+  if (adt == DT_F64)
+    return by_storage<double>(sdt, a, b, out, partials, ticket, n, block, compensated, one_launch, s);
   return ERR_UNSUPPORTED_DTYPES;
 }

@@ -2,19 +2,27 @@
 
 Replaces ``src/repro/kernels/mixed_dot.py:mixed_dot_kernel_call``: ``a . b``
 summed per tile of ``block`` elements in the accum dtype, the tile totals
-added in tile order, optionally with a Neumaier compensation term.  Two
-passes, both in a fixed order (one block per tile, then one thread over the
-tile totals), so the bits are the same on every run.  Bound on the card by
-bytes.  The plain version is ``ref.mixed_dot_ref``.
+added in tile order, optionally with a Neumaier compensation term.  One
+block per tile reads 16-byte vectors; the last tile may be ragged (its
+lanes past the end read zeros, so the result equals a zero-padded call's bit
+for bit).  The tile totals are walked in order through shared memory, so the
+bits are the same on every run.  Bound on the card by bytes.  The plain
+version is ``ref.mixed_dot_ref``.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import build as _b
 
 __all__ = ["mixed_dot_kernel_call"]
+
+# Walk the tile totals in the last block of the one launch (True), or in a
+# second one-block launch (False).
+ONE_LAUNCH = True
 
 
 def mixed_dot_kernel_call(
@@ -26,8 +34,9 @@ def mixed_dot_kernel_call(
     compensated: bool = False,
 ) -> torch.Tensor:
     """Returns ``(2,)`` in ``accum_dtype``: (sum, compensation); the dot is
-    their sum.  ``a`` and ``b`` share one dtype (f32, f64, f16 or bf16) and a
-    length that ``block`` divides."""
+    their sum.  ``a`` and ``b`` share one dtype (f32, f64, f16 or bf16) and
+    any length of at least 1; the last tile of ``block`` elements may be
+    ragged."""
     _b.require_cuda("mixed_dot", a, b)
     if a.dim() != 1 or a.shape != b.shape or a.dtype != b.dtype:
         raise ValueError(
@@ -35,19 +44,22 @@ def mixed_dot_kernel_call(
             "1-D of one dtype and length"
         )
     n = a.shape[0]
-    if block < 1 or n == 0 or n % block:
-        raise ValueError(f"mixed_dot: length {n} not divisible by block {block}")
-    lib = _b.load()
-    partials = torch.empty(n // block, dtype=accum_dtype, device=a.device)
-    out = torch.empty(2, dtype=accum_dtype, device=a.device)
-    rc = lib.repro_mixed_dot(
-        _b.dtype_code(a.dtype), _b.dtype_code(accum_dtype),
-        _b.ptr(a), _b.ptr(b), _b.ptr(partials), _b.ptr(out),
-        n, block, int(bool(compensated)), _b.stream_of(a),
+    if block < 1 or n == 0:
+        raise ValueError(f"mixed_dot: length {n} and block {block} must be positive")
+    tiles = -(-n // block)
+    # One allocation: (sum, comp), the tile totals, and the ticket counter
+    # (zeroed by the C entry on the same stream).
+    buf = torch.empty(tiles + 3, dtype=accum_dtype, device=a.device)
+    base, item = buf.data_ptr(), buf.element_size()
+    rc = _b.load().repro_mixed_dot(
+        _b.dtype_code(a.dtype), _b.dtype_code(accum_dtype), _b.ptr(a), _b.ptr(b),
+        ctypes.c_void_p(base), ctypes.c_void_p(base + 2 * item),
+        ctypes.c_void_p(base + (2 + tiles) * item),
+        n, block, int(bool(compensated)), int(ONE_LAUNCH), _b.stream_of(a),
     )
     _b.check(rc, "mixed_dot")
     mixed_dot_kernel_call.launches += 1
-    return out
+    return buf[:2]
 
 
 mixed_dot_kernel_call.launches = 0

@@ -106,18 +106,20 @@ def lanczos_update(w, v, v_prev, alpha, beta, accum_dtype=None):
 def mixed_dot(a, b, accum_dtype=None, compensated: bool = False, block: int = 4096):
     """``a . b`` as a 0-d tensor in ``accum_dtype`` (f32 by default): per-tile
     sums, then the tiles in order, with Neumaier compensation when asked.
-    Any length: both operands are zero-padded up to the tile (padding adds
-    nothing to the sum or its compensation), as in the reference wrapper.
-    Unlike there, f64 accumulation runs the kernel too: the card has f64."""
+    Any length.  On the card the kernel masks the ragged last tile itself,
+    with no copy of the operands; the plain version zero-pads both up to the
+    tile, as the reference wrapper does (padding adds nothing to the sum or
+    its compensation, so the two agree bit for bit).  Unlike the reference,
+    f64 accumulation runs the kernel too: the card has f64."""
     acc = accum_dtype or torch.float32
     n = a.shape[0]
     if n == 0:
         raise ValueError("mixed_dot: empty operands")
     block = min(block, n)
-    pad = (-n) % block
-    if pad:
-        a, b = torch.nn.functional.pad(a, (0, pad)), torch.nn.functional.pad(b, (0, pad))
     if on_cpu(a):
+        pad = (-n) % block
+        if pad:
+            a, b = torch.nn.functional.pad(a, (0, pad)), torch.nn.functional.pad(b, (0, pad))
         out = ref.mixed_dot_ref(a, b, acc, block=block, compensated=compensated)
     else:
         out = mixed_dot_kernel_call(a, b, block=block, accum_dtype=acc, compensated=compensated)

@@ -1,9 +1,10 @@
 """Hopper ELL SpMV kernel (``csrc/spmv_ell.cu``).
 
 Replaces ``src/repro/kernels/spmv_ell.py:spmv_ell_kernel_call``.  Bound on the
-card by bytes: the design reads ``val``/``col`` coalesced (a group of lanes
-per row), gathers ``x`` through L2, and stores no TPU width padding.  See the
-source for the details; the plain version is ``ref.spmv_ell_ref``.
+card by bytes: each lane reads 16 B of ``val`` and the matching columns with
+evict-first loads, several rows per thread in flight, and gathers ``x``
+through L2.  :func:`ell_launch_plan` picks the kernel's path from the shapes;
+see the source for the details.  The plain version is ``ref.spmv_ell_ref``.
 """
 
 from __future__ import annotations
@@ -12,7 +13,12 @@ import torch
 
 from . import build as _b
 
-__all__ = ["spmv_ell_kernel_call", "ell_group"]
+__all__ = ["spmv_ell_kernel_call", "ell_group", "ell_launch_plan", "ELL_PATHS", "sm_count"]
+
+# The kernel's paths (csrc/spmv_ell.cu: EllPath).
+ELL_PATHS = {"vector": 0, "wide": 1, "scalar": 2}
+
+_SM_COUNT: dict = {}
 
 
 def ell_group(width: int) -> int:
@@ -22,6 +28,35 @@ def ell_group(width: int) -> int:
     while g < min(width, 32):
         g *= 2
     return g
+
+
+def ell_launch_plan(width: int, elem_size: int, aligned: bool) -> tuple:
+    """``(lanes per row, path)`` of one launch.
+
+    A lane reads ``16 // elem_size`` slots as one 16-byte vector.  The
+    ``"vector"`` path takes ``width / slots`` lanes a row, rounded up to a
+    power of two; past 32 vectors a row, the ``"wide"`` path gives each row
+    a warp that walks its vectors.  A width that is not a whole number of
+    vectors, or a base pointer of ``val`` or ``col`` that is not 16-byte
+    aligned (``aligned`` False), takes the ``"scalar"`` path: one slot per
+    lane and step, ``ell_group(width)`` lanes a row.
+    """
+    vec = 16 // elem_size
+    if not aligned or width % vec:
+        return ell_group(width), "scalar"
+    nvec = width // vec
+    if nvec > 32:
+        return 32, "wide"
+    return ell_group(nvec), "vector"
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count, read once per device."""
+    idx = device.index if device.index is not None else torch.cuda.current_device()
+    n = _SM_COUNT.get(idx)
+    if n is None:
+        n = _SM_COUNT[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return n
 
 
 def spmv_ell_kernel_call(
@@ -38,12 +73,13 @@ def spmv_ell_kernel_call(
     if x.dtype != val.dtype:
         raise TypeError(f"spmv_ell: x dtype {x.dtype} != val dtype {val.dtype}")
     rows, width = val.shape
+    aligned = (val.data_ptr() | col.data_ptr()) % 16 == 0
+    lanes, path = ell_launch_plan(width, val.element_size(), aligned)
     y = torch.empty(rows, dtype=accum_dtype, device=val.device)
-    lib = _b.load()
-    rc = lib.repro_spmv_ell(
+    rc = _b.load().repro_spmv_ell(
         _b.dtype_code(val.dtype), _b.dtype_code(accum_dtype),
         _b.ptr(val), _b.ptr(col), _b.ptr(x), _b.ptr(y),
-        rows, width, ell_group(width), _b.stream_of(val),
+        rows, width, lanes, ELL_PATHS[path], sm_count(val.device), _b.stream_of(val),
     )
     _b.check(rc, "spmv_ell")
     spmv_ell_kernel_call.launches += 1

@@ -33,7 +33,7 @@ from repro_torch.kernels.lanczos_fused import spmv_ell_alpha_kernel_call
 from repro_torch.kernels.lanczos_update import lanczos_update_kernel_call
 from repro_torch.kernels.mixed_dot import mixed_dot_kernel_call
 from repro_torch.kernels.spmv_bsr import spmv_bsr_kernel_call
-from repro_torch.kernels.spmv_ell import ell_group, spmv_ell_kernel_call
+from repro_torch.kernels.spmv_ell import ell_group, ell_launch_plan, spmv_ell_kernel_call
 from repro_torch.kernels.spmv_ell_packed import pack_ell_chunk, spmv_ell_packed_kernel_call
 from repro_torch.sparse.formats import from_reference
 
@@ -272,6 +272,73 @@ def test_mixed_dot_compensation_matches_reference_exactly():
     pair = ref.mixed_dot_ref(torch.from_numpy(a), torch.from_numpy(b), torch.float32,
                              compensated=True)
     assert pair.tolist() == [1e8, 6.0]
+
+
+# (width, element size, base aligned) -> (lanes per row, path): a lane reads
+# one 16-byte vector of 16 / element-size slots.
+LAUNCH_PLANS = [
+    ((8, 4, True), (2, "vector")),     # the main path: f32 rows of 8, a lane pair a row
+    ((8, 2, True), (1, "vector")),     # bf16 / f16: one lane a row
+    ((8, 8, True), (4, "vector")),     # f64
+    ((12, 4, True), (4, "vector")),    # 3 vectors: rounded up to 4 lanes, one idle
+    ((64, 4, True), (16, "vector")),
+    ((128, 4, True), (32, "vector")),  # 32 vectors: the last width with a lane each
+    ((200, 4, True), (32, "wide")),    # 50 vectors: a warp walks the row
+    ((1024, 8, True), (32, "wide")),
+    ((37, 4, True), (32, "scalar")),   # not a whole number of vectors
+    ((12, 2, True), (16, "scalar")),
+    ((1, 4, True), (1, "scalar")),
+    ((3, 8, True), (4, "scalar")),
+    ((8, 4, False), (8, "scalar")),    # a base that is not 16-byte aligned
+    ((200, 4, False), (32, "scalar")),
+]
+
+
+@pytest.mark.parametrize("args,plan", LAUNCH_PLANS, ids=[str(a) for a, _ in LAUNCH_PLANS])
+def test_spmv_ell_launch_plan(args, plan):
+    assert ell_launch_plan(*args) == plan
+
+
+@pytest.mark.parametrize("compensated", [False, True])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 4095, 4097, 3 * 4096 + 17])
+def test_mixed_dot_ragged_matches_reference(compensated, dt, n):
+    """Lengths that are not whole tiles (n = 1 and 4095 are one short tile;
+    4097 and 3 * 4096 + 17 end in a ragged one) against the reference's
+    wrapper, which zero-pads them."""
+    jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dt]
+    rng = np.random.default_rng(n + 1)
+    a_j, b_j = (jnp.asarray(rng.standard_normal(n) * 3.0, dtype=jdt) for _ in range(2))
+    want = float(jax_ops.mixed_dot(a_j, b_j, compensated=compensated, interpret=True))
+    got = ops.mixed_dot(_t(a_j), _t(b_j), compensated=compensated)
+    assert got.dtype == torch.float32 and got.dim() == 0
+    terms = float(np.sum(np.abs(np.asarray(a_j, np.float64) * np.asarray(b_j, np.float64))))
+    # Per-tile sums in another order: 1e-6 of sum |a_i b_i| (f32 accumulation).
+    assert abs(float(got) - want) <= 1e-6 * terms
+
+
+@pytest.mark.parametrize("n", [1, 4097, 14_077])
+def test_mixed_dot_on_the_card_passes_operands_unpadded(n, monkeypatch):
+    """On a CUDA tensor ``ops.mixed_dot`` hands the kernel the operands as
+    they are (no padding copy; the kernel masks the ragged tile), with the
+    reference's tile size."""
+    seen = []
+
+    def kernel(a, b, *, block, accum_dtype, compensated):
+        seen.append((a, b, block))
+        return torch.zeros(2, dtype=accum_dtype)
+
+    def no_pad(*args, **kw):
+        raise AssertionError("operands padded on the kernel path")
+
+    monkeypatch.setattr(ops, "on_cpu", lambda t: False)
+    monkeypatch.setattr(ops, "mixed_dot_kernel_call", kernel)
+    monkeypatch.setattr(torch.nn.functional, "pad", no_pad)
+    a, b = torch.ones(n), torch.ones(n)
+    ops.mixed_dot(a, b, torch.float64, True)
+    assert len(seen) == 1
+    got_a, got_b, block = seen[0]
+    assert got_a is a and got_b is b and block == min(4096, n)
 
 
 # ------------------------------------------------------------ on the card
