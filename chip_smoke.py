@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -130,21 +131,25 @@ def device_ms(fn, calls: int = 20, tag: str = "") -> float:
     the count (after a warm-up).  Unlike :func:`time_ms`, the wrapper's host
     work and the gaps between launches do not count; the median keeps one
     slow launch (the first under a new profiler session) out.  With ``tag``,
-    prints each kind's count and min / median / max in us.  Fails if the
-    profiler saw no device work."""
+    prints each kind's count and min / median / max in us.  A profile with
+    no device records is taken again, twice at most; then it fails."""
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     by_name: dict = {}
-    for e in device_events(prof):
-        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+    for attempt in range(3):  # a profile now and then comes back without device records
+        with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        ) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for e in device_events(prof):
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if by_name:
+            break
+        print(f"[kernels]   {tag or 'device_ms'}: profile {attempt + 1} recorded no device time")
     total_us = sum(float(np.median(d)) * len(d) for d in by_name.values())
-    check(total_us > 0, "torch.profiler recorded no device time")
+    check(total_us > 0, "torch.profiler recorded no device time in three profiles")
     for name, d in by_name.items() if tag else ():
         print(f"[kernels]   {tag} device: {len(d)}/{calls} x {name[:90]}: min {min(d):.2f} "
               f"median {float(np.median(d)):.2f} max {max(d):.2f} us")
@@ -776,6 +781,9 @@ def kernel_resources(log, source: str):
             continue
         elif "Compiling entry function" in ln:
             entry = ln.split("'")[1] if "'" in ln else ln
+            # _ZN<len>_GLOBAL__N__<hash>_<file>_cu_<hash><len>name_kernelI<args>EEv...
+            m = re.search(r"\d+([A-Za-z_]+_kernel)(I.*?)EEv", entry)
+            entry = f"{m.group(1)}{m.group(2)}E" if m else entry
         elif "bytes spill" in ln:
             spill = ln
         elif "ptxas info" in ln and ": Used" in ln and entry is not None:

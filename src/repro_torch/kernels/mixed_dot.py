@@ -5,9 +5,9 @@ summed per tile of ``block`` elements in the accum dtype, the tile totals
 added in tile order, optionally with a Neumaier compensation term.  One
 block per tile reads 16-byte vectors; the last tile may be ragged (its
 lanes past the end read zeros, so the result equals a zero-padded call's bit
-for bit).  The tile totals are walked in order through shared memory, so the
-bits are the same on every run.  Bound on the card by bytes.  The plain
-version is ``ref.mixed_dot_ref``.
+for bit).  One more block walks the tile totals in order as they finish,
+through shared memory, so the bits are the same on every run.  Bound on the
+card by bytes.  The plain version is ``ref.mixed_dot_ref``.
 """
 
 from __future__ import annotations
@@ -19,11 +19,6 @@ import torch
 from . import build as _b
 
 __all__ = ["mixed_dot_kernel_call"]
-
-# Walk the tile totals in the last block of the one launch (True), or in a
-# second one-block launch (False).
-ONE_LAUNCH = True
-
 
 def mixed_dot_kernel_call(
     a: torch.Tensor,
@@ -47,15 +42,14 @@ def mixed_dot_kernel_call(
     if block < 1 or n == 0:
         raise ValueError(f"mixed_dot: length {n} and block {block} must be positive")
     tiles = -(-n // block)
-    # One allocation: (sum, comp), the tile totals, and the ticket counter
-    # (zeroed by the C entry on the same stream).
-    buf = torch.empty(tiles + 3, dtype=accum_dtype, device=a.device)
-    base, item = buf.data_ptr(), buf.element_size()
+    # One allocation: (sum, comp), the tile totals, and one slot for the
+    # kernel's ticket counter (the C entry readies the last two).
+    buf = torch.empty(2 + tiles + 1, dtype=accum_dtype, device=a.device)
+    base = buf.data_ptr()
     rc = _b.load().repro_mixed_dot(
         _b.dtype_code(a.dtype), _b.dtype_code(accum_dtype), _b.ptr(a), _b.ptr(b),
-        ctypes.c_void_p(base), ctypes.c_void_p(base + 2 * item),
-        ctypes.c_void_p(base + (2 + tiles) * item),
-        n, block, int(bool(compensated)), int(ONE_LAUNCH), _b.stream_of(a),
+        ctypes.c_void_p(base), ctypes.c_void_p(base + 2 * buf.element_size()),
+        n, block, int(bool(compensated)), _b.stream_of(a),
     )
     _b.check(rc, "mixed_dot")
     mixed_dot_kernel_call.launches += 1

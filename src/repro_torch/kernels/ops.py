@@ -107,10 +107,11 @@ def mixed_dot(a, b, accum_dtype=None, compensated: bool = False, block: int = 40
     """``a . b`` as a 0-d tensor in ``accum_dtype`` (f32 by default): per-tile
     sums, then the tiles in order, with Neumaier compensation when asked.
     Any length.  On the card the kernel masks the ragged last tile itself,
-    with no copy of the operands; the plain version zero-pads both up to the
-    tile, as the reference wrapper does (padding adds nothing to the sum or
-    its compensation, so the two agree bit for bit).  Unlike the reference,
-    f64 accumulation runs the kernel too: the card has f64."""
+    with no copy of the operands, and gives the bits of a call on operands
+    zero-padded to whole tiles; the plain version pads them, as the
+    reference wrapper does (padding adds nothing to the sum or its
+    compensation).  Unlike the reference, f64 accumulation runs the kernel
+    too: the card has f64."""
     acc = accum_dtype or torch.float32
     n = a.shape[0]
     if n == 0:

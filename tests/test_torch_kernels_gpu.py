@@ -112,8 +112,8 @@ def _padded(t, block):
     return torch.nn.functional.pad(t, (0, (-t.shape[0]) % block))
 
 
-# Tiles of 4096: 1, 2, 1,023 and 1,025, and 1,500 (three stages of the
-# walk's 512 tile totals); each whole and ragged (1,000 short of whole).
+# Tiles of 4096: 1, 2, 1,023 and 1,025, and 1,500 (eight rounds of the
+# walk's 192 tile totals); each whole and ragged (1,000 short of whole).
 DOT_TILES = [1, 2, 1023, 1025, 1500]
 
 
@@ -139,6 +139,48 @@ def test_mixed_dot_tiles(cuda, dt, tiles, ragged):
             padded = mixed_dot_kernel_call(_padded(a, block), _padded(b, block), block=block,
                                            accum_dtype=A, compensated=comp)
             assert torch.equal(got, padded)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tiles", [1, 2, 191, 192, 193, 385, 1500])
+@pytest.mark.parametrize("acc", ["f32", "f64"])
+def test_mixed_dot_walk_is_the_reference_recurrence(cuda, acc, tiles):
+    """One non-zero product per tile makes every tile total exact in any
+    sum order, so the kernel's walk over the totals (running sum and
+    Neumaier term, across rounds of shared memory) must give the plain
+    version's recurrence bit for bit.  The totals span 1e-8 to 1e8, so the
+    compensation term is far from zero."""
+    A = {"f32": torch.float32, "f64": torch.float64}[acc]
+    rng = torch.Generator().manual_seed(tiles)
+    p = torch.randn(tiles, generator=rng, dtype=torch.float64) * 10.0 ** torch.randint(
+        -8, 9, (tiles,), generator=rng).double()
+    a = torch.zeros(tiles * 4096, dtype=A)
+    b = torch.zeros(tiles * 4096, dtype=A)
+    a[::4096] = 1.0
+    b[::4096] = p.to(A)
+    a, b = a.to(cuda), b.to(cuda)
+    for comp in (False, True):
+        got = mixed_dot_kernel_call(a, b, accum_dtype=A, compensated=comp)
+        want = ref.mixed_dot_ref(a, b, A, compensated=comp)
+        assert torch.equal(got.cpu(), want.cpu()), (got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("acc", ["f32", "f64"])
+def test_mixed_dot_nan_tiles_finish(cuda, acc):
+    """A tile total whose bits are all ones (a NaN with a full payload, which
+    the kernel also uses to mark a total not yet written) is published as
+    the canonical NaN: the call finishes and the dot is NaN."""
+    A = {"f32": torch.float32, "f64": torch.float64}[acc]
+    ones = torch.tensor([-1], dtype=torch.int32 if A == torch.float32 else torch.int64).view(A)
+    a = torch.ones(3 * 4096 + 5, dtype=A)
+    b = torch.zeros_like(a)
+    b[4096 + 7] = ones[0]
+    assert torch.isnan(b).any()
+    a, b = a.to(cuda), b.to(cuda)
+    for comp in (False, True):
+        got = mixed_dot_kernel_call(a, b, accum_dtype=A, compensated=comp)
+        assert torch.isnan(got.sum())
 
 
 @pytest.mark.gpu
