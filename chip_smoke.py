@@ -474,10 +474,9 @@ def mixed_dot_out_of_l2(n: int, g) -> dict:
     eigenvectors, f64 accumulation; 113 MB of operands, more than the 50 MB
     L2), uncompensated and compensated: the kernel on operands of whole
     4096-element tiles (n rounded up, the tail zero), and ``ops.mixed_dot``
-    on the first n elements as phase 8 calls it (which pads to whole tiles
-    wherever the kernel does not take a ragged tile).  Series and device
-    times per call, against ``torch.dot`` of the same dtype (the
-    uncompensated function)."""
+    on the first n elements, as phase 8 calls it.  Series and device times
+    per call, against ``torch.dot`` of the same dtype (the uncompensated
+    function)."""
     from repro_torch.kernels import ops, ref
 
     fn = kernel_modules()["mixed_dot"]

@@ -30,8 +30,8 @@
 //
 // Measured (chip_smoke.py phase 2, NVIDIA H100 80GB HBM3, 700 W; PERF.md):
 // at phase 8's Gram shape (n = 14,077,504, f32 -> f64) 0.045 ms a call
-// uncompensated and 0.051 compensated, against 0.225 and 0.278 for the
-// two-pass design this replaces; `torch.dot` takes 0.040.
+// uncompensated and 0.051 compensated, against 0.220 and 0.273 for the
+// two-pass design this replaces; `torch.dot` takes 0.041.
 //
 // ptxas -v (sm_90a, CUDA 12.8; chip_smoke.py phase 1): 48 registers and
 // 3,884 B of static shared memory under f32 accumulation; 48-56 registers
