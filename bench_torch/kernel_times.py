@@ -5,7 +5,7 @@ time it (series and device times, bound, plain version, library yardstick).
 
 Run from the root of a checkout:
 
-    python3 bench_torch/kernel_times.py [--out chiprun_out/kernel_times.json] [--tag NAME]
+    python3 bench_torch/kernel_times.py [--out kernel_times.json] [--tag NAME]
 
 Two checkouts run in turns in one call on one card (parent, change, change,
 parent) compare two versions of the kernels.  The JSON holds the card's
