@@ -127,8 +127,8 @@ _PROFILER_RECORDS = ("Activity Buffer Request",)
 def device_ms(fn, calls: int = 20, tag: str = "") -> float:
     """Device time of one ``fn()`` in ms, from ``torch.profiler``: for each
     kind of device activity (kernel, memset, copy) that ``calls`` calls put
-    on the card, the median duration times the number of them, summed, over
-    the count (after a warm-up).  Unlike :func:`time_ms`, the wrapper's host
+    on the card, the median duration times the number of them per call,
+    summed (after a warm-up).  Unlike :func:`time_ms`, the wrapper's host
     work and the gaps between launches do not count; the median keeps one
     slow launch (the first under a new profiler session) out.  With ``tag``,
     prints each kind's count and min / median / max in us.  A profile with
@@ -148,12 +148,14 @@ def device_ms(fn, calls: int = 20, tag: str = "") -> float:
         if by_name:
             break
         print(f"[kernels]   {tag or 'device_ms'}: profile {attempt + 1} recorded no device time")
-    total_us = sum(float(np.median(d)) * len(d) for d in by_name.values())
+    # Launches of each kind per call: the profiler drops a record now and
+    # then (15 of 20 seen), so round the count rather than divide by it.
+    total_us = sum(float(np.median(d)) * max(1, round(len(d) / calls)) for d in by_name.values())
     check(total_us > 0, "torch.profiler recorded no device time in three profiles")
     for name, d in by_name.items() if tag else ():
         print(f"[kernels]   {tag} device: {len(d)}/{calls} x {name[:90]}: min {min(d):.2f} "
               f"median {float(np.median(d)):.2f} max {max(d):.2f} us")
-    return total_us / 1e3 / calls
+    return total_us / 1e3
 
 
 def device_events(prof):
