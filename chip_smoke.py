@@ -20,6 +20,10 @@ before the last line:
    device time per call (``device_ms``: the card's own kernel, memset and
    copy time under ``torch.profiler``), the plain version's time and the
    bound; ``spmv_ell`` also on one 261,816-row chunk of phase 8;
+   ``spmv_ell_alpha``'s ``w`` equals ``spmv_ell``'s ``y`` bit for bit at the
+   main path's shape for every pair, and alpha has the same bits on five
+   calls; ``spmv_ell_packed`` also on the chunk that holds phase 4's widest
+   row (its hub: the kernel's wide path);
 3. the main path: ``repro_torch.eigsh`` on a 4.19M-row road network
    (``generate("road", 1 << 22, 2.1)``, the size of the paper's italy_osm)
    with the defaults (FDF): ELL format, ``spmv_ell`` and ``lanczos_update``
@@ -124,14 +128,15 @@ def time_ms(fn, launches: int = 20, rounds: int = 5) -> float:
 _PROFILER_RECORDS = ("Activity Buffer Request",)
 
 
-def device_ms(fn, calls: int = 20, tag: str = "") -> float:
+def device_ms(fn, calls: int = 20, tag: str = "", parts: dict = None) -> float:
     """Device time of one ``fn()`` in ms, from ``torch.profiler``: for each
     kind of device activity (kernel, memset, copy) that ``calls`` calls put
     on the card, the median duration times the number of them per call,
     summed (after a warm-up).  Unlike :func:`time_ms`, the wrapper's host
     work and the gaps between launches do not count; the median keeps one
     slow launch (the first under a new profiler session) out.  With ``tag``,
-    prints each kind's count and min / median / max in us.  A profile with
+    prints each kind's count and min / median / max in us; ``parts``, if
+    given, receives each kind's device us per call.  A profile with
     no device records is taken again, twice at most; then it fails."""
     fn()
     torch.cuda.synchronize()
@@ -150,8 +155,12 @@ def device_ms(fn, calls: int = 20, tag: str = "") -> float:
         print(f"[kernels]   {tag or 'device_ms'}: profile {attempt + 1} recorded no device time")
     # Launches of each kind per call: the profiler drops a record now and
     # then (15 of 20 seen), so round the count rather than divide by it.
-    total_us = sum(float(np.median(d)) * max(1, round(len(d) / calls)) for d in by_name.values())
+    per_call = {name: float(np.median(d)) * max(1, round(len(d) / calls))
+                for name, d in by_name.items()}
+    total_us = sum(per_call.values())
     check(total_us > 0, "torch.profiler recorded no device time in three profiles")
+    if parts is not None:
+        parts.update(per_call)
     for name, d in by_name.items() if tag else ():
         print(f"[kernels]   {tag} device: {len(d)}/{calls} x {name[:90]}: min {min(d):.2f} "
               f"median {float(np.median(d)):.2f} max {max(d):.2f} us")
@@ -277,7 +286,15 @@ def phase_kernels(road, block_csr) -> dict:
                 err = close(w, wr, RTOL[A])
                 terms = float((v.double().abs() * wr[: road.n].double().abs()).sum())
                 err = max(err, close(al.reshape(1), alr.reshape(1), RTOL[A], scale=terms))
-            print(f"[kernels] {name} ({dname(S)}, {dname(A)}): max_abs_err {err:.3e} ok")
+                # One row code: w is spmv_ell's y bit for bit; alpha's sums run
+                # in an order fixed by the grid, so five calls give its bits.
+                check(torch.equal(w, fns["spmv_ell"](val, ell.col, x, accum_dtype=A)),
+                      f"spmv_ell_alpha ({dname(S)}, {dname(A)}): w differs from spmv_ell's y")
+                check(all(torch.equal(run()[1], al) for _ in range(4)),
+                      f"spmv_ell_alpha ({dname(S)}, {dname(A)}): alpha differs between calls")
+            print(f"[kernels] {name} ({dname(S)}, {dname(A)}): max_abs_err {err:.3e} ok"
+                  + ("; w == spmv_ell's y; alpha bits equal on 5 calls"
+                     if name == "spmv_ell_alpha" else ""))
             if (S, A) == MAIN_PAIR:
                 moved = nbytes(val, ell.col, x) + rows * A.itemsize
                 if name == "spmv_ell_alpha":
@@ -336,13 +353,16 @@ def phase_kernels(road, block_csr) -> dict:
 
 
 def timed(run, plain, lib, err, t_b, by) -> dict:
-    """A kernel's record: series and device times of the kernel and of its
+    """A kernel's record: series and device times of the kernel (and the
+    device us per call of each of its launches and memsets) and of its
     library yardstick ``lib`` (None where no single call computes the same
     function), the plain version's series time, and the bound."""
+    parts: dict = {}
     return {
         "max_abs_err": err,
         "ms": time_ms(run),
-        "device_ms": device_ms(run, tag="kernel"),
+        "device_ms": device_ms(run, tag="kernel", parts=parts),
+        "device_parts_us": parts,
         "plain_ms": time_ms(plain),
         "bound_ms": t_b,
         "bound_by": by,
@@ -383,11 +403,12 @@ def ell_chunk(csr, r0: int, r1: int):
     return ell.val.numpy(), ell.col.numpy()
 
 
-def phase_kernels_chunked(big, small) -> dict:
+def phase_kernels_chunked(big, small, web) -> dict:
     """Phase 2, the chunked path's kernels: ``spmv_ell_packed`` on a real
-    chunk of phase 8's matrix (int32 deltas) and on a one-chunk road
-    network whose deltas fit int16, for both value dtypes and every
-    (storage, accum) pair; ``mixed_dot`` at n = 4,194,304."""
+    chunk of phase 8's matrix (int32 deltas), on a one-chunk road network
+    whose deltas fit int16 and on the rows of phase 4's hub, for both value
+    dtypes and every (storage, accum) pair; ``mixed_dot`` at
+    n = 4,194,304."""
     from repro_torch.core.operators import chunk_row_bounds
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.spmv_ell_packed import pack_ell_chunk
@@ -420,6 +441,7 @@ def phase_kernels_chunked(big, small) -> dict:
                     t_b, by = bound(moved, 3.0 * nnz, A)
                     rec = timed(run, plain, None, err, t_b, by)
     out["spmv_ell_packed"] = rec
+    packed_hub_check(web, g)
     out["spmv_ell_chunk"] = chunk_ell_record(big, chunks["int32"][0], g)
 
     n = 1 << 22
@@ -447,6 +469,39 @@ def phase_kernels_chunked(big, small) -> dict:
     rec["out_of_l2"] = mixed_dot_out_of_l2(big.n, g)
     out["mixed_dot"] = rec
     return out
+
+
+def packed_hub_check(web, g) -> None:
+    """``spmv_ell_packed`` on a packed chunk that holds the web graph's widest
+    row (its hub): rows ``[hub, hub + 8)``, the width the hub's nnz padded
+    to 8, which takes the kernel's wide path; bf16 and fp8, every pair,
+    against the plain version.  The hub's row sums a million products that
+    cancel, so the error of the sum order is held to ``RTOL`` of the largest
+    row sum of |products|, not of |y|."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.spmv_ell_packed import pack_ell_chunk, packed_launch_plan
+
+    fn = kernel_modules()["spmv_ell_packed"]
+    dev = torch.device("cuda")
+    hub = int(web.row_nnz().argmax())
+    val, col = ell_chunk(web, hub, min(hub + 8, web.n))
+    x64 = torch.randn(web.n, generator=g, dtype=torch.float64, device=dev)
+    for mode in ("bf16", "fp8"):
+        packed = [t.to(dev) for t in pack_ell_chunk(val, col, mode)]
+        rows, width = packed[0].shape
+        aligned = (packed[0].data_ptr() | packed[3].data_ptr()) % 16 == 0
+        path = packed_launch_plan(width, packed[3].element_size(), aligned)[1]
+        check(path == "wide", f"hub chunk {rows} x {width} planned {path}, expected wide")
+        idx = dname(packed[3].dtype)
+        for S, A in PAIRS:
+            x = x64.to(S)
+            terms = ref.spmv_ell_packed_ref(packed[0].double().abs(), *packed[1:],
+                                            x.double().abs(), torch.float64)
+            want = ref.spmv_ell_packed_ref(*packed, x, A)
+            err = close(fn(*packed, x, accum_dtype=A), want, RTOL[A], scale=float(terms.max()))
+            print(f"[kernels] spmv_ell_packed hub rows {hub:,}+{rows} x {width:,} ({mode}, {idx}, "
+                  f"{dname(S)}, {dname(A)}, {path} path): max_abs_err {err:.3e} (sum |products| "
+                  f"{float(terms.max()):.3e}) ok")
 
 
 def chunk_ell_record(big, chunk, g) -> dict:
@@ -764,7 +819,7 @@ def phase_device() -> str:
         if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill"):
             entry = next((e for e in reversed(log[:i]) if "Compiling entry function" in e), "")
             print(f"[device]   {ln.strip()} <- {entry.strip()[:150]}")
-    for src in ("spmv_ell.cu", "mixed_dot.cu"):
+    for src in ("spmv_ell.cu", "lanczos_fused.cu", "spmv_ell_packed.cu", "mixed_dot.cu"):
         for entry, regs_line, spill_line in kernel_resources(log, src):
             print(f"[device] {src} {entry}: {regs_line}; {spill_line}")
     return smi
@@ -819,7 +874,7 @@ def phase_kernel_records(data) -> dict:
     """Phase 2: every kernel against its plain version; the records of the
     ``{"kernels": [...]}`` line, less the launch counts."""
     records = phase_kernels(data["road"], data["block"])
-    records.update(phase_kernels_chunked(data["central"], data["tiny_road"]))
+    records.update(phase_kernels_chunked(data["central"], data["tiny_road"], data["web"]))
     records["spmv_ell"]["chunk"] = records.pop("spmv_ell_chunk")
     for name in KERNEL_ORDER:
         r = records[name]

@@ -86,12 +86,15 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "repro_spmv_ell": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
-    "repro_spmv_ell_alpha": (_I, [_I, _I, _P, _P, _P, _P, _L, _P, _P, _P, _L, _I, _I, _P]),
+    "repro_spmv_ell_alpha": (
+        _I, [_I, _I, _P, _P, _P, _P, _L, _P, _P, _L, _P, _L, _I, _I, _I, _I, _P]
+    ),
     "repro_lanczos_update": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P]),
     "repro_spmv_bsr": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _I, _P]),
-    "repro_spmv_ell_packed": (_I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _P]),
+    "repro_spmv_ell_packed": (
+        _I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]
+    ),
     "repro_mixed_dot": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _I, _P]),
-    "repro_ell_blocks": (_L, [_L, _I]),
     "repro_update_blocks": (_L, [_L]),
     "repro_error_string": (ctypes.c_char_p, [_I]),
 }

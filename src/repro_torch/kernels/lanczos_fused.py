@@ -1,9 +1,11 @@
 """Hopper fused ELL SpMV + alpha kernel (``csrc/lanczos_fused.cu``).
 
 Replaces ``src/repro/kernels/lanczos_fused.py:spmv_ell_alpha_kernel_call``.
-Two passes, both deterministic: the SpMV writes ``w`` and one partial of
-``<v, w>`` per block; one block then sums the partials in a fixed order.
-Bound on the card by bytes.  The plain version is ``ref.spmv_ell_alpha_ref``.
+Two passes, both deterministic: ``spmv_ell``'s row code (the same launch
+plan, so ``w`` has ``spmv_ell``'s bits) writes ``w`` and one partial of
+``<v, w>`` per block of a grid of SMs times occupancy; one block then sums
+the partials in a fixed order.  Bound on the card by bytes.  The plain
+version is ``ref.spmv_ell_alpha_ref``.
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import build as _b
-from .spmv_ell import ell_group
+from .spmv_ell import ELL_PATHS, ell_launch_plan, ell_max_blocks, sm_count
 
 __all__ = ["spmv_ell_alpha_kernel_call"]
 
@@ -35,17 +37,19 @@ def spmv_ell_alpha_kernel_call(
     rows, width = val.shape
     if v.shape[0] > rows:
         raise ValueError(f"spmv_ell_alpha: v length {v.shape[0]} > padded rows {rows}")
-    group = ell_group(width)
-    lib = _b.load()
+    aligned = (val.data_ptr() | col.data_ptr()) % 16 == 0
+    lanes, path = ell_launch_plan(width, val.element_size(), aligned)
+    sms = sm_count(val.device)
     w = torch.empty(rows, dtype=accum_dtype, device=val.device)
-    partials = torch.empty(max(1, lib.repro_ell_blocks(rows, group)), dtype=accum_dtype,
+    # One partial per block: the grid is at most SMs x the blocks an SM holds.
+    partials = torch.empty(max(1, ell_max_blocks(rows, lanes, path, sms)), dtype=accum_dtype,
                            device=val.device)
-    alpha = torch.zeros(1, dtype=accum_dtype, device=val.device)
-    rc = lib.repro_spmv_ell_alpha(
+    alpha = torch.empty(1, dtype=accum_dtype, device=val.device)
+    rc = _b.load().repro_spmv_ell_alpha(
         _b.dtype_code(val.dtype), _b.dtype_code(accum_dtype),
         _b.ptr(val), _b.ptr(col), _b.ptr(x), _b.ptr(v), v.shape[0],
-        _b.ptr(w), _b.ptr(partials), _b.ptr(alpha),
-        rows, width, group, _b.stream_of(val),
+        _b.ptr(w), _b.ptr(partials), partials.numel(), _b.ptr(alpha),
+        rows, width, lanes, ELL_PATHS[path], sms, _b.stream_of(val),
     )
     _b.check(rc, "spmv_ell_alpha")
     spmv_ell_alpha_kernel_call.launches += 1

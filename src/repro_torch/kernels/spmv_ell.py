@@ -4,7 +4,8 @@ Replaces ``src/repro/kernels/spmv_ell.py:spmv_ell_kernel_call``.  Bound on the
 card by bytes: each lane reads 16 B of ``val`` and the matching columns with
 evict-first loads, several rows per thread in flight, and gathers ``x``
 through L2.  :func:`ell_launch_plan` picks the kernel's path from the shapes;
-see the source for the details.  The plain version is ``ref.spmv_ell_ref``.
+the row code (``csrc/ell_row.cuh``) is shared with ``spmv_ell_alpha``.  The
+plain version is ``ref.spmv_ell_ref``.
 """
 
 from __future__ import annotations
@@ -13,10 +14,23 @@ import torch
 
 from . import build as _b
 
-__all__ = ["spmv_ell_kernel_call", "ell_group", "ell_launch_plan", "ELL_PATHS", "sm_count"]
+__all__ = [
+    "spmv_ell_kernel_call",
+    "ell_group",
+    "ell_launch_plan",
+    "lane_plan",
+    "ell_max_blocks",
+    "ELL_PATHS",
+    "sm_count",
+]
 
-# The kernel's paths (csrc/spmv_ell.cu: EllPath).
+# The row code's paths (csrc/ell_row.cuh: EllPath).
 ELL_PATHS = {"vector": 0, "wide": 1, "scalar": 2}
+# Mirrors of csrc/common.cuh kThreads and csrc/ell_row.cuh kRows, and the
+# most 256-thread blocks a Hopper SM holds (2,048 resident threads).
+THREADS = 256
+ROWS_IN_FLIGHT = 4
+MAX_BLOCKS_PER_SM = 2048 // THREADS
 
 _SM_COUNT: dict = {}
 
@@ -30,24 +44,41 @@ def ell_group(width: int) -> int:
     return g
 
 
-def ell_launch_plan(width: int, elem_size: int, aligned: bool) -> tuple:
-    """``(lanes per row, path)`` of one launch.
+def lane_plan(width: int, slots: int, aligned: bool) -> tuple:
+    """``(lanes per row, path)`` of the row code when a lane reads ``slots``
+    slots as whole vectors.
 
-    A lane reads ``16 // elem_size`` slots as one 16-byte vector.  The
-    ``"vector"`` path takes ``width / slots`` lanes a row, rounded up to a
-    power of two; past 32 vectors a row, the ``"wide"`` path gives each row
-    a warp that walks its vectors.  A width that is not a whole number of
-    vectors, or a base pointer of ``val`` or ``col`` that is not 16-byte
-    aligned (``aligned`` False), takes the ``"scalar"`` path: one slot per
-    lane and step, ``ell_group(width)`` lanes a row.
+    The ``"vector"`` path takes ``width / slots`` lanes a row, rounded up to
+    a power of two; past 32 vectors a row, the ``"wide"`` path gives each
+    row a warp that walks its vectors.  A width that is not a whole number
+    of vectors, or a base pointer that is not 16-byte aligned (``aligned``
+    False), takes the ``"scalar"`` path: one slot per lane and step,
+    ``ell_group(width)`` lanes a row.
     """
-    vec = 16 // elem_size
-    if not aligned or width % vec:
+    if not aligned or width % slots:
         return ell_group(width), "scalar"
-    nvec = width // vec
+    nvec = width // slots
     if nvec > 32:
         return 32, "wide"
     return ell_group(nvec), "vector"
+
+
+def ell_launch_plan(width: int, elem_size: int, aligned: bool) -> tuple:
+    """``(lanes per row, path)`` of one ``spmv_ell`` or ``spmv_ell_alpha``
+    launch: a lane reads ``16 // elem_size`` slots of ``val`` as one 16-byte
+    vector (see :func:`lane_plan`); ``aligned`` says whether the bases of
+    ``val`` and ``col`` are 16-byte aligned."""
+    return lane_plan(width, 16 // elem_size, aligned)
+
+
+def ell_max_blocks(rows: int, lanes: int, path: str, sms: int) -> int:
+    """The most blocks one launch of the row code can have: enough to cover
+    the rows once, at most ``sms`` times the blocks an SM can hold.  The
+    kernel's own grid (``csrc/ell_row.cuh:ell_grid``) takes its occupancy,
+    which is at most that; ``spmv_ell_alpha`` sizes its partials by it."""
+    step = THREADS // (32 if path == "wide" else lanes)
+    per_block = step * ROWS_IN_FLIGHT if path == "vector" else step
+    return min(-(-rows // per_block), sms * MAX_BLOCKS_PER_SM)
 
 
 def sm_count(device: torch.device) -> int:

@@ -17,8 +17,10 @@ The bytes equal the reference's for the same chunk: the same rounding
 order (values rounded to f32 first, divided by the f32 scale in f64, then
 cast) and the same int16/int32 choice.  The casts go through torch, whose
 f64 -> bf16 / fp8 e4m3 rounding gives the bytes ``ml_dtypes`` gives for
-every value the per-block scale can produce (|v| <= 448).  The plain
-version of the kernel is ``ref.spmv_ell_packed_ref``.
+every value the per-block scale can produce (|v| <= 448).  The kernel
+reads a row's slots as vectors of :data:`PACKED_SLOTS` in as many lanes as
+:func:`packed_launch_plan` gives it (see the source).  The plain version of
+the kernel is ``ref.spmv_ell_packed_ref``.
 """
 
 from __future__ import annotations
@@ -27,12 +29,14 @@ import numpy as np
 import torch
 
 from . import build as _b
-from .spmv_ell import ell_group
+from .spmv_ell import ELL_PATHS, lane_plan, sm_count
 
 __all__ = [
     "PACKED_VALUE_DTYPES",
+    "PACKED_SLOTS",
     "SCALE_BLOCK_ROWS",
     "pack_ell_chunk",
+    "packed_launch_plan",
     "spmv_ell_packed_kernel_call",
 ]
 
@@ -40,6 +44,8 @@ __all__ = [
 PACKED_VALUE_DTYPES = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn}
 # Rows sharing one quantization scale (the "per-row-block" granularity).
 SCALE_BLOCK_ROWS = 8
+# Slots a lane of the kernel reads as vectors (csrc/spmv_ell_packed.cu: kSlots).
+PACKED_SLOTS = 8
 
 
 def pack_ell_chunk(val: np.ndarray, col: np.ndarray, mode: str):
@@ -81,6 +87,22 @@ def pack_ell_chunk(val: np.ndarray, col: np.ndarray, mode: str):
     return val_packed, scale, base, dcol32.to(torch.int16) if fits else dcol32
 
 
+def packed_launch_plan(width: int, delta_size: int, aligned: bool) -> tuple:
+    """``(lanes per row, path)`` of one ``spmv_ell_packed`` launch.
+
+    A lane reads :data:`PACKED_SLOTS` slots as whole vectors: 16 B of bf16
+    or 8 B of fp8 values, 16 B of int16 or 32 B of int32 deltas.  So the
+    plan is the same for both delta sizes (2 or 4 bytes; another raises):
+    width / 8 lanes a row rounded up to a power of two, a warp walking the
+    row past 32 vectors, and lane groups of one slot a step when the width
+    is not a multiple of 8 or a base of ``val`` or ``dcol`` is not 16-byte
+    aligned (``aligned`` False).  See :func:`.spmv_ell.lane_plan`.
+    """
+    if delta_size not in (2, 4):
+        raise ValueError(f"spmv_ell_packed: no kernel for {delta_size}-byte deltas")
+    return lane_plan(width, PACKED_SLOTS, aligned)
+
+
 def spmv_ell_packed_kernel_call(
     val: torch.Tensor,
     scale: torch.Tensor,
@@ -110,13 +132,13 @@ def spmv_ell_packed_kernel_call(
         raise ValueError(f"spmv_ell_packed: base must be int32 ({rows}, 1), got {base.dtype} "
                          f"{tuple(base.shape)}")
     y = torch.empty(rows, dtype=accum_dtype, device=val.device)
-    lib = _b.load()
-    group = ell_group(width)
-    rc = lib.repro_spmv_ell_packed(
+    aligned = (val.data_ptr() | dcol.data_ptr()) % 16 == 0
+    lanes, path = packed_launch_plan(width, dcol.element_size(), aligned)
+    rc = _b.load().repro_spmv_ell_packed(
         _b.dtype_code(val.dtype), _b.index_code(dcol.dtype),
         _b.dtype_code(x.dtype), _b.dtype_code(accum_dtype),
         _b.ptr(val), _b.ptr(scale), _b.ptr(base), _b.ptr(dcol), _b.ptr(x), _b.ptr(y),
-        rows, width, group, _b.stream_of(val),
+        rows, width, lanes, ELL_PATHS[path], sm_count(val.device), _b.stream_of(val),
     )
     _b.check(rc, "spmv_ell_packed")
     spmv_ell_packed_kernel_call.launches += 1

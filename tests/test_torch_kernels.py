@@ -28,13 +28,23 @@ from repro.kernels.spmv_ell_packed import spmv_ell_packed_kernel_call as jax_spm
 from repro.kernels.spmv_bsr import spmv_bsr_kernel_call as jax_spmv_bsr
 from repro.kernels.spmv_ell import spmv_ell_kernel_call as jax_spmv_ell
 from repro.sparse import generate, to_device_bsr, to_device_ell
-from repro_torch.kernels import build, ops, ref
+from repro_torch.kernels import build, lanczos_fused, ops, ref
+from repro_torch.kernels import spmv_ell as spmv_ell_module
 from repro_torch.kernels.lanczos_fused import spmv_ell_alpha_kernel_call
 from repro_torch.kernels.lanczos_update import lanczos_update_kernel_call
 from repro_torch.kernels.mixed_dot import mixed_dot_kernel_call
 from repro_torch.kernels.spmv_bsr import spmv_bsr_kernel_call
-from repro_torch.kernels.spmv_ell import ell_group, ell_launch_plan, spmv_ell_kernel_call
-from repro_torch.kernels.spmv_ell_packed import pack_ell_chunk, spmv_ell_packed_kernel_call
+from repro_torch.kernels.spmv_ell import (
+    ell_group,
+    ell_launch_plan,
+    ell_max_blocks,
+    spmv_ell_kernel_call,
+)
+from repro_torch.kernels.spmv_ell_packed import (
+    pack_ell_chunk,
+    packed_launch_plan,
+    spmv_ell_packed_kernel_call,
+)
 from repro_torch.sparse.formats import from_reference
 
 # (storage, accum) pairs, as (jax dtype, torch dtype) each.
@@ -297,6 +307,83 @@ LAUNCH_PLANS = [
 @pytest.mark.parametrize("args,plan", LAUNCH_PLANS, ids=[str(a) for a, _ in LAUNCH_PLANS])
 def test_spmv_ell_launch_plan(args, plan):
     assert ell_launch_plan(*args) == plan
+
+
+# (width, delta bytes, bases aligned) -> (lanes per row, path): a lane of
+# spmv_ell_packed reads 8 slots as vectors, whatever the delta size.
+PACKED_PLANS = [
+    ((8, 2, True), (1, "vector")),     # a chunk of a road network: one lane a row
+    ((8, 4, True), (1, "vector")),
+    ((16, 4, True), (2, "vector")),
+    ((24, 2, True), (4, "vector")),    # 3 vectors: rounded up to 4 lanes, one idle
+    ((40, 4, True), (8, "vector")),
+    ((256, 2, True), (32, "vector")),  # 32 vectors: the last width with a lane each
+    ((264, 4, True), (32, "wide")),    # 33 vectors: a warp walks the row
+    ((1_047_672, 4, True), (32, "wide")),
+    ((37, 2, True), (32, "scalar")),   # not a whole number of vectors
+    ((12, 4, True), (16, "scalar")),
+    ((4, 2, True), (4, "scalar")),
+    ((8, 4, False), (8, "scalar")),    # a base that is not 16-byte aligned
+    ((264, 2, False), (32, "scalar")),
+]
+
+
+@pytest.mark.parametrize("args,plan", PACKED_PLANS, ids=[str(a) for a, _ in PACKED_PLANS])
+def test_spmv_ell_packed_launch_plan(args, plan):
+    assert packed_launch_plan(*args) == plan
+
+
+@pytest.mark.parametrize("delta_size", [1, 8])
+def test_spmv_ell_packed_launch_plan_refuses_other_deltas(delta_size):
+    with pytest.raises(ValueError, match="deltas"):
+        packed_launch_plan(8, delta_size, True)
+
+
+# (rows, width, storage, SMs): the main path's f32 rows of 8 on a small
+# card, a grid that covers the rows at once, the wide and the scalar path.
+ALPHA_GRIDS = [
+    (1 << 16, 8, torch.float32, 8),
+    (1 << 16, 8, torch.float64, 132),
+    (1000, 8, torch.float32, 132),
+    (64, 200, torch.float32, 2),
+    (4096, 37, torch.float32, 4),
+]
+
+
+@pytest.mark.parametrize("rows,width,dt,sms", ALPHA_GRIDS)
+def test_spmv_ell_alpha_partials_sized_from_grid(rows, width, dt, sms, monkeypatch):
+    """The alpha wrapper allocates one partial per block of the kernel's
+    grid (at most SMs x the 8 blocks of 256 threads a Hopper SM holds),
+    not one per 256 lanes of rows, and passes that count and spmv_ell's
+    launch plan to the kernel."""
+    seen = {}
+
+    class FakeLib:
+        def repro_spmv_ell_alpha(self, *args):
+            seen["args"] = args
+            return 0
+
+    monkeypatch.setattr(build, "require_cuda", lambda *a: None)
+    monkeypatch.setattr(build, "load", FakeLib)
+    monkeypatch.setattr(build, "stream_of", lambda t: None)
+    monkeypatch.setattr(build, "ptr", lambda t: t)  # the kernel sees the tensors
+    monkeypatch.setattr(lanczos_fused, "sm_count", lambda dev: sms)
+    val = torch.zeros(rows, width, dtype=dt)
+    col = torch.zeros(rows, width, dtype=torch.int32)
+    spmv_ell_alpha_kernel_call(val, col, torch.zeros(rows, dtype=dt),
+                               torch.zeros(rows - 3, dtype=torch.float64),
+                               accum_dtype=torch.float64)
+    args = seen["args"]
+    lanes, path = ell_launch_plan(width, val.element_size(), True)
+    assert args[12:16] == (width, lanes, spmv_ell_module.ELL_PATHS[path], sms)
+    partials, n_partials = args[8], args[9]
+    assert partials.dtype == torch.float64 and partials.numel() == n_partials
+    assert n_partials == ell_max_blocks(rows, lanes, path, sms) <= sms * 8
+    step = 256 // (32 if path == "wide" else lanes) * (4 if path == "vector" else 1)
+    assert n_partials == min(-(-rows // step), sms * 8)
+    old_blocks = -(-rows * ell_group(width) // 256)  # the lane-group design's grid
+    if rows >= 1 << 16:
+        assert n_partials * 8 <= old_blocks
 
 
 @pytest.mark.parametrize("compensated", [False, True])

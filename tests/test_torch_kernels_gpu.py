@@ -1,4 +1,5 @@
-"""The redesigned ``spmv_ell`` and ``mixed_dot`` kernels on the card.
+"""The redesigned ``spmv_ell``, ``mixed_dot``, ``spmv_ell_packed`` and
+``spmv_ell_alpha`` kernels on the card.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 neither ``jax`` nor the reference package, so it also runs on a machine that
@@ -9,17 +10,20 @@ has only PyTorch: from the repository root,
 (``--noconftest``: ``tests/conftest.py`` imports ``jax``).  The kernels are
 held against their plain versions (``kernels.ref``) at rtol 1e-5 under f32
 accumulation and 1e-12 under f64, relative to the largest |y| for SpMV and
-to the sum of |a_i b_i| for the dot: the arithmetic is the same, only the
-order of the sums differs.  Repeated calls, and the unpadded and padded
-dot, must agree bit for bit.
+to the sum of |a_i b_i| for the dot and for alpha: the arithmetic is the
+same, only the order of the sums differs.  Repeated calls, the unpadded and
+padded dot, and ``spmv_ell_alpha``'s ``w`` and ``spmv_ell``'s ``y`` (one row
+code) must agree bit for bit.
 """
 
 import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.lanczos_fused import spmv_ell_alpha_kernel_call
 from repro_torch.kernels.mixed_dot import mixed_dot_kernel_call
 from repro_torch.kernels.spmv_ell import ell_launch_plan, spmv_ell_kernel_call
+from repro_torch.kernels.spmv_ell_packed import packed_launch_plan, spmv_ell_packed_kernel_call
 
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # (storage, accum) pairs of the precision policies.
@@ -211,3 +215,145 @@ def test_mixed_dot_entry_point_matches_host(cuda):
         got = ops.mixed_dot(a, b, torch.float64, comp)
         want = ops.mixed_dot(a.cpu(), b.cpu(), torch.float64, comp)
         assert abs(float(got) - float(want)) <= 1e-12 * terms
+
+
+# ------------------------------------------------------------ spmv_ell_packed
+
+VALUE_DTYPES = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn}
+# Columns: 20,000 keep every delta in int16; 100,000 need int32.
+DELTAS = {"int16": (torch.int16, 20_000), "int32": (torch.int32, 100_000)}
+# Width -> the kernel's path: 8 slots a lane, a warp past 32 vectors.
+PACKED_WIDTHS = {8: "vector", 16: "vector", 24: "vector", 40: "vector", 264: "wide",
+                 37: "scalar"}
+
+
+def _packed(rows, width, mode, idx, dev, seed):
+    """A packed chunk as the staging builds one: sorted columns per row, the
+    ragged tail of each row padded with value 0 at column 0 (its first delta
+    returns the column to 0), a positive f32 scale per row, ``base`` the
+    row's first column and ``dcol`` the deltas from it."""
+    idt, n = DELTAS[idx]
+    g = torch.Generator().manual_seed(seed)
+    col = torch.randint(0, n, (rows, width), generator=g).sort(dim=1).values
+    val = torch.randn(rows, width, generator=g) * 4.0
+    pad = torch.arange(width) >= torch.randint(1, width + 1, (rows, 1), generator=g)
+    col[pad], val[pad] = 0, 0.0
+    scale = torch.rand(rows, 1, generator=g) + 0.5
+    base = col[:, :1].to(torch.int32)
+    dcol = torch.diff(col, dim=1, prepend=col[:, :1]).to(idt)
+    x = torch.randn(n, generator=g, dtype=torch.float64)
+    return [t.contiguous().to(dev) for t in (val.to(VALUE_DTYPES[mode]), scale, base, dcol)], x
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", list(PAIRS))
+@pytest.mark.parametrize("width", list(PACKED_WIDTHS))
+@pytest.mark.parametrize("idx", list(DELTAS))
+@pytest.mark.parametrize("mode", list(VALUE_DTYPES))
+def test_spmv_ell_packed_widths(cuda, mode, idx, width, pair):
+    """Every path of the kernel at 1,003 rows (a grid that does not divide
+    them): the vector path at 1, 2, 4 and 8 lanes a row, the wide path and
+    the scalar path; two calls give the same bits."""
+    S, A = PAIRS[pair]
+    packed, x64 = _packed(1003, width, mode, idx, cuda, seed=width)
+    x = x64.to(S).to(cuda)
+    assert packed_launch_plan(width, packed[3].element_size(), True)[1] == PACKED_WIDTHS[width]
+    y = spmv_ell_packed_kernel_call(*packed, x, accum_dtype=A)
+    want = ref.spmv_ell_packed_ref(*packed, x, A)
+    assert y.dtype == A and y.shape == want.shape
+    err = float((y.double() - want.double()).abs().max())
+    assert err <= RTOL[A] * max(float(want.double().abs().max()), 1e-300)
+    assert torch.equal(y, spmv_ell_packed_kernel_call(*packed, x, accum_dtype=A))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("idx", list(DELTAS))
+@pytest.mark.parametrize("mode", list(VALUE_DTYPES))
+def test_spmv_ell_packed_unaligned_base(cuda, mode, idx):
+    """Values and deltas one element past a 16-byte boundary take the scalar
+    path, and still match."""
+    rows, width = 517, 8
+    packed, x64 = _packed(rows, width, mode, idx, cuda, seed=5)
+    shifted = []
+    for t in (packed[0], packed[3]):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+        buf[1:].copy_(t.reshape(-1))
+        shifted.append(buf[1:].view(rows, width))
+    val_u, dcol_u = shifted
+    assert val_u.data_ptr() % 16 and dcol_u.data_ptr() % 16
+    assert packed_launch_plan(width, dcol_u.element_size(), False)[1] == "scalar"
+    x = x64.to(torch.float32).to(cuda)
+    args = (val_u, packed[1], packed[2], dcol_u, x)
+    y = spmv_ell_packed_kernel_call(*args, accum_dtype=torch.float64)
+    want = ref.spmv_ell_packed_ref(*args, torch.float64)
+    assert float((y - want).abs().max()) <= 1e-12 * float(want.abs().max())
+
+
+# ------------------------------------------------------------- spmv_ell_alpha
+
+# Path -> a width that takes it for every storage dtype (16-byte vectors of
+# 2 to 8 slots).
+ALPHA_WIDTHS = {"vector": 8, "wide": 520, "scalar": 37}
+
+
+def _alpha_close(alpha, val, col, x, v, acc):
+    w_ref, alpha_ref = ref.spmv_ell_alpha_ref(val, col, x, v, acc)
+    terms = float((v.double() * w_ref[: v.shape[0]].double()).abs().sum())
+    assert alpha.dtype == acc and alpha.dim() == 0
+    assert abs(float(alpha) - float(alpha_ref)) <= RTOL[acc] * terms
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", list(ALPHA_WIDTHS))
+@pytest.mark.parametrize("pair", list(PAIRS))
+def test_spmv_ell_alpha_w_is_spmv_ell(cuda, pair, path):
+    """``w`` is ``spmv_ell``'s ``y`` bit for bit on every path (one row
+    code); alpha matches the plain version and has the same bits on five
+    calls."""
+    S, A = PAIRS[pair]
+    width = ALPHA_WIDTHS[path]
+    val, col, x = _ell(1003, width, 2000, S, cuda, seed=width)
+    assert ell_launch_plan(width, val.element_size(), True)[1] == path
+    v = torch.randn(1003, generator=torch.Generator().manual_seed(1), dtype=torch.float64)
+    v = v.to(A).to(cuda)
+    w, alpha = spmv_ell_alpha_kernel_call(val, col, x, v, accum_dtype=A)
+    assert torch.equal(w, spmv_ell_kernel_call(val, col, x, accum_dtype=A))
+    _alpha_close(alpha, val, col, x, v, A)
+    for _ in range(4):
+        w2, alpha2 = spmv_ell_alpha_kernel_call(val, col, x, v, accum_dtype=A)
+        assert torch.equal(w2, w) and torch.equal(alpha2, alpha)
+
+
+@pytest.mark.gpu
+def test_spmv_ell_alpha_main_path_shape(cuda):
+    """The main path's layout (rows of 8 f32 slots, v and w in f64) at a size
+    that spans many grid strides: w equals spmv_ell's y, and alpha has the
+    same bits on five calls."""
+    val, col, x = _ell(1 << 20, 8, 1 << 20, torch.float32, cuda, seed=11)
+    v = torch.randn(1 << 20, generator=torch.Generator().manual_seed(2), dtype=torch.float64)
+    v = v.to(cuda)
+    w, alpha = spmv_ell_alpha_kernel_call(val, col, x, v, accum_dtype=torch.float64)
+    assert torch.equal(w, spmv_ell_kernel_call(val, col, x, accum_dtype=torch.float64))
+    _alpha_close(alpha, val, col, x, v, torch.float64)
+    for _ in range(4):
+        assert torch.equal(spmv_ell_alpha_kernel_call(val, col, x, v, accum_dtype=torch.float64)[1],
+                           alpha)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("path", list(ALPHA_WIDTHS))
+@pytest.mark.parametrize("pair", list(PAIRS))
+def test_spmv_ell_alpha_ignores_padding_rows(cuda, pair, path):
+    """With ``len(v) < rows`` the rows past ``len(v)`` are written to ``w`` but
+    add nothing to alpha, and ``v`` is not read past its end: ``v`` is a view
+    whose storage goes on with 1e30s."""
+    S, A = PAIRS[pair]
+    rows, nv = 1003, 1003 - 11
+    val, col, x = _ell(rows, ALPHA_WIDTHS[path], 2000, S, cuda, seed=3)
+    v_full = torch.randn(rows, generator=torch.Generator().manual_seed(4), dtype=torch.float64)
+    v_full[nv:] = 1e30
+    v = v_full.to(A).to(cuda)[:nv]
+    w, alpha = spmv_ell_alpha_kernel_call(val, col, x, v, accum_dtype=A)
+    assert w.shape == (rows,)
+    assert torch.equal(w, spmv_ell_kernel_call(val, col, x, accum_dtype=A))
+    _alpha_close(alpha, val, col, x, v, A)
