@@ -6,9 +6,15 @@ Prepares ``repro_torch`` on the 4.19M-row road network of ``chip_smoke.py``
 solve for each update mode under ``torch.profiler`` (the default start
 vector, drawn on the card), and prints per
 operation device time, the solve's wall time, and the share of that wall
-time in which the card ran no kernel.  Run from the repository root:
+time in which the card ran no kernel.  With ``--tol``, profiles instead one
+warm restarted solve (``eigsh(road, k=8, tol=TOL)``, the thick-restart
+backend) and splits its card time into the ``spmv_ell`` launches and the
+re-orthogonalization's matrix products (cuBLAS gemv/gemm, with the
+arrowhead coupling and the Ritz projections), and its wall into the steps
+and the host Jacobi of each cycle.  Run from the
+repository root:
 
-    python3 bench_torch/profile_eigsh.py [--out profile_eigsh.json]
+    python3 bench_torch/profile_eigsh.py [--tol 1e-6] [--out profile_eigsh.json]
 """
 
 from __future__ import annotations
@@ -50,9 +56,86 @@ def busy_us(events) -> float:
     return total
 
 
+def device_ms_by(events, *needles) -> float:
+    """Device milliseconds of the activities whose name holds a needle."""
+    return sum(
+        e.time_range.elapsed_us()
+        for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and any(nd in e.name.lower() for nd in needles)
+    ) / 1e3
+
+
+def profile(sess, **query):
+    """One warm query of ``sess`` under ``torch.profiler``: its result, wall
+    microseconds and the profile."""
+    sess.eigsh(K, **query)  # warm-up: kernels built, allocator warm
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.perf_counter()
+        res = sess.eigsh(K, **query)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    return res, wall_us, prof
+
+
+def top_ops(prof, count: int = 12) -> list:
+    table = sorted(
+        (
+            (e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.key not in _PROFILER_RECORDS
+        ),
+        key=lambda r: -r[1],
+    )
+    return [{"op": k, "device_ms": t / 1e3, "count": c} for k, t, c in table[:count]]
+
+
+def restarted_record(road, tol: float, smi: str) -> dict:
+    """One warm restarted solve: steps, restarts, wall, card busy time and
+    idle share, and the device time of the SpMV and of the reorth products."""
+    import repro_torch
+
+    sess = repro_torch.prepare(road, device="cuda", tol=tol)
+    res, wall_us, prof = profile(sess)
+    events = prof.events()
+    busy = busy_us(events)
+    steps = res.iterations
+    rec = {
+        "mode": f"restarted tol={tol:g}",
+        "device": smi,
+        "steps": steps,
+        "restarts": res.restarts,
+        "converged": int(res.converged.sum()),
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy / 1e3,
+        "idle_share": 1.0 - busy / wall_us,
+        "spmv_ell_ms": device_ms_by(events, "spmv_ell"),
+        "reorth_blas_ms": device_ms_by(events, "gemv", "gemm"),
+        "copies_ms": device_ms_by(events, "copy"),
+        "timings_ms": {k: v * 1e3 for k, v in res.timings.items()},
+        "busy_per_step_ms": busy / 1e3 / steps,
+        "top_device_ops": top_ops(prof),
+    }
+    t = rec["timings_ms"]
+    print(f"[{rec['mode']}] {steps} steps, {res.restarts} restarts, {rec['converged']}/{K} "
+          f"converged; wall {rec['wall_ms']:.2f} ms: steps {t['lanczos_s']:.2f} ms "
+          f"({t['lanczos_s'] / steps:.4f} a step), host Jacobi {t['jacobi_s']:.2f} ms; device "
+          f"busy {rec['device_busy_ms']:.2f} ms ({rec['busy_per_step_ms']:.4f} a step), idle "
+          f"share {rec['idle_share']:.3f}; spmv_ell {rec['spmv_ell_ms']:.3f} ms, gemv/gemm "
+          f"{rec['reorth_blas_ms']:.3f} ms, copies {rec['copies_ms']:.3f} ms")
+    for r in rec["top_device_ops"]:
+        print(f"    {r['device_ms']:9.3f} ms  x{r['count']:<5d} {r['op'][:90]}")
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="write the records as JSON here")
+    ap.add_argument("--tol", type=float, default=None,
+                    help="profile one warm restarted solve to this tolerance instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_eigsh.py: no CUDA device visible", file=sys.stderr)
@@ -68,28 +151,11 @@ def main() -> int:
     print(smi)
     road = generate("road", 1 << 22, 2.1, seed=0)
     records = []
-    for mode in ("unfused", "fused", "fused_spmv"):
+    for mode in () if args.tol is not None else ("unfused", "fused", "fused_spmv"):
         os.environ["REPRO_ITER_UPDATE"] = mode
         sess = repro_torch.prepare(road, device="cuda")
-        sess.eigsh(K)  # warm-up: kernels built, allocator warm
-        torch.cuda.synchronize()
-        with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        ) as prof:
-            t0 = time.perf_counter()
-            res = sess.eigsh(K)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        events = prof.events()
-        busy = busy_us(events)
-        table = sorted(
-            (
-                (e.key, e.self_device_time_total, e.count)
-                for e in prof.key_averages()
-                if e.self_device_time_total > 0 and e.key not in _PROFILER_RECORDS
-            ),
-            key=lambda r: -r[1],
-        )
+        res, wall_us, prof = profile(sess)
+        busy = busy_us(prof.events())
         rec = {
             "mode": mode,
             "device": smi,
@@ -97,9 +163,7 @@ def main() -> int:
             "device_busy_ms": busy / 1e3,
             "idle_share": 1.0 - busy / wall_us,
             "timings_ms": {k: v * 1e3 for k, v in res.timings.items()},
-            "top_device_ops": [
-                {"op": k, "device_ms": t / 1e3, "count": c} for k, t, c in table[:12]
-            ],
+            "top_device_ops": top_ops(prof),
         }
         records.append(rec)
         print(f"[{mode}] wall {rec['wall_ms']:.2f} ms, device busy {rec['device_busy_ms']:.2f} ms,"
@@ -109,6 +173,8 @@ def main() -> int:
         for r in rec["top_device_ops"]:
             print(f"    {r['device_ms']:9.3f} ms  x{r['count']:<4d} {r['op'][:90]}")
     os.environ.pop("REPRO_ITER_UPDATE", None)
+    if args.tol is not None:
+        records.append(restarted_record(road, args.tol, smi))
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:

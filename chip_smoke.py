@@ -49,7 +49,26 @@ before the last line:
    ``spmv_ell_packed`` ``num_chunks * k`` times and stay within the
    reference tests' bounds of f32 staging; fp8 on
    ``generate("road", 1 << 20, 2.1)`` (``chunk_nnz = 1 << 18``) matches the
-   same chunked solve on the host at rel 1e-9.
+   same chunked solve on the host at rel 1e-9;
+10. the restarted backend and the session's query layer, full width: (a)
+   ``repro_torch.eigsh(road 4.19M, k=8, tol=1e-6)`` (FDF) runs
+   ``backend="restarted"`` on ELL, ``spmv_ell`` launched ``iterations``
+   times and ``lanczos_update`` never; true residuals against the bounds
+   (phase 3's gap rule) and, for converged pairs, against ``tol``; (b) the
+   same call at ``generate("road", 1 << 20, 2.1)`` on the card and on the
+   host: equal ``iterations`` and ``restarts``, eigenvalues at rel 1e-9;
+   (c) ``policy="auto", tol=1e-4`` on phase 4's web graph: the trail of
+   rungs, the accepted rung's verified residuals within ``tol``, every
+   earlier rung rejected, plans reused; (d) a second
+   ``repro_torch.eigsh(road, k=8, v0=...)`` is served by the session cache
+   (``session_reuse``, ``prepare_s`` 0, the same bits), cold and cached
+   wall times; (e) ``prepare(road).eigsh_many([k=4 FDF, k=8 FDF, k=8
+   FFF])``: two sweeps, the k=8 FDF answer equal to a lone call at rel
+   1e-9, the k=4 answer the first four of that sweep.
+
+``repro_torch.eigsh`` keeps a cache of prepared sessions, so every call a
+phase reports as cold (``solve``) clears it first; phase 7 prints its
+state once.
 
 Then one JSON line of kernel records, and as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result when
@@ -442,7 +461,7 @@ def phase_kernels_chunked(big, small, web) -> dict:
                     rec = timed(run, plain, None, err, t_b, by)
     out["spmv_ell_packed"] = rec
     packed_hub_check(web, g)
-    out["spmv_ell_chunk"] = chunk_ell_record(big, chunks["int32"][0], g)
+    out["spmv_ell_chunk"] = chunk_ell_record(big, (r0, r1), chunks["int32"][0], g)
 
     n = 1 << 22
     a64, b64 = (torch.randn(n, generator=g, dtype=torch.float64, device=dev) for _ in range(2))
@@ -504,9 +523,11 @@ def packed_hub_check(web, g) -> None:
                   f"{float(terms.max()):.3e}) ok")
 
 
-def chunk_ell_record(big, chunk, g) -> dict:
-    """``spmv_ell`` (val f32, acc f64) on one chunk of phase 8's matrix, the
-    chunked path's launch shape: device time per launch and its bound."""
+def chunk_ell_record(big, rows_range, chunk, g) -> dict:
+    """``spmv_ell`` (val f32, acc f64) on one chunk of phase 8's matrix (rows
+    ``rows_range``), the chunked path's launch shape: device time per launch
+    and its bound, beside cuSPARSE's CSR product of the same rows (f32, a
+    yardstick as on the main path)."""
     from repro_torch.kernels import ref
 
     fn = kernel_modules()["spmv_ell"]
@@ -519,10 +540,23 @@ def chunk_ell_record(big, chunk, g) -> dict:
     touched = int(torch.unique(col[val != 0]).numel())
     t_b, by = bound(nbytes(val, col) + touched * x.element_size() + rows * 8, 2.0 * int((val != 0).sum()),
                     torch.float64)
+    r0, r1 = rows_range
+    lo, hi = int(big.indptr[r0]), int(big.indptr[r1])
+    csr_t = torch.sparse_csr_tensor(
+        torch.as_tensor((big.indptr[r0 : r1 + 1] - lo).astype(np.int32), device=dev),
+        torch.as_tensor(big.indices[lo:hi].astype(np.int32), device=dev),
+        torch.as_tensor(big.data[lo:hi], dtype=torch.float32, device=dev),
+        size=(r1 - r0, big.n),
+    )
+    lib = lambda: csr_t @ x  # noqa: E731
+    close(lib(), run()[: r1 - r0], RTOL[torch.float32])
     rec = {"rows": rows, "width": width, "max_abs_err": err, "ms": time_ms(run),
-           "device_ms": device_ms(run, tag="chunk"), "bound_ms": t_b, "bound_by": by}
+           "device_ms": device_ms(run, tag="chunk"), "bound_ms": t_b, "bound_by": by,
+           "library_ms": time_ms(lib), "library_device_ms": device_ms(lib, tag="chunk library")}
     print(f"[kernels] spmv_ell on one chunk {rows} x {width} (f32, f64): max_abs_err {err:.3e}; "
-          f"device {rec['device_ms']:.4f} ms, series {rec['ms']:.4f} ms, bound {t_b:.4f} ms")
+          f"device {rec['device_ms']:.4f} ms, series {rec['ms']:.4f} ms, bound {t_b:.4f} ms; "
+          f"cuSPARSE CSR f32 on its {r1 - r0:,} rows: device {rec['library_device_ms']:.4f} ms, "
+          f"series {rec['library_ms']:.4f} ms")
     return rec
 
 
@@ -570,8 +604,11 @@ def mixed_dot_out_of_l2(n: int, g) -> dict:
 
 
 def solve(A, dev, v0, **kw):
+    """One cold ``repro_torch.eigsh`` call (the session cache cleared first,
+    so it prepares anew), its wall time and its kernel launches."""
     import repro_torch
 
+    repro_torch.session_cache_clear()
     reset_launches()
     t0 = time.perf_counter()
     res = repro_torch.eigsh(A, k=K, v0=v0, device=dev, **kw)
@@ -794,6 +831,127 @@ def phase_packed(road, v0, path, f32_res, smi) -> dict:
     return out
 
 
+def check_restarted_residuals(tag, res, A, tol):
+    """True residuals ||A x - lambda x|| (scipy, f64) of a restarted solve:
+    every pair against its bound with phase 3's gap rule, and every pair
+    flagged converged against ``tol * |lambda|``, with room for the
+    eigenvectors' rounding to the output dtype (4 eps |lambda|max)."""
+    X = res.eigenvectors.double().cpu().numpy()
+    lam = res.eigenvalues.double().cpu().numpy()
+    true = np.linalg.norm(A.to_scipy() @ X - X * lam, axis=0)
+    scale = np.abs(lam).max()
+    gap = np.abs(true - res.residuals)
+    check(bool((gap <= 1e-4 * scale + 1e-3 * res.residuals).all()),
+          f"{tag}: true residuals {true} vs bounds {res.residuals}")
+    eps = float(torch.finfo(res.eigenvectors.dtype).eps)
+    conv = np.asarray(res.converged)
+    ok = true[conv] <= tol * np.abs(lam[conv]) + 4 * eps * scale
+    check(bool(ok.all()), f"{tag}: converged pairs' true residuals {true[conv]} exceed tol {tol}")
+    return true / np.maximum(np.abs(lam), 1e-300)
+
+
+def phase_restarted(road, web, v_road, smi) -> None:
+    """Phase 10: ``tol=`` (the restarted backend) at full width, its parity
+    with the host, ``policy="auto"``, the session cache and ``eigsh_many``."""
+    import repro_torch
+    from repro_torch.core.precision import POLICIES
+    from repro_torch.sparse import generate
+
+    tol = 1e-6
+    # (a) full-width restarted solve
+    res, wall, launches = solve(road, "cuda", None, tol=tol)
+    print(f"[restarted] eigsh(road n={road.n:,}, k={K}, tol={tol:g}) policy={res.policy} "
+          f"backend={res.backend} format={res.spmv_format} iterations={res.iterations} "
+          f"restarts={res.restarts} converged={res.converged.astype(int).tolist()} "
+          f"launches={launches} wall {wall:.3f} s (cold) on {smi}")
+    check(res.backend == "restarted", f"tol= ran backend {res.backend}, expected restarted")
+    check(res.spmv_format == "ell", f"restarted road picked {res.spmv_format}, expected ell")
+    check(launches["spmv_ell"] == res.iterations and launches["lanczos_update"] == 0,
+          f"restarted launches {launches}, expected {res.iterations} spmv_ell and no lanczos_update")
+    rel = check_restarted_residuals("restarted", res, road, tol)
+    exhausted = not res.all_converged
+    e2 = {"float_kind": lambda x: f"{x:.2e}"}
+    print(f"[restarted] eigenvalues {np.round(res.eigenvalues.cpu().numpy(), 6).tolist()}; bounds "
+          f"{np.array2string(res.residuals, formatter=e2)}; true relative residuals "
+          f"{np.array2string(rel, formatter=e2)}; "
+          + (f"max_restarts exhausted: {int(res.converged.sum())} of {K} pairs converged, the "
+             "checks cover the bounds it reports" if exhausted else "all pairs converged")
+          + f"; solve {res.timings['solve_s']:.3f} s, prepare {res.timings['prepare_s']:.3f} s")
+
+    # (b) the same call on the card and on the host
+    mid = generate("road", 1 << 20, 2.1, seed=0)
+    gpu, gwall, gl = solve(mid, "cuda", None, tol=tol)
+    cpu, cwall, _ = solve(mid, "cpu", None, tol=tol)
+    check((gpu.iterations, gpu.restarts) == (cpu.iterations, cpu.restarts),
+          f"restarted card {gpu.iterations}/{gpu.restarts} vs host {cpu.iterations}/{cpu.restarts}")
+    check(gl["spmv_ell"] == gpu.iterations, f"restarted road 1M launches {gl}")
+    err = check_eigs("restarted 1M", gpu, cpu, 1e-9)
+    print(f"[restarted] road n={mid.n:,}, tol={tol:g}: card and host both {gpu.iterations} steps, "
+          f"{gpu.restarts} restarts; eigenvalues max rel err {err:.3e} (<= 1e-9); card {gwall:.2f} s, "
+          f"host {cwall:.2f} s")
+
+    # (c) policy="auto"
+    repro_torch.session_cache_clear()
+    t0 = time.perf_counter()
+    auto = repro_torch.eigsh(web, K, policy="auto", tol=1e-4, device="cuda")
+    torch.cuda.synchronize()
+    awall = time.perf_counter() - t0
+    trail = auto.policy_escalations
+    for a in trail:
+        print(f"[auto]   rung {a['policy']}: max residual {a['max_residual']:.3e} "
+              f"({a['residual_kind']}), tol {a['tol']:g}, accepted {a['converged']}")
+    check(trail[-1]["converged"] and trail[-1]["residual_kind"] == "verified"
+          and trail[-1]["max_residual"] <= 1e-4, f"auto: accepted rung {trail[-1]}")
+    check(not any(a["converged"] for a in trail[:-1]), f"auto: an earlier rung passed: {trail}")
+    check(auto.policy == trail[-1]["policy"], f"auto: result policy {auto.policy}")
+
+    def plan(name):
+        p = POLICIES[name]
+        return (p.storage, p.phase_dtype("spmv"))
+
+    seen = {plan(a["policy"]) for a in trail[:-1]}
+    conv = auto.partition["spmv"]["conversions"]
+    check((conv == 0) == (plan(auto.policy) in seen),
+          f"auto: accepted rung {auto.policy} reports {conv} conversions")
+    again = repro_torch.eigsh(web, K, policy="auto", tol=1e-4, device="cuda")
+    check(again.session_reuse and again.partition["spmv"]["conversions"] == 0
+          and [a["policy"] for a in again.policy_escalations] == [a["policy"] for a in trail],
+          "auto: the repeat call rebuilt a plan or took other rungs")
+    print(f"[auto] eigsh(web n={web.n:,}, k={K}, policy='auto', tol=1e-4): rungs "
+          f"{[a['policy'] for a in trail]} -> {auto.policy} ({auto.iterations} steps, "
+          f"{auto.restarts} restarts), conversions {conv}; wall {awall:.3f} s (cold); repeat "
+          f"call reuses every plan, on {smi}")
+
+    # (d) the session cache: a repeat call on the same matrix is warm
+    first, cold_wall, _ = solve(road, "cuda", v_road)
+    t0 = time.perf_counter()
+    second = repro_torch.eigsh(road, k=K, v0=v_road, device="cuda")
+    torch.cuda.synchronize()
+    cached_wall = time.perf_counter() - t0
+    check(second.session_reuse and second.timings["prepare_s"] == 0.0,
+          f"cache: repeat call session_reuse={second.session_reuse}, timings {second.timings}")
+    check(torch.equal(first.eigenvalues, second.eigenvalues), "cache: repeat call changed the bits")
+    print(f"[cache] eigsh(road, k={K}, v0): cold {cold_wall:.3f} s (prepare "
+          f"{first.timings['prepare_s']:.3f} s), cached {cached_wall:.3f} s (prepare 0, same bits); "
+          f"{repro_torch.session_cache_info()} on {smi}")
+
+    # (e) eigsh_many: queries grouped into shared sweeps
+    sess = repro_torch.prepare(road, device="cuda")
+    sweeps0 = sess.stats["sweeps"]
+    reset_launches()
+    many = sess.eigsh_many([{"k": 4, "v0": v_road}, {"k": K, "v0": v_road},
+                            {"k": K, "policy": "FFF", "v0": v_road}])
+    torch.cuda.synchronize()
+    ml = read_launches()
+    check(sess.stats["sweeps"] == sweeps0 + 2, f"eigsh_many: {sess.stats['sweeps'] - sweeps0} sweeps")
+    err = check_eigs("eigsh_many k=8 FDF", many[1], first, 1e-9)
+    check(torch.equal(many[0].eigenvalues, many[1].eigenvalues[:4]),
+          "eigsh_many: the k=4 answer is not the first four of the shared sweep")
+    print(f"[many] eigsh_many([k=4 FDF, k=8 FDF, k=8 FFF]): 2 sweeps, launches {ml}; k=8 FDF vs a "
+          f"lone eigsh max rel err {err:.3e} (<= 1e-9), bits equal "
+          f"{torch.equal(many[1].eigenvalues, first.eigenvalues)}; k=4 = first four of the sweep")
+
+
 def phase_device() -> str:
     """Phase 1: the card's name and power limit (``nvidia-smi``, returned),
     the versions, and the build of the kernels with each new kernel's
@@ -957,6 +1115,10 @@ def main() -> int:
         # ---- phase 7: warm wall times
         import repro_torch as rt
 
+        rt.session_cache_clear()
+        print(f"[warm] session cache {rt.session_cache_info()}: every cold call below "
+              "(solve) clears it first, so it prepares anew")
+
         for tag, A, v, kw in (
             ("ell road FDF", road, v_road, {}),
             ("hybrid web FFF", web, v_web, {"policy": "FFF"}),
@@ -983,6 +1145,9 @@ def main() -> int:
         os.environ.pop("REPRO_ITER_UPDATE", None)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- phase 10: the restarted backend and the session's query layer
+    phase_restarted(road, web, v_road, smi)
 
     launches = {
         "spmv_ell": main_launches["spmv_ell"],

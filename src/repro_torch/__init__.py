@@ -8,6 +8,25 @@ the host with ``device="cpu"`` through their plain PyTorch versions.
 
 __version__ = "0.1.0"
 
-from .api import EigenResult, EigenSession, SolverConfig, eigsh, prepare
+from .api import (
+    EigenResult,
+    EigenSession,
+    SolverConfig,
+    eigsh,
+    eigsh_many,
+    prepare,
+    session_cache_clear,
+    session_cache_info,
+)
 
-__all__ = ["eigsh", "prepare", "EigenSession", "SolverConfig", "EigenResult", "__version__"]
+__all__ = [
+    "eigsh",
+    "eigsh_many",
+    "prepare",
+    "EigenSession",
+    "SolverConfig",
+    "EigenResult",
+    "session_cache_clear",
+    "session_cache_info",
+    "__version__",
+]

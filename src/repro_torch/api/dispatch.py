@@ -21,9 +21,9 @@ Explicit ``backend=`` requests skip the policy but are validated (the
 distributed and chunked paths need an explicit sparse matrix).
 
 This is the reference's ``select_backend``, verbatim.  The port runs
-``"single"`` and ``"chunked"`` so far: the session raises
-``NotImplementedError`` for the others, naming the ROADMAP item that brings
-each.  The session passes ``disk_bytes`` for a DiskCSR input, as the
+``"single"``, ``"restarted"`` and ``"chunked"``; the session raises
+``NotImplementedError`` for ``"distributed"``, naming the ROADMAP item that
+brings it.  The session passes ``disk_bytes`` for a DiskCSR input, as the
 reference's does.
 """
 

@@ -1,50 +1,114 @@
-"""Prepared solve state: ``prepare`` -> :class:`EigenSession` (thin slice).
+"""Prepared solve state: ``prepare`` -> :class:`EigenSession`, queries and
+the session cache.
 
 A session owns what is a function of the matrix and the layout config (the
-coerced input, the chosen backend, the SpMV engine and device layout per
-precision policy) and runs queries against it:
+coerced input, the SpMV engine and device layout per precision policy) and
+runs queries against it:
 
-    sess = prepare(A, device="cuda")     # coerce, select format, convert
-    r = sess.eigsh(8)                     # execute: no conversion
+    sess = prepare(A, device="cuda")             # coerce, select format, convert
+    r1 = sess.eigsh(8)                            # execute: no conversion
+    r2 = sess.eigsh(4, tol=1e-7)                  # restarted, same layout
+    rs = sess.eigsh_many([{"k": 4}, {"k": 8}])    # one shared sweep
 
-Backends: ``"single"`` (the in-core layout on one device) and
+Backends: ``"single"`` (the in-core layout on one device), ``"restarted"``
+(thick restart on the same in-core layout, selected by any ``tol=``) and
 ``"chunked"`` (:class:`~repro_torch.core.operators.ChunkedOperator`: the
-matrix stays on the host, in RAM or memory-mapped from a diskcsr directory,
-and streams to the device chunk by chunk).
+matrix stays on the host and streams to the device chunk by chunk).
 
-Not ported yet: the process-wide session cache, ``eigsh_many`` grouping,
-``policy="auto"`` and ``recovery="auto"`` (ROADMAP queue A, item 8).
+``eigsh_many`` groups queries by (backend, policy, reorth, jacobi,
+recovery); each group runs ONE sweep at its largest subspace per start
+vector and every query slices its Ritz pairs from it.  Start vectors of
+one group run as a multi-start batch on dense and COO operators, as in
+the reference.  ``policy="auto"`` queries run the precision ladder one
+rung at a time and never group.
+
+``repro_torch.eigsh`` goes through :func:`get_session`, a small LRU of
+sessions keyed by the matrix's content digest and the layout fields of the
+config (``REPRO_EIGSH_SESSION_CACHE`` entries, ``REPRO_EIGSH_SESSION_CACHE_MB``
+of host data and device plans): a repeat call on a byte-identical matrix
+reuses the built layout.  An evicted session, and every session on
+:func:`session_cache_clear`, drops its plans and so their device memory.
+
+This is the reference's ``repro/api/session.py`` without the distributed
+backend (ROADMAP queue A, item 10), ``recovery="auto"`` and solve
+checkpoints (item 12), and plan export and import (item 13).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import math
+import os
+import threading
 import time
-from typing import Dict, Optional, Tuple
+import warnings
+from collections import OrderedDict
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-from ..core.eigensolver import solve_fixed
-from ..core.lanczos import ops_for_operator, resolve_update_mode
 from ..configs import env as envcfg
-from ..core.operators import ChunkedOperator, DenseOperator, LinearOperator, make_operator
-from ..core.precision import PrecisionPolicy
+from ..core.eigensolver import ritz_decompose, ritz_extract, solve_fixed
+from ..core.lanczos import (
+    LanczosResult,
+    check_tridiag_health,
+    lanczos_tridiag_multi,
+    ops_for_operator,
+    resolve_update_mode,
+)
+from ..core.operators import (
+    ChunkedOperator,
+    DenseOperator,
+    LinearOperator,
+    SparseOperator,
+    make_operator,
+)
+from ..core.precision import PrecisionPolicy, auto_ladder, dtype_name, phase_op_counts
+from ..core.restarted import solve_restarted
 from ..kernels.engine import FORMATS, SpmvEngine, ell_overhead_bound, make_engine
-from ..sparse.diskcsr import DiskCSR
-from ..sparse.formats import conversion_count
-from .coerce import coerce_input
+from ..sparse.diskcsr import DiskCSR, is_diskcsr
+from ..sparse.formats import CSR, conversion_count
+from .coerce import CoercedInput, _host_array, coerce_input, matrix_fingerprint
 from .dispatch import select_backend
-from .frontend import SolverConfig, _default_tol, _resolve_reorth, resolve_policy
+from .frontend import SolverConfig, _default_tol, _resolve_reorth, is_auto_policy, resolve_policy
 from .result import EigenResult
 
-__all__ = ["EigenSession", "prepare", "resolve_device"]
+__all__ = [
+    "EigQuery",
+    "EigenSession",
+    "prepare",
+    "eigsh_many",
+    "policy_key",
+    "config_fingerprint",
+    "get_session",
+    "session_cache_clear",
+    "session_cache_info",
+    "resolve_device",
+]
 
-_UNSET = object()  # "inherit the session default"
+_UNSET = object()  # "inherit the session default", as distinct from None
 
 # Backends the reference runs that this port does not yet, and the ROADMAP
 # item (queue A) that brings each.
-_NOT_PORTED = {"restarted": 7, "distributed": 10}
+_NOT_PORTED = {"distributed": 10}
+
+# SolverConfig fields that change what a session builds; the per-query
+# fields (k, policy, tol, num_iters, reorth, seed, subspace, max_restarts,
+# jacobi, recovery) are resolved per query.  ``device`` is the port's own:
+# a session's layouts live on one device.
+_LAYOUT_FIELDS = ("backend", "format", "chunk_nnz", "stage_depth", "staging", "device")
+
+# Largest on-disk payload the auto ladder's f64 residual check will
+# materialize: a bigger DiskCSR stays on disk and the ladder judges the
+# Ritz bounds instead.
+_DISK_VERIFY_MAX_BYTES = 1 << 28
+
+# The policy a session plans and coerces with under policy="auto": the
+# ladder's f32-storage rung, so coercion never rounds the input below what
+# any rung needs; each rung builds its own plan lazily.
+_AUTO_PLAN_POLICY = "FFF"
 
 
 def resolve_device(device) -> torch.device:
@@ -58,6 +122,117 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def policy_key(policy: Union[str, PrecisionPolicy]) -> str:
+    """Identity key of a policy: its dtype triple and compensation, plus any
+    per-phase override that differs from ``compute``, never its spelling
+    (``"FDF"`` and the ``FDF`` instance key alike)."""
+    p = resolve_policy(policy).effective()
+    parts = [dtype_name(p.storage), dtype_name(p.compute), dtype_name(p.output),
+             f"c{int(p.compensated)}"]
+    if not p.is_uniform():
+        parts.append("ph[" + ",".join(f"{ph}:{dt}" for ph, dt in p.phase_map().items()) + "]")
+    return "-".join(parts)
+
+
+def _plan_key(pol: PrecisionPolicy) -> str:
+    """What a built plan depends on: the storage dtype (the device layout)
+    and the SpMV-phase accumulator (the engine).  Narrower than
+    :func:`policy_key` on purpose: FFF and FCF, or FDF and FDF[reorth=f32],
+    share one plan."""
+    return f"{dtype_name(pol.storage)}-{dtype_name(pol.phase_dtype('spmv'))}"
+
+
+def _plan_policy(policy) -> PrecisionPolicy:
+    return resolve_policy(_AUTO_PLAN_POLICY if is_auto_policy(policy) else policy)
+
+
+def config_fingerprint(cfg: SolverConfig, fields: Optional[Sequence[str]] = None) -> str:
+    """Digest of a :class:`SolverConfig` (or of the ``fields`` subset); a
+    policy hashes by name and :func:`policy_key`, so ``policy=FDF`` and
+    ``policy="FDF"`` fingerprint alike."""
+    names = tuple(fields) if fields is not None else tuple(f.name for f in dataclasses.fields(cfg))
+    parts = []
+    for name in sorted(names):
+        v = getattr(cfg, name)
+        if name == "policy":
+            if is_auto_policy(v):
+                v = ("auto", "auto")  # the ladder, not any one rung
+            else:
+                p = resolve_policy(v)
+                v = (p.name, policy_key(p))
+        elif name == "device":
+            v = str(torch.device(v))
+        parts.append(f"{name}={v!r}")
+    return hashlib.blake2b("|".join(parts).encode(), digest_size=12).hexdigest()
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class EigQuery:
+    """One solve request against a prepared session.
+
+    Every field but ``k`` defaults to the session's configuration
+    (``_UNSET``); explicit values, ``None`` included where it means
+    something (``tol=None``: fixed-subspace mode), override it.  Plain dicts
+    and bare ints coerce.  ``policy="auto"`` queries solve individually.
+    """
+
+    k: int
+    policy: Any = None
+    tol: Any = _UNSET
+    num_iters: Any = _UNSET
+    reorth: Any = _UNSET
+    seed: Any = _UNSET
+    v0: Any = None
+    subspace: Any = _UNSET
+    max_restarts: Any = _UNSET
+    jacobi: Any = _UNSET
+    recovery: Any = _UNSET
+
+
+def _as_query(q) -> EigQuery:
+    if isinstance(q, EigQuery):
+        return q
+    if isinstance(q, dict):
+        return EigQuery(**q)
+    if isinstance(q, (int, np.integer)):
+        return EigQuery(k=int(q))
+    raise TypeError(
+        f"eigsh_many query must be an EigQuery, a dict of its fields, or an int k; "
+        f"got {type(q).__name__}"
+    )
+
+
+class _NormQuery(NamedTuple):
+    """A query with every field resolved against the session defaults."""
+
+    idx: int
+    k: int
+    pol: PrecisionPolicy  # effective()
+    pkey: str
+    backend: str
+    reorth: str
+    tol_req: Optional[float]
+    tol_eff: float
+    num_iters: Optional[int]
+    m: int  # fixed-m subspace this query needs
+    subspace: Optional[int]
+    max_restarts: int
+    seed: int
+    v0: Any
+    jacobi: str
+    start_key: str
+    recovery: str  # "none" | "raise"
+
+
+def _norm_group_key(q: _NormQuery) -> tuple:
+    """Queries sharing this key are answered by ONE sweep (per start)."""
+    return (q.backend, q.pkey, q.pol.name, q.reorth, q.jacobi, q.recovery)
+
+
+def _tensor_bytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
 
 
 @dataclasses.dataclass
@@ -79,33 +254,111 @@ class _Prepared:
             self.ops_cache[key] = ops_for_operator(self.operator, pol, device=device)
         return self.ops_cache[key]
 
+    def nbytes(self) -> int:
+        """Bytes of the plan's own tensors (the device layout, or a chunked
+        operator's staging windows)."""
+        op = self.operator
+        if isinstance(op, SparseOperator):
+            return _tensor_bytes(*vars(op.mat).values())
+        if isinstance(op, DenseOperator):
+            return _tensor_bytes(op.a)
+        if isinstance(op, ChunkedOperator):
+            return op.resident_bytes()
+        return 0
+
 
 class EigenSession:
-    """Prepared solve state for one matrix on one device (see module doc)."""
+    """Prepared solve state for one matrix on one device (see module doc).
 
-    def __init__(self, A, config: Optional[SolverConfig] = None):
+    Queries on one session run one batch at a time (an internal lock: the
+    operators and counters are single-stream); distinct sessions run in
+    parallel.  ``stats`` counts ``queries``, ``sweeps`` and ``cache_hits``
+    (queries whose plan was already built).
+    """
+
+    def __init__(self, A, config: Optional[SolverConfig] = None, *, n: Optional[int] = None,
+                 _coerced: Optional[CoercedInput] = None):
         cfg = config or SolverConfig()
         if cfg.format not in ("auto",) + FORMATS:
-            raise ValueError(f"unknown SpMV format {cfg.format!r}; expected 'auto' or one of {FORMATS}")
+            raise ValueError(
+                f"unknown SpMV format {cfg.format!r}; expected 'auto' or one of {FORMATS}"
+            )
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         t0 = time.perf_counter()
-        pol0 = resolve_policy(cfg.policy)
-        ci = coerce_input(A, storage_dtype=pol0.storage, device=self.device)
+        pol0 = _plan_policy(cfg.policy)
+        ci = _coerced or coerce_input(A, n=n, storage_dtype=pol0.storage, device=self.device)
         self.op, self.csr, self.n = ci.operator, ci.csr, ci.n
-        # Dense inputs keep the source so another storage dtype re-casts from it.
+        # Dense inputs keep the source so another storage dtype re-casts
+        # from it, not from an already-rounded copy.
         self._dense = A if isinstance(A, (np.ndarray, torch.Tensor)) else None
-        self._prepared: Dict[Tuple[str, str], _Prepared] = {}
+        self.matrix_fingerprint = ci.fingerprint
+        self._prepared: Dict[tuple, _Prepared] = {}
+        self._verify_a = None  # lazy f64 host matrix of the auto ladder's check
+        self._build_lock = threading.Lock()
+        self._query_lock = threading.RLock()
+        self.stats = {"queries": 0, "sweeps": 0, "cache_hits": 0}
         self.prepare_s = time.perf_counter() - t0
+        # Coercion cost no result has reported yet: the first query that
+        # builds a plan claims it (warmup() charges it to prepare_s).
+        self._unclaimed_init_s = self.prepare_s
 
     def warmup(self) -> "EigenSession":
         """Build the plan for the configured policy now (so :func:`prepare`,
         not the first query, pays the conversion)."""
-        pol = resolve_policy(self.cfg.policy)
-        prep, built = self._ensure(self._resolve_backend(self.cfg.tol), pol)
+        backend = self._resolve_backend(self.cfg.tol)
+        prep, built = self._ensure(backend, _plan_policy(self.cfg.policy))
         if built:
             self.prepare_s += prep.build_s
+        self._unclaimed_init_s = 0.0
         return self
+
+    def _claim_init_s(self) -> float:
+        s, self._unclaimed_init_s = self._unclaimed_init_s, 0.0
+        return s
+
+    # ------------------------------------------------------ cache support
+
+    def _own_data(self) -> None:
+        """Snapshot the host problem data so the session stops aliasing the
+        caller's buffers (called when the session enters the cache: its key
+        pins the bytes it was built from, and lazily built plans must not
+        see a later in-place mutation).  A DiskCSR stays a mapping."""
+        if isinstance(self.csr, CSR):
+            self.csr = CSR(indptr=np.array(self.csr.indptr, copy=True),
+                           indices=np.array(self.csr.indices, copy=True),
+                           data=np.array(self.csr.data, copy=True), shape=self.csr.shape)
+        if isinstance(self._dense, torch.Tensor):  # a host copy, as the reference's
+            self._dense = self._dense.detach().to("cpu", copy=True)
+        elif self._dense is not None:
+            self._dense = np.array(self._dense, copy=True)
+        self._verify_a = None
+
+    def approx_bytes(self) -> int:
+        """What caching this session pins: the host problem data (a DiskCSR:
+        its row pointers only) plus the tensors of every built plan."""
+        if isinstance(self.csr, DiskCSR):
+            base = int(self.csr.indptr.nbytes)
+        elif self.csr is not None:
+            base = self.csr.indptr.nbytes + self.csr.indices.nbytes + self.csr.data.nbytes
+        elif isinstance(self._dense, torch.Tensor):
+            base = _tensor_bytes(self._dense)
+        elif self._dense is not None:
+            base = int(self._dense.nbytes)
+        else:
+            base = 0
+        return int(base) + sum(p.nbytes() for p in list(self._prepared.values()))
+
+    def release(self) -> None:
+        """Drop the built plans (and with them their device memory) and the
+        verification matrix; a later query rebuilds what it needs."""
+        with self._build_lock:
+            self._prepared.clear()
+            if self._dense is not None:
+                self.op = None  # the device copy; plans re-cast from the source
+        self._verify_a = None
+
+    # ----------------------------------------------------------- planning
 
     def _resolve_backend(self, tol: Optional[float]) -> str:
         backend = select_backend(
@@ -125,29 +378,36 @@ class EigenSession:
         return backend
 
     def _ensure(self, backend: str, pol: PrecisionPolicy) -> Tuple[_Prepared, bool]:
-        key = (backend, f"{pol.storage}-{pol.phase_dtype('spmv')}")
-        if backend == "chunked":  # the staging pin is part of the plan
+        """The plan for (placement, policy dtypes): built once, then reused.
+        Restarted queries run on the in-core plan of fixed ones."""
+        kind = "chunked" if backend == "chunked" else "single"
+        key = (kind, _plan_key(pol))
+        if kind == "chunked":  # the staging pin is part of the plan
             key += (envcfg.raw("REPRO_CHUNK_STAGING") or self.cfg.staging,)
-        hit = self._prepared.get(key)
-        if hit is not None:
-            return hit, False
-        t0 = time.perf_counter()
-        conv0 = conversion_count()
-        prep = self._build_chunked(pol) if backend == "chunked" else self._build_single(pol)
-        prep.build_s = time.perf_counter() - t0
-        prep.conversions = conversion_count() - conv0
-        self._prepared[key] = prep
+        with self._build_lock:
+            hit = self._prepared.get(key)
+            if hit is not None:
+                return hit, False
+            t0 = time.perf_counter()
+            conv0 = conversion_count()
+            prep = self._build_chunked(pol) if kind == "chunked" else self._build_single(pol)
+            prep.build_s = time.perf_counter() - t0
+            prep.conversions = conversion_count() - conv0
+            self._prepared[key] = prep
+        # A lazy build grew this session: let the cache re-check its budget.
+        _cache_enforce_budget()
         return prep, True
 
     def _build_single(self, pol: PrecisionPolicy) -> _Prepared:
+        if self._dense is not None:
+            op = self.op
+            if op is None or op.a.dtype != pol.storage:
+                src = self._dense
+                t = src if isinstance(src, torch.Tensor) else torch.from_numpy(np.asarray(src))
+                op = DenseOperator(t.to(device=self.device, dtype=pol.storage, copy=True))
+            return _Prepared(op, "dense", None)
         if self.op is not None:
             op = self.op
-            if isinstance(op, DenseOperator):
-                if self._dense is not None and op.a.dtype != pol.storage:
-                    src = self._dense
-                    t = src if isinstance(src, torch.Tensor) else torch.from_numpy(np.asarray(src))
-                    op = DenseOperator(t.to(device=self.device, dtype=pol.storage))
-                return _Prepared(op, "dense", None)
             return _Prepared(op, getattr(op, "spmv_format", "matfree"), getattr(op, "engine", None))
         # An in-core layout holds the whole matrix anyway: a mapping that
         # reached this backend fits, and is read once.
@@ -186,17 +446,7 @@ class EigenSession:
                 op = ChunkedOperator(csr, engine=engine, **kw)
         return _Prepared(op, engine.format, engine)
 
-    @staticmethod
-    def _chunked_partition(op: ChunkedOperator, staging_before: dict) -> dict:
-        """The chunked result's ``partition``: the plan's shape and this
-        call's staging costs (the operator's counters run over a session's
-        queries)."""
-        return {
-            "num_chunks": op.num_chunks,
-            "stage_depth": op.stage_depth,
-            "disk_backed": bool(op.disk_backed),
-            "staging": op.staging_stats(since=staging_before),
-        }
+    # ---------------------------------------------------------- execution
 
     def eigsh(
         self,
@@ -208,106 +458,471 @@ class EigenSession:
         reorth=_UNSET,
         v0=None,
         seed=_UNSET,
+        subspace=_UNSET,
+        max_restarts=_UNSET,
         jacobi=_UNSET,
         recovery=_UNSET,
     ) -> EigenResult:
         """Solve one query; unset keywords inherit the session configuration."""
+        q = EigQuery(k=k, policy=policy, tol=tol, num_iters=num_iters, reorth=reorth, seed=seed,
+                     v0=v0, subspace=subspace, max_restarts=max_restarts, jacobi=jacobi,
+                     recovery=recovery)
+        return self.eigsh_many([q])[0]
 
+    def eigsh_many(self, queries, defaults: Optional[SolverConfig] = None) -> List[EigenResult]:
+        """Batched execute: many ``(k, policy, tol, ...)`` queries, one matrix.
+
+        Queries group by :meth:`group_key`; each group runs one sweep per
+        start vector at its largest subspace and every member slices its
+        Ritz pairs from it.  A merged group runs under its most permissive
+        cost settings (largest ``num_iters`` / ``subspace`` /
+        ``max_restarts``) and its tightest ``tol``: per-query budgets are
+        advisory under batching (submit a query alone where its budget must
+        bind).  Results come back in input order.
+        """
+        if not queries:
+            return []
+        cfg = defaults or self.cfg
+        with self._query_lock:
+            raw = [_as_query(q) for q in queries]
+            self.stats["queries"] += len(raw)
+            results: List[Optional[EigenResult]] = [None] * len(raw)
+            normal: List[_NormQuery] = []
+            for i, rq in enumerate(raw):
+                requested = rq.policy if rq.policy is not None else cfg.policy
+                if is_auto_policy(requested):
+                    results[i] = self._solve_auto(rq, cfg)
+                else:
+                    normal.append(self._normalize(rq, i, cfg))
+            groups: Dict[tuple, List[_NormQuery]] = {}
+            for q in normal:
+                groups.setdefault(_norm_group_key(q), []).append(q)
+            for group in groups.values():
+                for idx, res in self._solve_group(group):
+                    results[idx] = res
+        return results  # type: ignore[return-value]
+
+    def group_key(self, query, defaults: Optional[SolverConfig] = None) -> Optional[tuple]:
+        """The key :meth:`eigsh_many` groups by: two queries with equal keys
+        (on one session) share one sweep.  None for ``policy="auto"``
+        queries, which never group.  Raises what submitting the query would
+        (``k`` out of range, an infeasible ``num_iters``)."""
+        cfg = defaults or self.cfg
+        rq = _as_query(query)
+        requested = rq.policy if rq.policy is not None else cfg.policy
+        if is_auto_policy(requested):
+            return None
+        return _norm_group_key(self._normalize(rq, 0, cfg))
+
+    # ---------------------------------------------------------- internals
+
+    def _normalize(self, q: EigQuery, idx: int, cfg: SolverConfig) -> _NormQuery:
         def pick(v, dflt):
             return dflt if v is _UNSET else v
 
-        cfg = self.cfg
-        k = int(k)
+        k = int(q.k)
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         if k > self.n:
             raise ValueError(f"k={k} exceeds the operator dimension n={self.n}")
-        pol = resolve_policy(policy if policy is not None else cfg.policy)
-        tol_req = pick(tol, cfg.tol)
+        pol = resolve_policy(q.policy if q.policy is not None else cfg.policy).effective()
+        tol_req = pick(q.tol, cfg.tol)
         backend = self._resolve_backend(tol_req)
-        reorth = _resolve_reorth(pick(reorth, cfg.reorth), backend)
-        num_iters = pick(num_iters, cfg.num_iters)
-        if num_iters is not None and num_iters < k:
-            raise ValueError(f"num_iters must be >= k (got {num_iters} < {k})")
-        if pick(jacobi, cfg.jacobi) != "host":
+        reorth_raw = pick(q.reorth, cfg.reorth)
+        num_iters = pick(q.num_iters, cfg.num_iters)
+        if backend == "restarted":
+            if reorth_raw not in (None, "full"):
+                warnings.warn(
+                    f"reorth={reorth_raw!r} is ignored by the restarted backend: thick "
+                    "restart requires full re-orthogonalization to keep the locked Ritz "
+                    "block orthogonal",
+                    stacklevel=4,
+                )
+            reorth = "full"
+            if num_iters is not None and num_iters < k + 2:
+                raise ValueError(
+                    f"num_iters={num_iters} cannot fund a restarted solve for k={k} (the "
+                    f"subspace needs at least k + 2 = {k + 2} steps); raise num_iters or use "
+                    "backend='single'"
+                )
+        else:
+            reorth = _resolve_reorth(reorth_raw, backend)
+            if num_iters is not None and num_iters < k:
+                # Per query: a merged group's larger subspace must not mask
+                # an individually infeasible request.
+                raise ValueError(f"num_iters must be >= k (got {num_iters} < {k})")
+        max_restarts = int(pick(q.max_restarts, cfg.max_restarts))
+        if backend == "restarted" and max_restarts < 1:
+            raise ValueError(f"max_restarts must be >= 1, got {max_restarts}")
+        jacobi = pick(q.jacobi, cfg.jacobi)
+        if jacobi != "host":
             raise NotImplementedError(
                 "only jacobi='host' is ported; the device Jacobi waits (ROADMAP queue A, item 5)"
             )
         if cfg.checkpoint_dir is not None:
             raise NotImplementedError(
-                "checkpoint_dir= (solve snapshots, the chunked engine's chunk-cursor "
-                "checkpoints among them) is not ported yet (ROADMAP queue A, item 12)"
+                "checkpoint_dir= (snapshots of the restarted and chunked engines) is not "
+                "ported yet (ROADMAP queue A, item 12)"
             )
-        rec = pick(recovery, cfg.recovery) or "raise"
-        if rec not in ("raise", "none"):
+        recovery = pick(q.recovery, cfg.recovery) or "raise"
+        if recovery not in ("none", "raise", "auto"):
+            raise ValueError(f"recovery must be 'none', 'raise', or 'auto'; got {recovery!r}")
+        if recovery == "auto":
             raise NotImplementedError(
-                f"recovery={rec!r} is not ported (only None/'raise'/'none'; ROADMAP queue A, item 8)"
+                "recovery='auto' is not ported yet (only None/'raise'/'none'; ROADMAP queue A, "
+                "item 12)"
             )
-        prep, built = self._ensure(backend, pol)
-        chunked = isinstance(prep.operator, ChunkedOperator)
-        staging0 = dict(prep.operator.staging) if chunked else {}
-        m = int(num_iters) if num_iters is not None else k
-        sweep = solve_fixed(
-            prep.operator,
-            k,
-            policy=pol,
+        seed = int(pick(q.seed, cfg.seed))
+        if q.v0 is not None:
+            digest = hashlib.blake2b(_host_array(q.v0).tobytes(), digest_size=8)
+            start_key = f"v0:{digest.hexdigest()}"
+        else:
+            start_key = f"seed:{seed}"
+        return _NormQuery(
+            idx=idx,
+            k=k,
+            pol=pol,
+            pkey=policy_key(pol),
+            backend=backend,
             reorth=reorth,
-            num_iters=m,
-            v1=v0,
-            seed=int(pick(seed, cfg.seed)),
-            ops=prep.ops_for(pol, self.device),
-            probe=rec != "none",
+            tol_req=tol_req,
+            tol_eff=tol_req if tol_req is not None else _default_tol(pol),
+            num_iters=num_iters,
+            m=int(num_iters) if num_iters is not None else k,
+            subspace=pick(q.subspace, cfg.subspace),
+            max_restarts=max_restarts,
+            seed=seed,
+            v0=q.v0,
+            jacobi=jacobi,
+            start_key=start_key,
+            recovery=recovery,
         )
-        tol_eff = tol_req if tol_req is not None else _default_tol(pol)
-        lam = np.abs(np.asarray(sweep.eigenvalues_f64, dtype=np.float64))
-        converged = np.asarray(sweep.residuals) <= tol_eff * np.maximum(lam, 1e-300)
-        t = dict(sweep.timings)
-        t["solve_s"] = t["total_s"]
-        t["prepare_s"] = prep.build_s if built else 0.0
+
+    def _solve_auto(self, rq: EigQuery, cfg: SolverConfig) -> EigenResult:
+        """Accuracy-driven policy selection: solve on each rung of
+        :func:`auto_ladder`, cheapest first, until the measured residuals
+        meet the query's tolerance.  An explicit matrix is judged on f64
+        reconstruction residuals ``||A x - lambda x|| / |lambda|`` on the
+        host (the Ritz bound converges whatever the storage precision, so it
+        cannot expose a too-narrow rung); a matrix-free input on the Ritz
+        bounds.  Each rung reuses the session's plan for its dtypes.  The
+        trail (policy, max relative residual, what it was judged on, tol,
+        accepted) is ``EigenResult.policy_escalations``."""
+        attempts: List[dict] = []
+        res: Optional[EigenResult] = None
+        for rung in auto_ladder():
+            nq = self._normalize(dataclasses.replace(rq, policy=rung), 0, cfg)
+            ((_, res),) = self._solve_group([nq])
+            verified = self._verified_rel_residuals(res)
+            if verified is None:
+                lam = np.abs(res.eigenvalues.detach().cpu().to(torch.float64).numpy())
+                max_rel = float(np.max(res.residuals / np.maximum(lam, 1e-300)))
+                accepted = bool(res.all_converged)
+                kind = "ritz_bound"
+            else:
+                max_rel = float(np.max(verified))
+                accepted = bool(np.all(verified <= nq.tol_eff))
+                kind = "verified"
+            attempts.append({"policy": res.policy, "max_residual": max_rel, "residual_kind": kind,
+                             "tol": float(nq.tol_eff), "converged": accepted})
+            if accepted:
+                break
+        return dataclasses.replace(res, policy_escalations=attempts)
+
+    def _verified_rel_residuals(self, res: EigenResult) -> Optional[np.ndarray]:
+        """(k,) relative residuals ``||A x_i - lambda_i x_i|| / |lambda_i|`` in
+        f64 against the host matrix (SciPy); None for matrix-free inputs.
+        No normalization by ``||x||``: the Ritz bound's convention."""
+        a = self._verify_matrix()
+        if a is None:
+            return None
+        x = res.eigenvectors.detach().cpu().to(torch.float64).numpy()
+        lam = res.eigenvalues.detach().cpu().to(torch.float64).numpy()
+        r = a @ x - x * lam
+        return np.linalg.norm(r, axis=0) / np.maximum(np.abs(lam), 1e-300)
+
+    def _verify_matrix(self):
+        """f64 host copy of the matrix for the auto ladder's check, built
+        once per session (every rung reuses it); None for matrix-free inputs
+        and for a DiskCSR too large to materialize."""
+        if self._verify_a is None:
+            if isinstance(self.csr, DiskCSR) and self.csr.nbytes_on_disk() > _DISK_VERIFY_MAX_BYTES:
+                return None
+            if self.csr is not None:
+                import scipy.sparse as sp
+
+                csr = self.csr.to_csr() if isinstance(self.csr, DiskCSR) else self.csr
+                self._verify_a = sp.csr_matrix(
+                    (np.asarray(csr.data, dtype=np.float64), np.asarray(csr.indices),
+                     np.asarray(csr.indptr)),
+                    shape=csr.shape,
+                )
+            elif self._dense is not None:
+                self._verify_a = _host_array(self._dense).astype(np.float64)
+        return self._verify_a
+
+    def _nnz_estimate(self) -> int:
+        """Matrix work per matvec for the precision audit: nnz for a sparse
+        matrix, n^2 for dense, n for matrix-free (one pass over the vector)."""
+        if self.csr is not None:
+            return int(self.csr.nnz)
+        if self._dense is not None:
+            return int(self.n) * int(self.n)
+        return int(self.n)
+
+    def _solve_group(self, group: List[_NormQuery]):
+        backend, pol = group[0].backend, group[0].pol
+        prep, built = self._ensure(backend, pol)
+        if not built:
+            self.stats["cache_hits"] += 1
+        starts: "OrderedDict[str, List[_NormQuery]]" = OrderedDict()
+        for q in group:
+            starts.setdefault(q.start_key, []).append(q)
+        if backend == "restarted":
+            return self._run_restarted(starts, prep, built)
+        return self._run_fixed(starts, prep, built, backend)
+
+    def _finish(self, q: _NormQuery, prep: _Prepared, built: bool, *, eigenvalues, eigenvectors,
+                residuals, evals_f64, iterations, restarts, timings, partition, tridiag,
+                group_size) -> Tuple[int, EigenResult]:
+        # Flags from the engines' f64 eigenvalues, so they agree with the
+        # restarted engine's own stopping decision.
+        lam = np.abs(np.asarray(evals_f64, dtype=np.float64))
+        converged = np.asarray(residuals) <= q.tol_eff * np.maximum(lam, 1e-300)
+        t = dict(timings)
+        t["solve_s"] = float(t.get("total_s", 0.0))
+        # A building call also claims the session's unreported coercion
+        # time; a pure execute reports 0.
+        t["prepare_s"] = (prep.build_s + self._claim_init_s()) if built else 0.0
         t["total_s"] = t["prepare_s"] + t["solve_s"]
-        part = self._chunked_partition(prep.operator, staging0) if chunked else {}
-        spmv = prep.engine.describe() if prep.engine is not None else {"format": prep.spmv_format}
-        if chunked:
-            spmv["staging"] = part["staging"]
+        if group_size > 1:
+            t["amortized_over"] = float(group_size)
+        part = dict(partition) if partition else {}
+        spmv = dict(part.get("spmv") or (
+            prep.engine.describe() if prep.engine is not None else {"format": prep.spmv_format}))
+        # The reuse contract, verified: what THIS call paid.  No autotuner
+        # yet (ROADMAP queue A, item 9): no probes.
         spmv["conversions"] = prep.conversions if built else 0
+        spmv["tuner_probes"] = 0
         spmv["reused"] = not built
         if prep.engine is not None:
-            rec_plan = prep.engine.iteration_plan.as_dict()
-            rec_plan["effective"] = resolve_update_mode(
-                pol, plan=prep.engine.iteration_plan, device=self.device
-            )
-            spmv["iteration_plan"] = rec_plan
-        return EigenResult(
-            eigenvalues=sweep.eigenvalues,
-            eigenvectors=sweep.eigenvectors,
-            residuals=np.asarray(sweep.residuals, dtype=np.float64),
+            rec = prep.engine.iteration_plan.as_dict()
+            rec["effective"] = resolve_update_mode(q.pol, plan=prep.engine.iteration_plan,
+                                                   device=self.device)
+            spmv["iteration_plan"] = rec
+        # Per-phase precision audit: the phase map this solve ran and a
+        # model count of element ops per dtype.
+        spmv["precision"] = {
+            "policy": q.pol.name,
+            "phase_map": q.pol.phase_map(),
+            "compensated": bool(q.pol.compensated),
+            "uniform": q.pol.is_uniform(),
+            "ops_by_dtype": phase_op_counts(q.pol, n=self.n, nnz=self._nnz_estimate(),
+                                            m=int(iterations), k=q.k, reorth=q.reorth),
+        }
+        part["spmv"] = spmv
+        res = EigenResult(
+            eigenvalues=eigenvalues,
+            eigenvectors=eigenvectors,
+            residuals=np.asarray(residuals, dtype=np.float64),
             converged=converged,
-            iterations=int(sweep.iterations),
-            restarts=0,
-            k=k,
+            iterations=int(iterations),
+            restarts=int(restarts),
+            k=q.k,
             n=self.n,
-            backend=backend,
-            policy=pol.name,
-            tol=tol_eff,
+            backend=q.backend,
+            policy=q.pol.name,
+            tol=q.tol_eff,
             num_devices=1,
-            partition={**part, "spmv": spmv},
+            partition=part,
             timings=t,
             spmv_format=prep.spmv_format,
-            tridiag=sweep.tridiag,
+            tridiag=tridiag,
             session_reuse=not built,
         )
+        return q.idx, res
+
+    @staticmethod
+    def _chunked_partition(op: ChunkedOperator, staging_before: dict) -> dict:
+        """The chunked result's ``partition``: the plan's shape and this
+        call's staging costs (the operator's counters run over a session's
+        queries)."""
+        staging = op.staging_stats(since=staging_before)
+        spmv = op.engine.describe() if op.engine is not None else {"format": "coo"}
+        spmv["staging"] = staging
+        return {
+            "num_chunks": op.num_chunks,
+            "stage_depth": op.stage_depth,
+            "disk_backed": bool(op.disk_backed),
+            "staging": staging,
+            "spmv": spmv,
+        }
+
+    def _run_fixed(self, starts, prep: _Prepared, built: bool, backend: str):
+        all_qs = [q for qs in starts.values() for q in qs]
+        pol, reorth = all_qs[0].pol, all_qs[0].reorth
+        if len(starts) > 1 and self._vmappable(prep):
+            return self._run_fixed_multistart(starts, prep, built)
+        chunked = backend == "chunked"
+        out = []
+        for qs in starts.values():
+            k_max = max(q.k for q in qs)
+            staging0 = dict(prep.operator.staging) if chunked else {}
+            sweep = solve_fixed(
+                prep.operator,
+                k_max,
+                policy=pol,
+                reorth=reorth,
+                num_iters=max(q.m for q in qs),
+                v1=qs[0].v0,
+                seed=qs[0].seed,
+                ops=prep.ops_for(pol, self.device),
+                probe=qs[0].recovery != "none",
+            )
+            self.stats["sweeps"] += 1
+            partition = self._chunked_partition(prep.operator, staging0) if chunked else {}
+            for q in qs:
+                out.append(self._finish(
+                    q, prep, built,
+                    eigenvalues=sweep.eigenvalues[: q.k],
+                    eigenvectors=sweep.eigenvectors[:, : q.k],
+                    residuals=sweep.residuals[: q.k],
+                    evals_f64=sweep.eigenvalues_f64[: q.k],
+                    iterations=sweep.iterations,
+                    restarts=0,
+                    timings=sweep.timings,
+                    partition=partition,
+                    tridiag=sweep.tridiag,
+                    group_size=len(qs),
+                ))
+        return out
+
+    @staticmethod
+    def _vmappable(prep: _Prepared) -> bool:
+        """Does this operator batch start vectors?  Dense and COO, as in the
+        reference (which vmaps only those); the kernel layouts and the
+        chunked host loop run one start at a time."""
+        op = prep.operator
+        if isinstance(op, DenseOperator):
+            return True
+        return isinstance(op, SparseOperator) and op.engine.format == "coo"
+
+    def _run_fixed_multistart(self, starts, prep: _Prepared, built: bool):
+        """One multi-start sweep over all start vectors of a group."""
+        out = []
+        all_qs = [q for qs in starts.values() for q in qs]
+        pol, reorth = all_qs[0].pol, all_qs[0].reorth
+        m = max(q.m for q in all_qs)
+        dev = self.device
+        v1s = []
+        for qs in starts.values():
+            q0 = qs[0]
+            if q0.v0 is not None:
+                v = q0.v0 if isinstance(q0.v0, torch.Tensor) else torch.as_tensor(np.asarray(q0.v0))
+                v1s.append(v.to(device=dev, dtype=pol.compute))
+            else:  # solve_fixed's draw, so one start alone gives the same vector
+                gen = torch.Generator(device=dev).manual_seed(q0.seed)
+                v1s.append(torch.randn((self.n,), generator=gen, dtype=pol.compute, device=dev))
+        t0 = time.perf_counter()
+        batch = lanczos_tridiag_multi(prep.operator.bound_matvec(pol), torch.stack(v1s), m, pol,
+                                      reorth=reorth)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t_lanczos = time.perf_counter() - t0
+        self.stats["sweeps"] += 1
+        for s, qs in enumerate(starts.values()):
+            lres = LanczosResult(alpha=batch.alpha[s], beta=batch.beta[s], basis=batch.basis[s],
+                                 beta_last=batch.beta_last[s])
+            if qs[0].recovery != "none":
+                check_tridiag_health(lres, pol)
+            t1 = time.perf_counter()
+            evals, w, evals_f64, w_f64, beta_m = ritz_decompose(lres, pol)
+            k_max = max(q.k for q in qs)
+            evals_k, x, resid = ritz_extract(lres, evals, w, w_f64, beta_m, k_max, pol)
+            t_finish = time.perf_counter() - t1
+            timings = {
+                "lanczos_s": t_lanczos,  # shared by every start of the batch
+                "jacobi_s": t_finish,
+                "total_s": t_lanczos + t_finish,
+            }
+            for q in qs:
+                out.append(self._finish(
+                    q, prep, built,
+                    eigenvalues=evals_k[: q.k],
+                    eigenvectors=x[:, : q.k],
+                    residuals=resid[: q.k],
+                    evals_f64=evals_f64[: q.k],
+                    iterations=m,
+                    restarts=0,
+                    timings=timings,
+                    partition={},
+                    tridiag=lres,
+                    group_size=len(all_qs),
+                ))
+        return out
+
+    def _run_restarted(self, starts, prep: _Prepared, built: bool):
+        out = []
+        for qs in starts.values():
+            q0 = qs[0]
+            k_max = max(q.k for q in qs)
+            m = max(q.subspace or max(2 * q.k, q.k + 8) for q in qs)
+            m = max(m, k_max + 2)
+            max_restarts = max(q.max_restarts for q in qs)
+            budgets = [q.num_iters for q in qs]
+            if all(b is not None for b in budgets):
+                # num_iters is a total step budget: the first cycle costs m
+                # steps, each further cycle refills m - k rows; take only the
+                # cycles that fit entirely (floor), never overshoot.
+                budget = max(budgets)
+                m = min(m, budget)
+                extra = max(0, math.floor((budget - m) / max(m - k_max, 1)))
+                max_restarts = min(max_restarts, extra + 1)
+            sweep = solve_restarted(
+                prep.operator,
+                k_max,
+                policy=q0.pol,
+                m=m,
+                max_restarts=max_restarts,
+                tol=min(q.tol_eff for q in qs),
+                seed=q0.seed,
+                v1=q0.v0,
+                probe=q0.recovery != "none",
+            )
+            self.stats["sweeps"] += 1
+            for q in qs:
+                out.append(self._finish(
+                    q, prep, built,
+                    eigenvalues=sweep.eigenvalues[: q.k],
+                    eigenvectors=sweep.eigenvectors[:, : q.k],
+                    residuals=sweep.residuals[: q.k],
+                    evals_f64=sweep.eigenvalues_f64[: q.k],
+                    iterations=sweep.iterations,
+                    restarts=sweep.restarts,
+                    timings=sweep.timings,
+                    partition={},
+                    tridiag=sweep.tridiag,
+                    group_size=len(qs),
+                ))
+        return out
+
+
+# --------------------------------------------------------------- frontends
 
 
 def prepare(
     A,
     *,
     config: Optional[SolverConfig] = None,
+    n: Optional[int] = None,
     policy="FDF",
     backend: str = "auto",
     format: str = "auto",
     reorth: Optional[str] = None,
     tol: Optional[float] = None,
     num_iters: Optional[int] = None,
+    subspace: Optional[int] = None,
+    max_restarts: int = 30,
     seed: int = 0,
     chunk_nnz: int = 1 << 20,
     stage_depth: int = 1,
@@ -317,14 +932,18 @@ def prepare(
     checkpoint_dir: Optional[str] = None,
     device: str = "cuda",
 ) -> EigenSession:
-    """Plan phase of :func:`repro_torch.eigsh`: coerce, select, convert —
-    once — and return the session; the solver knobs become its defaults."""
+    """Plan phase of :func:`repro_torch.eigsh`: coerce, select, convert, once,
+    and return the session; the solver knobs become its per-query defaults.
+    The session keeps a reference to the host matrix for lazy per-policy
+    builds: do not mutate it in place while holding the session."""
     cfg = config or SolverConfig(
         policy=policy,
         backend=backend,
         reorth=reorth,
         tol=tol,
         num_iters=num_iters,
+        subspace=subspace,
+        max_restarts=max_restarts,
         seed=seed,
         format=format,
         chunk_nnz=chunk_nnz,
@@ -335,4 +954,130 @@ def prepare(
         checkpoint_dir=checkpoint_dir,
         device=device,
     )
-    return EigenSession(A, cfg).warmup()
+    return EigenSession(A, cfg, n=n).warmup()
+
+
+def eigsh_many(A, queries, *, config: Optional[SolverConfig] = None, n: Optional[int] = None,
+               **solver_kwargs) -> List[EigenResult]:
+    """Module-level batched solve: the cached session (or a fresh one), then
+    :meth:`EigenSession.eigsh_many`.  ``solver_kwargs`` are the
+    :class:`SolverConfig` fields; queries are dicts, :class:`EigQuery` or ints."""
+    cfg = config or SolverConfig(**solver_kwargs)
+    session, _ = get_session(A, cfg, n=n)
+    return session.eigsh_many(queries, defaults=cfg)
+
+
+# ------------------------------------------------------------ session cache
+
+_SESSION_CACHE: "OrderedDict[str, EigenSession]" = OrderedDict()
+_CACHE_LOCK = threading.Lock()  # eigsh() stays safe to call from several threads
+
+
+def _cache_limit() -> int:
+    return envcfg.get_int("REPRO_EIGSH_SESSION_CACHE")
+
+
+def _cache_budget_bytes() -> int:
+    """Byte budget over the cached sessions (default 2048 MB).  A session
+    larger than all of it is served but never cached."""
+    return int(envcfg.get_float("REPRO_EIGSH_SESSION_CACHE_MB") * 1e6)
+
+
+def _session_key(matrix_fp: str, cfg: SolverConfig) -> str:
+    # The staging pin rebuilds the chunked operator, so it is part of the
+    # session identity: flipping it between calls must not serve the old plan.
+    staging_pin = envcfg.raw("REPRO_CHUNK_STAGING") or ""
+    layout = config_fingerprint(cfg, _LAYOUT_FIELDS)
+    return "|".join((matrix_fp, layout, f"staging_pin:{staging_pin}"))
+
+
+def _cache_lookup(key: str) -> Optional[EigenSession]:
+    with _CACHE_LOCK:
+        hit = _SESSION_CACHE.get(key)
+        if hit is not None:
+            _SESSION_CACHE.move_to_end(key)
+        return hit
+
+
+def _evict(victims: List[EigenSession]) -> None:
+    for s in victims:
+        s.release()
+
+
+def _cache_enforce_budget() -> None:
+    """Evict least recently used sessions until the cache fits its byte
+    budget (on store, and after a lazy plan build grew a cached session)."""
+    budget = _cache_budget_bytes()
+    victims = []
+    with _CACHE_LOCK:
+        while _SESSION_CACHE and sum(s.approx_bytes() for s in _SESSION_CACHE.values()) > budget:
+            victims.append(_SESSION_CACHE.popitem(last=False)[1])
+    _evict(victims)
+
+
+def _cache_store(key: str, session: EigenSession) -> None:
+    if session.approx_bytes() > _cache_budget_bytes():
+        return  # larger than the whole budget: serve it, do not pin it
+    session._own_data()  # cached plans must not alias caller-mutable buffers
+    victims = []
+    with _CACHE_LOCK:
+        _SESSION_CACHE[key] = session
+        while len(_SESSION_CACHE) > _cache_limit():
+            victims.append(_SESSION_CACHE.popitem(last=False)[1])
+    _evict(victims)
+    _cache_enforce_budget()
+
+
+def get_session(A, config: Optional[SolverConfig] = None, *,
+                n: Optional[int] = None) -> Tuple[EigenSession, bool]:
+    """Session for (matrix, layout config): from the LRU when the input has
+    hashable bytes (CSR, dense, DiskCSR, scipy), a fresh one otherwise.
+
+    Returns ``(session, cache_hit)``.  CSR, dense and disk inputs are probed
+    by their digest BEFORE any coercion, so a hit pays one hash and nothing
+    else; scipy inputs pay their ``tocsr`` copy first.  At most
+    ``REPRO_EIGSH_SESSION_CACHE`` sessions (default 8; 0 disables) within
+    ``REPRO_EIGSH_SESSION_CACHE_MB``.  Mutating a matrix in place changes
+    its digest, so a stale plan is never served.
+    """
+    cfg = config or SolverConfig()
+    device = resolve_device(cfg.device)  # fail fast without a card
+    limit = _cache_limit()
+    key = fp = None
+    if limit > 0 and (
+        isinstance(A, (CSR, np.ndarray, torch.Tensor, DiskCSR))
+        or (isinstance(A, (str, os.PathLike)) and is_diskcsr(A))
+    ):
+        fp = matrix_fingerprint(A)
+        if fp is not None:
+            key = _session_key(fp, cfg)
+            hit = _cache_lookup(key)
+            if hit is not None:
+                return hit, True
+    ci = coerce_input(A, n=n, storage_dtype=_plan_policy(cfg.policy).storage, device=device,
+                      fingerprint=fp, want_fingerprint=limit > 0)
+    if key is None and limit > 0 and ci.fingerprint is not None:
+        key = _session_key(ci.fingerprint, cfg)
+        hit = _cache_lookup(key)
+        if hit is not None:
+            return hit, True
+    session = EigenSession(A, cfg, n=n, _coerced=ci)
+    if key is not None:
+        _cache_store(key, session)
+    return session, False
+
+
+def session_cache_clear() -> None:
+    """Drop every cached session and its plans (and so their device memory)."""
+    with _CACHE_LOCK:
+        victims = list(_SESSION_CACHE.values())
+        _SESSION_CACHE.clear()
+    _evict(victims)
+
+
+def session_cache_info() -> dict:
+    with _CACHE_LOCK:
+        size = len(_SESSION_CACHE)
+        total = sum(s.approx_bytes() for s in _SESSION_CACHE.values())
+    return {"size": size, "limit": _cache_limit(), "bytes": total,
+            "budget_bytes": _cache_budget_bytes()}

@@ -89,6 +89,24 @@ _DECLARED: Iterable[EnvKnob] = (
         "Out-of-core chunk staging mode: 'f32' (plain), 'bf16'/'fp8' (packed), or 'auto'.",
     ),
     _k(
+        "REPRO_EIGSH_SESSION_CACHE",
+        "int",
+        8,
+        "Max entries in the process-wide warm EigenSession cache (0 disables).",
+    ),
+    _k(
+        "REPRO_EIGSH_SESSION_CACHE_MB",
+        "float",
+        2048.0,
+        "Total bytes budget (MB) for the warm EigenSession cache.",
+    ),
+    _k(
+        "REPRO_DISKCSR_FP_BLOCKS",
+        "int",
+        16,
+        "Strided 64KiB sample blocks per array in the DiskCSR content fingerprint.",
+    ),
+    _k(
         "REPRO_VALIDATE_INPUT",
         "bool",
         True,

@@ -3,9 +3,10 @@
 The Lanczos phase needs only ``y = A @ x``.  ``SparseOperator`` runs it
 through an :class:`~repro_torch.kernels.engine.SpmvEngine` on the layout
 the engine chose; ``DenseOperator`` is a plain matrix product;
-:class:`ChunkedOperator` streams a matrix that stays on the host (an in-RAM
-CSR or a memory-mapped :class:`~repro_torch.sparse.DiskCSR`) to the device
-chunk by chunk, the paper's out-of-core mode.
+:class:`CallableOperator` wraps a matrix-free matvec;
+:class:`ChunkedOperator` streams a matrix that stays on the host (an
+in-RAM CSR or a memory-mapped :class:`~repro_torch.sparse.DiskCSR`) to the
+device chunk by chunk, the paper's out-of-core mode.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ __all__ = [
     "LinearOperator",
     "DenseOperator",
     "SparseOperator",
+    "CallableOperator",
     "ChunkedOperator",
     "chunk_row_bounds",
     "chunk_rows_pad",
@@ -111,6 +113,35 @@ class SparseOperator(LinearOperator):
 
     def matvec(self, x, accum_dtype=None):
         return self.engine.spmv(self.mat, x, accum_dtype=accum_dtype)
+
+
+@dataclasses.dataclass
+class CallableOperator(LinearOperator):
+    """A bare symmetric matvec ``fn(x) -> A @ x``: how ``eigsh`` takes a
+    matrix-free problem (a scipy ``LinearOperator`` or any function).  The
+    callable is a black box, so the precision policy governs only the
+    Lanczos arithmetic around it.
+
+    ``fn`` gets a tensor on ``device`` in the storage dtype.  A tensor it
+    returns keeps its dtype; anything else (a NumPy array from a host
+    callable) is cast to the input's dtype, as the reference's host bridge
+    (``jax.pure_callback``) casts it.
+    """
+
+    fn: Callable
+    n: int
+    device: str = "cpu"
+
+    def matvec(self, x, accum_dtype=None):
+        y = self.fn(x)
+        if not isinstance(y, torch.Tensor):
+            y = torch.as_tensor(np.asarray(y)).to(dtype=x.dtype)
+        if tuple(y.shape) != (self.n,):
+            raise ValueError(
+                f"matvec callable returned shape {tuple(y.shape)}, expected ({self.n},)"
+            )
+        y = y.to(device=x.device)
+        return y.to(accum_dtype) if accum_dtype is not None else y
 
 
 def make_operator(csr: CSR, dtype=torch.float32, engine: SpmvEngine = None) -> SparseOperator:
@@ -484,6 +515,13 @@ class ChunkedOperator(LinearOperator):
                 win.pending = True
             if depth:
                 stage(i + depth)  # into the window of chunk i - 1, while chunk i computes
+
+    def resident_bytes(self) -> int:
+        """Bytes this operator holds: its staging windows (host and device
+        buffers, once allocated) and, with ``own_data``, its pinned chunks."""
+        ts = [t for w in self._windows or () for t in (*w.host, *w.dev)]
+        ts += [t for chunk in self._pinned or () for t in chunk]
+        return sum(t.numel() * t.element_size() for t in ts)
 
     def staging_stats(self, since: Optional[dict] = None) -> dict:
         """Staging counters plus bandwidth and compression (what

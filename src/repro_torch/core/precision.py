@@ -29,6 +29,8 @@ __all__ = [
     "dtype_name",
     "compensated_sum",
     "reduce_sum",
+    "auto_ladder",
+    "phase_op_counts",
 ]
 
 # The four compute phases of one solve, in hot-loop order (see the reference).
@@ -83,6 +85,10 @@ class PrecisionPolicy:
 
     def phase_map(self) -> Dict[str, str]:
         return {ph: dtype_name(self.phase_dtype(ph)) for ph in PHASES}
+
+    def is_uniform(self) -> bool:
+        """True when every phase runs in the plain ``compute`` dtype."""
+        return all(self.phase_dtype(ph) == self.compute for ph in PHASES)
 
     def with_phases(self, **overrides) -> "PrecisionPolicy":
         """New policy with per-phase compute dtypes, e.g.
@@ -147,3 +153,55 @@ def reduce_sum(x: torch.Tensor, policy: PrecisionPolicy) -> torch.Tensor:
     if policy.compensated:
         return compensated_sum(x.reshape(-1), policy.compute)
     return torch.sum(x.to(policy.compute))
+
+
+# --------------------------- accuracy-driven auto ----------------------------
+
+# Escalation ladder of ``policy="auto"``, cheapest first: the selector probes
+# the rungs in order and stops at the first whose measured residuals meet
+# the requested tol.  The reference caps it at FCF without x64; PyTorch
+# always has float64, so the ladder always has its five rungs.
+_AUTO_LADDER = ("BFF", "FFF", "FCF", "FDF", "DDD")
+
+
+def auto_ladder() -> tuple:
+    """Policy names ``policy="auto"`` escalates through, cheapest first."""
+    return _AUTO_LADDER
+
+
+# Fraction of the stored basis each re-orthogonalization mode touches per
+# pass (the paper's parity scheme halves it; CGS2 runs two full passes).
+_REORTH_PASS_FRAC = {"none": 0.0, "half": 0.5, "half_alt": 0.5, "full": 1.0, "full2": 2.0}
+
+
+def phase_op_counts(
+    policy: PrecisionPolicy,
+    *,
+    n: int,
+    nnz: int,
+    m: int,
+    k: int,
+    reorth: str = "half",
+) -> Dict[str, int]:
+    """Model-based count of element operations per compute dtype for one
+    solve, the audit in ``partition["spmv"]["precision"]["ops_by_dtype"]``:
+    ``m * nnz`` SpMV accumulations, ``2 m n`` alpha/beta reduction elements,
+    ``2 f m^2 n`` re-orthogonalization elements (``f``: the mode's basis
+    fraction per pass) and ``n m k`` back-projection elements, each under
+    the dtype of the phase that runs it.  An estimate of work by dtype, not
+    a hardware counter.  The reference's model for the host Jacobi; its
+    ``executed=`` and device-Jacobi terms serve the jaxpr audit, which the
+    port does not have yet (ROADMAP queue A, item 14)."""
+    p = policy.effective()
+    counts: Dict[str, int] = {}
+
+    def add(phase: str, ops: float) -> None:
+        name = dtype_name(p.phase_dtype(phase))
+        counts[name] = counts.get(name, 0) + int(ops)
+
+    frac = _REORTH_PASS_FRAC.get(reorth, 1.0)
+    add("spmv", m * nnz)
+    add("alpha_beta", 2 * m * n)
+    add("reorth", 2.0 * frac * m * m * n)
+    add("ritz", n * m * k)
+    return counts

@@ -1,4 +1,4 @@
-from .diskcsr import DiskCSR, is_diskcsr, open_diskcsr, save_diskcsr
+from .diskcsr import DiskCSR, diskcsr_fingerprint, is_diskcsr, open_diskcsr, save_diskcsr
 from .formats import (
     CSR,
     DeviceBSR,
@@ -18,6 +18,7 @@ from .generate import SUITE, generate, suite_matrix
 __all__ = [
     "CSR",
     "DiskCSR",
+    "diskcsr_fingerprint",
     "is_diskcsr",
     "open_diskcsr",
     "save_diskcsr",

@@ -24,26 +24,30 @@ reference writes in ``ml_dtypes.bfloat16`` loads here as raw 2-byte words
 f32 with the same value, so the decode is exact).  The port writes bf16
 payloads the same way, from torch's round-to-nearest-even cast.
 
-The reference's sampled ``diskcsr_fingerprint`` keys its session cache,
-which the port does not have yet (ROADMAP item A8); it comes with it.
+:func:`diskcsr_fingerprint` is the reference's sampled content digest of a
+directory (the same bytes hashed in the same order, so both packages give
+the same digest); it keys the session cache, as the full-payload
+``matrix_fingerprint`` would read the whole file back.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from .formats import CSR
 
-__all__ = ["DiskCSR", "save_diskcsr", "open_diskcsr", "is_diskcsr"]
+__all__ = ["DiskCSR", "save_diskcsr", "open_diskcsr", "is_diskcsr", "diskcsr_fingerprint"]
 
 _HEADER = "header.json"
 _FORMAT = "repro-diskcsr"
 _VERSION = 1
+_ARRAYS = ("indptr", "indices", "data")
 # Elements per window of the streaming writer: bounds its own peak host
 # bytes when persisting an in-RAM CSR.
 _COPY_ELEMS = 1 << 22
@@ -204,3 +208,46 @@ def open_diskcsr(path: Union[str, os.PathLike]) -> DiskCSR:
             "repro_torch.sparse.save_diskcsr)"
         )
     return DiskCSR(p)
+
+
+def _sample_file(h, fpath: str, blocks: int, block_bytes: int) -> None:
+    """Feed strided sample windows of a file into a running hash: the first
+    and last blocks always, plus evenly spaced interior blocks (O(blocks)
+    reads however large the file is)."""
+    size = os.path.getsize(fpath)
+    h.update(np.int64(size).tobytes())
+    with open(fpath, "rb") as f:
+        if size <= blocks * block_bytes:
+            h.update(f.read())  # small file: exact
+            return
+        stride = (size - block_bytes) // max(1, blocks - 1)
+        for b in range(blocks):
+            off = min(b * stride, size - block_bytes)
+            f.seek(off)
+            h.update(np.int64(off).tobytes())
+            h.update(f.read(block_bytes))
+
+
+def diskcsr_fingerprint(
+    path: Union[str, os.PathLike],
+    blocks: Optional[int] = None,
+    block_bytes: int = 1 << 16,
+) -> str:
+    """Sampled content fingerprint of a diskcsr directory: the header bytes,
+    then per array its file size and ``blocks`` strided 64 KiB windows
+    (``REPRO_DISKCSR_FP_BLOCKS``, 16).  Any header or size change
+    invalidates it; a content change does where it touches a sampled window
+    (callers that rewrite data in place should save anew)."""
+    if blocks is None:
+        from ..configs import env as envcfg
+
+        blocks = envcfg.get_int("REPRO_DISKCSR_FP_BLOCKS")
+    p = os.fspath(path)
+    h = hashlib.blake2b(digest_size=16)
+    h.update(b"repro-diskcsr-fp-v1")
+    with open(os.path.join(p, _HEADER), "rb") as f:
+        h.update(f.read())
+    for name in _ARRAYS:
+        h.update(name.encode())
+        _sample_file(h, os.path.join(p, f"{name}.npy"), int(blocks), block_bytes)
+    return h.hexdigest()
