@@ -10,8 +10,9 @@ time in which the card ran no kernel.  With ``--tol``, profiles instead one
 warm restarted solve (``eigsh(road, k=8, tol=TOL)``, the thick-restart
 backend) and splits its card time into the ``spmv_ell`` launches and the
 re-orthogonalization's matrix products (cuBLAS gemv/gemm, with the
-arrowhead coupling and the Ritz projections), and its wall into the steps
-and the host Jacobi of each cycle.  Run from the
+arrowhead coupling and the Ritz projections), its wall into the steps
+and the host Jacobi of each cycle, and gives the device memory the solve
+allocates at its peak.  Run from the
 repository root:
 
     python3 bench_torch/profile_eigsh.py [--tol 1e-6] [--out profile_eigsh.json]
@@ -68,9 +69,12 @@ def device_ms_by(events, *needles) -> float:
 
 def profile(sess, **query):
     """One warm query of ``sess`` under ``torch.profiler``: its result, wall
-    microseconds and the profile."""
+    microseconds, the profile, and the MB the solve allocated on the card
+    at its peak beyond what was allocated before it."""
     sess.eigsh(K, **query)  # warm-up: kernels built, allocator warm
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     with torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     ) as prof:
@@ -78,7 +82,7 @@ def profile(sess, **query):
         res = sess.eigsh(K, **query)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    return res, wall_us, prof
+    return res, wall_us, prof, (torch.cuda.max_memory_allocated() - before) / 1e6
 
 
 def top_ops(prof, count: int = 12) -> list:
@@ -99,7 +103,7 @@ def restarted_record(road, tol: float, smi: str) -> dict:
     import repro_torch
 
     sess = repro_torch.prepare(road, device="cuda", tol=tol)
-    res, wall_us, prof = profile(sess)
+    res, wall_us, prof, peak_mb = profile(sess)
     events = prof.events()
     busy = busy_us(events)
     steps = res.iterations
@@ -115,6 +119,7 @@ def restarted_record(road, tol: float, smi: str) -> dict:
         "spmv_ell_ms": device_ms_by(events, "spmv_ell"),
         "reorth_blas_ms": device_ms_by(events, "gemv", "gemm"),
         "copies_ms": device_ms_by(events, "copy"),
+        "peak_extra_mb": peak_mb,
         "timings_ms": {k: v * 1e3 for k, v in res.timings.items()},
         "busy_per_step_ms": busy / 1e3 / steps,
         "top_device_ops": top_ops(prof),
@@ -125,7 +130,8 @@ def restarted_record(road, tol: float, smi: str) -> dict:
           f"({t['lanczos_s'] / steps:.4f} a step), host Jacobi {t['jacobi_s']:.2f} ms; device "
           f"busy {rec['device_busy_ms']:.2f} ms ({rec['busy_per_step_ms']:.4f} a step), idle "
           f"share {rec['idle_share']:.3f}; spmv_ell {rec['spmv_ell_ms']:.3f} ms, gemv/gemm "
-          f"{rec['reorth_blas_ms']:.3f} ms, copies {rec['copies_ms']:.3f} ms")
+          f"{rec['reorth_blas_ms']:.3f} ms, copies {rec['copies_ms']:.3f} ms; peak "
+          f"{peak_mb:.1f} MB allocated beyond the plan")
     for r in rec["top_device_ops"]:
         print(f"    {r['device_ms']:9.3f} ms  x{r['count']:<5d} {r['op'][:90]}")
     return rec
@@ -154,7 +160,7 @@ def main() -> int:
     for mode in () if args.tol is not None else ("unfused", "fused", "fused_spmv"):
         os.environ["REPRO_ITER_UPDATE"] = mode
         sess = repro_torch.prepare(road, device="cuda")
-        res, wall_us, prof = profile(sess)
+        res, wall_us, prof, _ = profile(sess)
         busy = busy_us(prof.events())
         rec = {
             "mode": mode,

@@ -17,10 +17,10 @@ matrix stays on the host and streams to the device chunk by chunk).
 
 ``eigsh_many`` groups queries by (backend, policy, reorth, jacobi,
 recovery); each group runs ONE sweep at its largest subspace per start
-vector and every query slices its Ritz pairs from it.  Start vectors of
-one group run as a multi-start batch on dense and COO operators, as in
-the reference.  ``policy="auto"`` queries run the precision ladder one
-rung at a time and never group.
+vector and every query slices its Ritz pairs from it.  The start vectors
+of one group run one after the other, each its own sweep (the reference
+vmaps them into one sweep on dense and COO operators).  ``policy="auto"``
+queries run the precision ladder one rung at a time and never group.
 
 ``repro_torch.eigsh`` goes through :func:`get_session`, a small LRU of
 sessions keyed by the matrix's content digest and the layout fields of the
@@ -50,14 +50,8 @@ import numpy as np
 import torch
 
 from ..configs import env as envcfg
-from ..core.eigensolver import ritz_decompose, ritz_extract, solve_fixed
-from ..core.lanczos import (
-    LanczosResult,
-    check_tridiag_health,
-    lanczos_tridiag_multi,
-    ops_for_operator,
-    resolve_update_mode,
-)
+from ..core.eigensolver import solve_fixed
+from ..core.lanczos import ops_for_operator, resolve_update_mode
 from ..core.operators import (
     ChunkedOperator,
     DenseOperator,
@@ -761,8 +755,6 @@ class EigenSession:
     def _run_fixed(self, starts, prep: _Prepared, built: bool, backend: str):
         all_qs = [q for qs in starts.values() for q in qs]
         pol, reorth = all_qs[0].pol, all_qs[0].reorth
-        if len(starts) > 1 and self._vmappable(prep):
-            return self._run_fixed_multistart(starts, prep, built)
         chunked = backend == "chunked"
         out = []
         for qs in starts.values():
@@ -794,70 +786,6 @@ class EigenSession:
                     partition=partition,
                     tridiag=sweep.tridiag,
                     group_size=len(qs),
-                ))
-        return out
-
-    @staticmethod
-    def _vmappable(prep: _Prepared) -> bool:
-        """Does this operator batch start vectors?  Dense and COO, as in the
-        reference (which vmaps only those); the kernel layouts and the
-        chunked host loop run one start at a time."""
-        op = prep.operator
-        if isinstance(op, DenseOperator):
-            return True
-        return isinstance(op, SparseOperator) and op.engine.format == "coo"
-
-    def _run_fixed_multistart(self, starts, prep: _Prepared, built: bool):
-        """One multi-start sweep over all start vectors of a group."""
-        out = []
-        all_qs = [q for qs in starts.values() for q in qs]
-        pol, reorth = all_qs[0].pol, all_qs[0].reorth
-        m = max(q.m for q in all_qs)
-        dev = self.device
-        v1s = []
-        for qs in starts.values():
-            q0 = qs[0]
-            if q0.v0 is not None:
-                v = q0.v0 if isinstance(q0.v0, torch.Tensor) else torch.as_tensor(np.asarray(q0.v0))
-                v1s.append(v.to(device=dev, dtype=pol.compute))
-            else:  # solve_fixed's draw, so one start alone gives the same vector
-                gen = torch.Generator(device=dev).manual_seed(q0.seed)
-                v1s.append(torch.randn((self.n,), generator=gen, dtype=pol.compute, device=dev))
-        t0 = time.perf_counter()
-        batch = lanczos_tridiag_multi(prep.operator.bound_matvec(pol), torch.stack(v1s), m, pol,
-                                      reorth=reorth)
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t_lanczos = time.perf_counter() - t0
-        self.stats["sweeps"] += 1
-        for s, qs in enumerate(starts.values()):
-            lres = LanczosResult(alpha=batch.alpha[s], beta=batch.beta[s], basis=batch.basis[s],
-                                 beta_last=batch.beta_last[s])
-            if qs[0].recovery != "none":
-                check_tridiag_health(lres, pol)
-            t1 = time.perf_counter()
-            evals, w, evals_f64, w_f64, beta_m = ritz_decompose(lres, pol)
-            k_max = max(q.k for q in qs)
-            evals_k, x, resid = ritz_extract(lres, evals, w, w_f64, beta_m, k_max, pol)
-            t_finish = time.perf_counter() - t1
-            timings = {
-                "lanczos_s": t_lanczos,  # shared by every start of the batch
-                "jacobi_s": t_finish,
-                "total_s": t_lanczos + t_finish,
-            }
-            for q in qs:
-                out.append(self._finish(
-                    q, prep, built,
-                    eigenvalues=evals_k[: q.k],
-                    eigenvectors=x[:, : q.k],
-                    residuals=resid[: q.k],
-                    evals_f64=evals_f64[: q.k],
-                    iterations=m,
-                    restarts=0,
-                    timings=timings,
-                    partition={},
-                    tridiag=lres,
-                    group_size=len(all_qs),
                 ))
         return out
 

@@ -33,7 +33,6 @@ __all__ = [
     "NumericalBreakdown",
     "check_tridiag_health",
     "lanczos_tridiag",
-    "lanczos_tridiag_multi",
     "make_local_ops",
     "ops_for_operator",
     "fused_update_enabled",
@@ -312,24 +311,3 @@ def lanczos_tridiag(
     ops = ops or make_local_ops(matvec, policy, device=v1.device)
     return _lanczos_loop(v1, ops, num_iters, policy, reorth)
 
-
-def lanczos_tridiag_multi(
-    matvec: Callable,
-    v1s: torch.Tensor,
-    num_iters: int,
-    policy: PrecisionPolicy,
-    reorth: str = "half",
-    ops: Optional[Ops] = None,
-) -> LanczosResult:
-    """Multi-start Lanczos: ``v1s`` is (s, n) start vectors; every field of
-    the result gains a leading start axis ((s, m) alpha, (s, m, n) basis,
-    ...).  The reference vmaps one compiled sweep over the starts; here the
-    starts run one after the other through the same loop.  The fused update
-    is not used (``ops`` defaults to the unfused record), as in the
-    reference, whose batching rule for the Pallas update is unvalidated."""
-    policy = policy.effective()
-    if ops is None:
-        ops = make_local_ops(matvec, policy, device=v1s.device)
-        ops = dataclasses.replace(ops, fused_update=None, fused_iteration=None)
-    runs = [_lanczos_loop(v, ops, num_iters, policy, reorth) for v in v1s]
-    return LanczosResult(*(torch.stack(field) for field in zip(*runs)))

@@ -19,6 +19,7 @@ import scipy.sparse as sp
 import torch
 
 import repro_torch
+from repro_torch.api import EigQuery
 from repro_torch.sparse import CSR, generate
 
 
@@ -79,3 +80,25 @@ def test_cache_clear_frees_device_memory(cuda):
     repro_torch.session_cache_clear()
     torch.cuda.synchronize()
     assert torch.cuda.memory_allocated() == before
+
+
+@pytest.mark.gpu
+def test_start_vectors_each_run_the_lone_sweep(cuda):
+    """Queries that differ only in their start vector, on a COO matrix: each
+    start is a sweep of its own through the fused update kernel (one launch
+    a step), with the bits of a lone call from the same start."""
+    from repro_torch.kernels.lanczos_update import lanczos_update_kernel_call as update
+
+    a = generate("kron", 1 << 14, 8.0, seed=2, values="normalized")
+    m = 24
+    starts = [np.random.default_rng(s).standard_normal(a.shape[0]) for s in range(3)]
+    sess = repro_torch.prepare(a, device="cuda", format="coo")
+    update.launches = 0
+    got = sess.eigsh_many([EigQuery(k=4, num_iters=m, v0=v) for v in starts])
+    assert update.launches == m * len(starts)
+    assert sess.stats["sweeps"] == len(starts)
+    for g, v in zip(got, starts):
+        assert g.spmv_format == "coo"
+        alone = sess.eigsh(4, num_iters=m, v0=v)
+        assert torch.equal(alone.eigenvalues, g.eigenvalues)
+        assert np.array_equal(alone.residuals, g.residuals)
