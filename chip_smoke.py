@@ -64,7 +64,26 @@ before the last line:
    (``session_reuse``, ``prepare_s`` 0, the same bits), cold and cached
    wall times; (e) ``prepare(road).eigsh_many([k=4 FDF, k=8 FDF, k=8
    FFF])``: two sweeps, the k=8 FDF answer equal to a lone call at rel
-   1e-9, the k=4 answer the first four of that sweep.
+   1e-9, the k=4 answer the first four of that sweep;
+11. solve robustness, full width, snapshots in a temporary directory
+   (deleted at the end): (a) ``eigsh(road, k=8, tol=1e-6, v0,
+   max_restarts=8)`` plain, with ``checkpoint_dir=`` (same bits), killed by
+   ``solve_crash@cycle=4`` and resumed after a cache clear: the plain run's
+   bits, steps and restarts, ``spmv_ell`` once per remaining step,
+   ``lanczos_update`` never; (b) phase 8's call with
+   ``REPRO_CHUNK_CKPT_EVERY=32`` killed by ``chunk_io_error@chunk=40`` (an
+   ``OSError``) and resumed from its chunk cursor: phase 8's bits; snapshot
+   bytes and seconds per save, and the reckoned cost of the default
+   ``REPRO_CHUNK_CKPT_EVERY=1``; (c) ``recovery="auto"`` on road under FFF:
+   ``spmv_nan@iter=3`` escalates to FCF (a plain FCF call's bits),
+   ``beta_collapse@iter=2`` reseeds, ``kernel_error`` unfuses (``spmv_ell``
+   k times, ``lanczos_update`` never), ``oom`` falls back to the chunked
+   backend; ``recovery="raise"`` raises the typed breakdown; (d)
+   ``jacobi="jax"`` on phase 3's call (rel 1e-12 of the host Jacobi) and the
+   two placements' ``jacobi_s``; (e) ``topk_eigs`` on ``make_operator(road,
+   "ell")`` (a DeprecationWarning, rel 1e-12 of ``eigsh(format="ell")``),
+   ``make_operator(block, "bsr_kernel")`` and ``kernels.ops.spmv_ell_packed``
+   with f64 accumulation on phase 2's bf16 chunk.
 
 ``repro_torch.eigsh`` keeps a cache of prepared sessions, so every call a
 phase reports as cold (``solve``) clears it first; phase 7 prints its
@@ -632,6 +651,17 @@ def check_eigs(tag, gpu, cpu, rtol):
     return err
 
 
+def eig_rel_err(tag, got, want, rtol):
+    """Max difference of two sorted eigenvalue tensors, relative to
+    |lambda|max (the legacy ``EigResult`` has no ``n``)."""
+    g = np.sort(got.double().cpu().numpy())
+    w = np.sort(want.double().cpu().numpy())
+    check(g.shape == (K,) and np.isfinite(g).all(), f"{tag}: bad eigenvalues {g}")
+    err = float(np.abs(g - w).max() / np.abs(w).max())
+    check(err <= rtol, f"{tag}: eigenvalues differ by {err:.3e} > {rtol:.0e}")
+    return err
+
+
 def check_residuals(tag, res, A):
     """True residuals ||A x - lambda x|| (scipy, f64) against the Ritz bounds."""
     X = res.eigenvectors.double().cpu().numpy()
@@ -952,6 +982,271 @@ def phase_restarted(road, web, v_road, smi) -> None:
           f"{torch.equal(many[1].eigenvalues, first.eigenvalues)}; k=4 = first four of the sweep")
 
 
+def dir_bytes(path) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def timed_saves():
+    """Wrap ``SolveCheckpoint.save`` so every snapshot's seconds (the
+    device->host copy and the npz write) land in the returned list; the
+    returned function restores it."""
+    from repro_torch.serving.store import SolveCheckpoint
+
+    seconds, orig = [], SolveCheckpoint.save
+
+    def save(self, token, state):
+        t0 = time.perf_counter()
+        out = orig(self, token, state)
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    SolveCheckpoint.save = save
+
+    def restore():
+        SolveCheckpoint.save = orig
+
+    return seconds, restore
+
+
+def sync(dev) -> None:
+    if dev == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_robustness(road, central, block, path, v_road, v_central, v_block, main_res,
+                     chunk_res, bsr_res, smi, dev="cuda", max_restarts=8, chunk_every=32,
+                     chunk_fault=40) -> None:
+    """Phase 11: solve robustness at full width: (a) a restarted solve
+    killed at cycle 4 and resumed from its snapshot, (b) a chunked solve
+    killed mid-step by a chunk I/O fault and resumed from its chunk cursor,
+    (c) ``recovery="auto"`` under four faults, (d) ``jacobi="jax"``, (e) the
+    legacy entry points."""
+    import warnings
+
+    import repro_torch
+    from repro_torch.api import NumericalBreakdown
+    from repro_torch.core import make_operator, topk_eigs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.spmv_ell_packed import pack_ell_chunk
+    from repro_torch.serving import SolveCheckpoint
+    from repro_torch.testing import faults
+
+    def eigsh(A, v0, **kw):
+        res = repro_torch.eigsh(A, k=K, v0=v0, device=dev, **kw)
+        sync(dev)
+        return res
+
+    def same_bits(a, b):
+        return torch.equal(a.eigenvalues, b.eigenvalues) and torch.equal(a.eigenvectors, b.eigenvectors)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    save_s, restore = timed_saves()
+    try:
+        # (a) restarted: uninterrupted, checkpointed, killed at cycle 4, resumed
+        kw = {"tol": 1e-6, "max_restarts": max_restarts}
+        solve(road, dev, v_road, **kw)  # cold: builds the plan
+        t0 = time.perf_counter()
+        plain = eigsh(road, v_road, **kw)
+        plain_wall = time.perf_counter() - t0
+        full_dir = os.path.join(tmp, "restarted_full")
+        t0 = time.perf_counter()
+        ck = eigsh(road, v_road, checkpoint_dir=full_dir, **kw)
+        ck_wall = time.perf_counter() - t0
+        full_saves = list(save_s)
+        check(same_bits(ck, plain) and not SolveCheckpoint(full_dir).entries(),
+              "restarted: the checkpointed run differs from the plain one or left a snapshot")
+        check(len(full_saves) == plain.restarts, f"restarted: {len(full_saves)} saves, "
+              f"expected one per restart ({plain.restarts})")
+        crash_dir = os.path.join(tmp, "restarted_crash")
+        with faults.inject("solve_crash@cycle=4"):
+            try:
+                eigsh(road, v_road, checkpoint_dir=crash_dir, **kw)
+                raise CheckFailed("restarted: solve_crash@cycle=4 did not raise")
+            except faults.InjectedCrash:
+                pass
+        entries = SolveCheckpoint(crash_dir).entries()
+        check(len(entries) == 1, f"restarted: {len(entries)} snapshots after the crash")
+        snap_bytes = dir_bytes(crash_dir)
+        repro_torch.session_cache_clear()
+        reset_launches()
+        resumed = eigsh(road, v_road, checkpoint_dir=crash_dir, **kw)
+        rl = read_launches()
+        m = max(2 * K, K + 8)
+        remaining = plain.iterations - m - 3 * (m - K)  # cycles 0-3 were saved
+        check(same_bits(resumed, plain), "restarted: the resumed run's bits differ")
+        check((resumed.iterations, resumed.restarts) == (plain.iterations, plain.restarts),
+              f"restarted: resumed {resumed.iterations}/{resumed.restarts} vs plain "
+              f"{plain.iterations}/{plain.restarts}")
+        check(not SolveCheckpoint(crash_dir).entries(), "restarted: the snapshot survived the resume")
+        check(rl["spmv_ell"] == remaining and rl["lanczos_update"] == 0,
+              f"restarted resume launches {rl}, expected {remaining} spmv_ell, no lanczos_update")
+        print(f"[robust] (a) restarted road n={road.n:,}, k={K}, tol=1e-6, max_restarts="
+              f"{max_restarts}: {plain.iterations} steps, {plain.restarts} restarts; killed at cycle "
+              f"4, resumed: same bits, same steps, snapshot cleared; resume launches {rl} "
+              f"({remaining} remaining steps); snapshot {snap_bytes:,} bytes, save median "
+              f"{np.median(full_saves):.4f} s (min {min(full_saves):.4f}, max {max(full_saves):.4f}, "
+              f"{len(full_saves)} saves); warm wall plain {plain_wall:.3f} s, checkpointed "
+              f"{ck_wall:.3f} s on {smi}")
+
+        # (b) chunked: a chunk I/O fault mid-step, resumed from the chunk cursor
+        # The fault stops the staging of chunk `chunk_fault`, after chunk
+        # `chunk_fault - 1` was summed: the last cursor saved is below it.
+        saved = chunk_fault // chunk_every * chunk_every - 1
+        os.environ["REPRO_CHUNK_CKPT_EVERY"] = str(chunk_every)
+        try:
+            n0 = len(save_s)
+            chunk_dir = os.path.join(tmp, "chunked")
+            with faults.inject(f"chunk_io_error@chunk={chunk_fault}"):
+                try:
+                    eigsh(path, v_central, checkpoint_dir=chunk_dir)
+                    raise CheckFailed(f"chunked: chunk_io_error@chunk={chunk_fault} did not raise")
+                except faults.InjectedChunkIOError as exc:
+                    check(isinstance(exc, OSError), "chunked: the chunk fault is not an OSError")
+            store = SolveCheckpoint(chunk_dir)
+            entries = store.entries()
+            check(len(entries) == 1, f"chunked: {len(entries)} snapshots after the fault")
+            snap = store.load(entries[0])
+            check((snap["i"], snap["chunk"]) == (0, saved),
+                  f"chunked: snapshot at step {snap['i']} chunk {snap.get('chunk')}, "
+                  f"expected 0 / {saved}")
+            c_bytes = dir_bytes(chunk_dir)
+            del snap
+            repro_torch.session_cache_clear()
+            reset_launches()
+            t0 = time.perf_counter()
+            c_res = eigsh(path, v_central, checkpoint_dir=chunk_dir)
+            c_wall = time.perf_counter() - t0
+            cl = read_launches()
+        finally:
+            os.environ.pop("REPRO_CHUNK_CKPT_EVERY", None)
+        chunk_saves = save_s[n0:]
+        n_chunks = c_res.partition["num_chunks"]
+        check(same_bits(c_res, chunk_res), "chunked: the resumed run's bits differ from phase 8's")
+        check(not store.entries(), "chunked: the snapshot survived the resume")
+        # Step 0 resumes after the saved chunk; steps 1..k-1 run whole.
+        want = (n_chunks - saved - 1) + (K - 1) * n_chunks
+        check(cl["spmv_ell"] == want, f"chunked resume launches {cl}, expected {want} spmv_ell")
+        every1 = K * (n_chunks - 1)  # REPRO_CHUNK_CKPT_EVERY=1: a save after every chunk but the last
+        print(f"[robust] (b) chunked diskcsr road n={central.n:,}, {n_chunks} chunks, "
+              f"REPRO_CHUNK_CKPT_EVERY={chunk_every}, chunk_io_error@chunk={chunk_fault} (an "
+              f"OSError): snapshot at step 0 chunk {saved}, {c_bytes:,} bytes; resumed: phase 8's "
+              f"bits, launches {cl}; "
+              f"{len(chunk_saves)} saves, median {np.median(chunk_saves):.4f} s (min "
+              f"{min(chunk_saves):.4f}, max {max(chunk_saves):.4f}); resumed solve wall {c_wall:.3f} s "
+              f"on {smi}")
+        print(f"[robust] (b) reckoned, not run: REPRO_CHUNK_CKPT_EVERY=1 (the default) would save "
+              f"{every1} snapshots in this k={K} solve, {every1 * c_bytes:,} bytes, about "
+              f"{every1 * float(np.median(chunk_saves)):.1f} s at this median")
+    finally:
+        restore()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (c) recovery="auto" on road 4.19M under FFF, v0 = v_road
+    fff = eigsh(road, v_road, policy="FFF")
+    fcf = eigsh(road, v_road, policy="FCF")
+
+    def trail(res):
+        return [(t["action"], t.get("from"), t.get("to")) for t in res.recovery_trail or []]
+
+    with faults.inject("spmv_nan@iter=3"):
+        r_nan = eigsh(road, v_road, policy="FFF", recovery="auto")
+    check(trail(r_nan) == [("escalate_policy", "FFF", "FCF")], f"spmv_nan trail {trail(r_nan)}")
+    check(bool(torch.isfinite(r_nan.eigenvalues).all()) and same_bits(r_nan, fcf),
+          "spmv_nan: the escalated result is not a plain FCF call's bits")
+    with faults.inject("beta_collapse@iter=2"):
+        r_beta = eigsh(road, v_road, policy="FFF", recovery="auto")
+    check([t[0] for t in trail(r_beta)] == ["reseed"] and bool(torch.isfinite(r_beta.eigenvalues).all()),
+          f"beta_collapse trail {trail(r_beta)}")
+    reset_launches()
+    with faults.inject("kernel_error"):
+        r_kern = eigsh(road, v_road, policy="FFF", recovery="auto")
+    kl = read_launches()
+    lam = float(fff.eigenvalues.double().abs().max())
+    kerr = float((r_kern.eigenvalues.double() - fff.eigenvalues.double()).abs().max()) / lam
+    check(trail(r_kern) == [("unfuse", "fused", "unfused")], f"kernel_error trail {trail(r_kern)}")
+    check(kl["spmv_ell"] == K and kl["lanczos_update"] == 0, f"unfused attempt launches {kl}")
+    check(kerr <= 1e-5, f"unfused eigenvalues differ from the fused call by {kerr:.3e}")
+    reset_launches()
+    with faults.inject("oom"):
+        r_oom = eigsh(road, v_road, policy="FFF", recovery="auto")
+    ol = read_launches()
+    check(trail(r_oom) == [("fallback_chunked", "single", "chunked")] and r_oom.backend == "chunked",
+          f"oom trail {trail(r_oom)}, backend {r_oom.backend}")
+    check(ol["spmv_ell"] == r_oom.partition["num_chunks"] * K, f"chunked fallback launches {ol}")
+    with faults.inject("spmv_nan@iter=3"):
+        try:
+            eigsh(road, v_road, policy="FFF", recovery="raise")
+            raise CheckFailed("spmv_nan under recovery='raise' did not raise")
+        except NumericalBreakdown as exc:
+            check((exc.kind, exc.iteration) == ("nonfinite", 3), f"breakdown {exc}")
+    print(f"[robust] (c) recovery='auto', road FFF: spmv_nan@iter=3 -> {trail(r_nan)} (= plain FCF "
+          f"bits); beta_collapse@iter=2 -> {trail(r_beta)}; kernel_error -> {trail(r_kern)}, "
+          f"launches {kl}, vs fused rel {kerr:.3e}; oom -> {trail(r_oom)}, "
+          f"{r_oom.partition['num_chunks']} chunks, launches {ol}; recovery='raise' -> "
+          "NumericalBreakdown(nonfinite, 3)")
+
+    # (d) jacobi="jax" on phase 3's call
+    reset_launches()
+    r_jax = eigsh(road, v_road, jacobi="jax")
+    jl = read_launches()
+    check(jl["spmv_ell"] == K and jl["lanczos_update"] == K, f"jacobi='jax' launches {jl}")
+    jerr = check_eigs("jacobi jax", r_jax, main_res, 1e-12)
+    gap = check_residuals("jacobi jax", r_jax, road)
+    sess = repro_torch.prepare(road, device=dev)
+    times = {}
+    for placement in ("host", "jax"):
+        sess.eigsh(K, v0=v_road, jacobi=placement)  # warm-up
+        times[placement] = [sess.eigsh(K, v0=v_road, jacobi=placement).timings["jacobi_s"]
+                            for _ in range(5)]
+    print(f"[robust] (d) jacobi='jax' on road FDF: vs host Jacobi max rel err {jerr:.3e} (<= 1e-12), "
+          f"residual bound gap {gap:.3e}, launches {jl}; timings['jacobi_s'] median of 5 warm calls: "
+          f"host {np.median(times['host']) * 1e3:.3f} ms, device "
+          f"{np.median(times['jax']) * 1e3:.3f} ms (all: host "
+          f"{[round(t * 1e3, 3) for t in times['host']]}, device "
+          f"{[round(t * 1e3, 3) for t in times['jax']]}) on {smi}")
+
+    # (e) the legacy entry points
+    single = eigsh(road, v_road, backend="single", format="ell")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        reset_launches()
+        legacy = topk_eigs(make_operator(road, "ell", device=dev), K, v1=v_road)
+        sync(dev)
+        ll = read_launches()
+    check(any(issubclass(w.category, DeprecationWarning) for w in caught),
+          "topk_eigs raised no DeprecationWarning")
+    check(tuple(legacy.eigenvectors.shape) == (road.n, K), f"topk_eigs: {legacy.eigenvectors.shape}")
+    lerr = eig_rel_err("topk_eigs", legacy.eigenvalues, single.eigenvalues, 1e-12)
+    check(ll["spmv_ell"] == K, f"topk_eigs(make_operator(road, 'ell')) launches {ll}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        reset_launches()
+        legacy_bsr = topk_eigs(make_operator(block, "bsr_kernel", device=dev), K, v1=v_block)
+        sync(dev)
+        bl = read_launches()
+    check(bl["spmv_bsr"] == K, f"make_operator(block, 'bsr_kernel') launches {bl}")
+    berr = eig_rel_err("bsr_kernel", legacy_bsr.eigenvalues, bsr_res.eigenvalues, 1e-9)
+    from repro_torch.core.operators import chunk_row_bounds
+
+    r0, r1 = chunk_row_bounds(central.indptr, central.n, 1 << 20)[0]
+    val, col = ell_chunk(central, r0, r1)
+    packed = [t.to(dev) for t in pack_ell_chunk(val, col, "bf16")]
+    x = torch.randn(central.n, dtype=torch.float32, device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5))
+    reset_launches()
+    got = ops.spmv_ell_packed(*packed, x, r1 - r0, accum_dtype=torch.float64)
+    sync(dev)
+    pl = read_launches()["spmv_ell_packed"]
+    want = ref.spmv_ell_packed_ref(*packed, x, torch.float64)[: r1 - r0]
+    perr = close(got, want, 1e-12)
+    check(pl == 1 and got.shape == (r1 - r0,), f"ops.spmv_ell_packed launches {pl}, shape {got.shape}")
+    print(f"[robust] (e) topk_eigs(make_operator(road, 'ell')) warns DeprecationWarning, vs "
+          f"eigsh(format='ell') max rel err {lerr:.3e} (<= 1e-12), launches {ll}; "
+          f"make_operator(block, 'bsr_kernel'): launches {bl}, vs phase 6 max rel err {berr:.3e}; "
+          f"ops.spmv_ell_packed on phase 2's bf16 chunk ({r1 - r0:,} rows), f64: max_abs_err "
+          f"{perr:.3e} (<= 1e-12 of max |y|), 1 launch")
+
+
 def phase_device() -> str:
     """Phase 1: the card's name and power limit (``nvidia-smi``, returned),
     the versions, and the build of the kernels with each new kernel's
@@ -1143,11 +1438,15 @@ def main() -> int:
                   f"jacobi {r.timings['jacobi_s'] * 1e3:.2f} ms, project {r.timings['project_s'] * 1e3:.2f} ms) "
                   f"on {smi}")
         os.environ.pop("REPRO_ITER_UPDATE", None)
+
+        # ---- phase 10: the restarted backend and the session's query layer
+        phase_restarted(road, web, v_road, smi)
+
+        # ---- phase 11: solve robustness, the device Jacobi, the legacy entry points
+        phase_robustness(road, central, block, path, v_road, v_central, v_block, main_res,
+                         chunk_res, bres, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-
-    # ---- phase 10: the restarted backend and the session's query layer
-    phase_restarted(road, web, v_road, smi)
 
     launches = {
         "spmv_ell": main_launches["spmv_ell"],

@@ -3,7 +3,7 @@
 
 from ..core.lanczos import NumericalBreakdown
 from .coerce import CoercedInput, coerce_input, matrix_fingerprint
-from .dispatch import BACKENDS, select_backend
+from .dispatch import BACKENDS, CHUNKED_NNZ_THRESHOLD, select_backend
 from .frontend import SolverConfig, eigsh, is_auto_policy, resolve_policy
 from .result import EigenResult
 from .session import (
@@ -36,6 +36,7 @@ __all__ = [
     "session_cache_clear",
     "session_cache_info",
     "BACKENDS",
+    "CHUNKED_NNZ_THRESHOLD",
     "select_backend",
     "resolve_policy",
     "is_auto_policy",

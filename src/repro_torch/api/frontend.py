@@ -100,11 +100,17 @@ class SolverConfig:
     # block scales) and delta-encode the columns, decoded in the
     # spmv_ell_packed kernel; "auto" packs when the storage dtype is narrow.
     staging: str = "f32"
-    jacobi: str = "host"
-    recovery: Optional[str] = None  # None/"raise" (health probe on) or "none"
-    # Solve snapshots of the restarted and chunked engines: not ported yet
-    # (ROADMAP queue A, item 12); setting one raises.
+    jacobi: str = "host"  # phase-2 placement: "host" (paper) or "jax" (the device)
+    # Breakdown handling: "raise" (default: the health probe turns NaN/Inf
+    # and beta underflow into a typed NumericalBreakdown), "auto" (probe and
+    # escalate: reseed / policy rung up / unfuse / chunked fallback, trail on
+    # EigenResult.recovery_trail) or "none" (probes off).
+    recovery: Optional[str] = None
+    # Solve checkpointing (restarted and chunked engines): a directory turns
+    # on snapshots through serving.store.SolveCheckpoint; an interrupted
+    # solve resumes from the last completed restart cycle or step block.
     checkpoint_dir: Optional[str] = None
+    checkpoint_every: int = 8  # chunked Lanczos loop: steps between snapshots
     device: str = "cuda"
 
 
@@ -141,6 +147,7 @@ def eigsh(
     jacobi: str = "host",
     recovery: Optional[str] = None,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 8,
     device: str = "cuda",
 ) -> EigenResult:
     """Top-K eigenpairs (largest |lambda|) of a symmetric matrix.
@@ -163,6 +170,15 @@ def eigsh(
     staged chunk, chunks staged ahead of the one computing (at most
     ``stage_depth + 1`` resident), and the chunks' wire format ("f32",
     "bf16", "fp8" or "auto"; ``REPRO_CHUNK_STAGING`` pins it).
+    ``jacobi="jax"`` runs phase 2 on ``device`` (the restarted backend
+    keeps the host Jacobi, as in the reference).  ``recovery="auto"``
+    retries a failed solve along the reference's escalation axes and
+    records each action in ``EigenResult.recovery_trail``.
+    ``checkpoint_dir`` snapshots the restarted engine after every
+    compression and the chunked engine every ``checkpoint_every`` steps
+    (and every ``REPRO_CHUNK_CKPT_EVERY`` chunks within a step): a solve
+    killed mid-run and called again with the same arguments resumes and
+    gives the same bits.
     """
     cfg = config or SolverConfig(
         policy=policy,
@@ -180,6 +196,7 @@ def eigsh(
         jacobi=jacobi,
         recovery=recovery,
         checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every,
         device=device,
     )
     from .session import EigQuery, get_session  # lazy: session imports this module

@@ -17,7 +17,11 @@ matrix stays on the host and streams to the device chunk by chunk).
 
 ``eigsh_many`` groups queries by (backend, policy, reorth, jacobi,
 recovery); each group runs ONE sweep at its largest subspace per start
-vector and every query slices its Ritz pairs from it.  The start vectors
+vector and every query slices its Ritz pairs from it.  ``recovery="auto"``
+retries a failed group along the reference's axes (reseed, a policy rung
+up, unfuse, chunked fallback; ``EigenResult.recovery_trail``), and
+``checkpoint_dir=`` snapshots the restarted and chunked sweeps so a killed
+solve resumes bit-identically.  The start vectors
 of one group run one after the other, each its own sweep (the reference
 vmaps them into one sweep on dense and COO operators).  ``policy="auto"``
 queries run the precision ladder one rung at a time and never group.
@@ -30,8 +34,8 @@ reuses the built layout.  An evicted session, and every session on
 :func:`session_cache_clear`, drops its plans and so their device memory.
 
 This is the reference's ``repro/api/session.py`` without the distributed
-backend (ROADMAP queue A, item 10), ``recovery="auto"`` and solve
-checkpoints (item 12), and plan export and import (item 13).
+backend (ROADMAP queue A, "Multi-device") and plan export and import
+(queue A, "Serving").
 """
 
 from __future__ import annotations
@@ -50,8 +54,8 @@ import numpy as np
 import torch
 
 from ..configs import env as envcfg
-from ..core.eigensolver import solve_fixed
-from ..core.lanczos import ops_for_operator, resolve_update_mode
+from ..core.eigensolver import JACOBI_PLACEMENTS, solve_fixed
+from ..core.lanczos import NumericalBreakdown, ops_for_operator, resolve_update_mode
 from ..core.operators import (
     ChunkedOperator,
     DenseOperator,
@@ -64,6 +68,7 @@ from ..core.restarted import solve_restarted
 from ..kernels.engine import FORMATS, SpmvEngine, ell_overhead_bound, make_engine
 from ..sparse.diskcsr import DiskCSR, is_diskcsr
 from ..sparse.formats import CSR, conversion_count
+from ..testing.faults import InjectedKernelError
 from .coerce import CoercedInput, _host_array, coerce_input, matrix_fingerprint
 from .dispatch import select_backend
 from .frontend import SolverConfig, _default_tol, _resolve_reorth, is_auto_policy, resolve_policy
@@ -85,8 +90,8 @@ __all__ = [
 _UNSET = object()  # "inherit the session default", as distinct from None
 
 # Backends the reference runs that this port does not yet, and the ROADMAP
-# item (queue A) that brings each.
-_NOT_PORTED = {"distributed": 10}
+# queue A item that brings each.
+_NOT_PORTED = {"distributed": "Multi-device"}
 
 # SolverConfig fields that change what a session builds; the per-query
 # fields (k, policy, tol, num_iters, reorth, seed, subspace, max_restarts,
@@ -198,6 +203,57 @@ def _as_query(q) -> EigQuery:
     )
 
 
+# recovery="auto" bounds: total attempts (the first solve plus up to five
+# recovery actions) and how many fresh start vectors a lucky breakdown may
+# burn before it is treated as structural and re-raised.
+_MAX_RECOVERY_ATTEMPTS = 6
+_MAX_RESEEDS = 2
+
+
+def _classify_failure(exc) -> Optional[str]:
+    """Map an in-solve exception to a ``recovery="auto"`` action, or None
+    when no documented recovery applies (the error re-raises unchanged).
+
+    As conservative as the reference's: a breakdown reseeds (beta
+    underflow) or escalates the policy (non-finite); an allocation failure
+    (``MemoryError`` or "out of memory" in the message, which
+    ``torch.cuda.OutOfMemoryError`` carries) falls back to the chunked
+    backend; an injected kernel error unfuses.  A real CUDA error maps to
+    nothing: it may have poisoned the context, and all six kernels live in
+    one library, so unfusing could not escape it.
+    """
+    if isinstance(exc, NumericalBreakdown):
+        return "reseed" if exc.kind == "beta_underflow" else "escalate_policy"
+    if isinstance(exc, MemoryError) or "out of memory" in str(exc).lower():
+        return "fallback_chunked"
+    if isinstance(exc, InjectedKernelError):
+        return "unfuse"
+    return None
+
+
+def _policy_rank(pol: PrecisionPolicy) -> tuple:
+    """Orderable cost/headroom rank of a policy: compute width first (what
+    breakdown escalation buys), then compensation, then storage width, as
+    :func:`auto_ladder` orders its rungs."""
+    p = pol.effective()
+
+    def size(dt):
+        return torch.empty((), dtype=dt).element_size()
+
+    return (size(p.compute), int(bool(p.compensated)), size(p.storage))
+
+
+def _next_rung(pol: PrecisionPolicy) -> Optional[PrecisionPolicy]:
+    """The cheapest :func:`auto_ladder` rung strictly above ``pol`` in
+    compute headroom, or None when ``pol`` already tops the ladder."""
+    cur = _policy_rank(pol)
+    for rung in auto_ladder():
+        cand = resolve_policy(rung).effective()
+        if _policy_rank(cand) > cur:
+            return cand
+    return None
+
+
 class _NormQuery(NamedTuple):
     """A query with every field resolved against the session defaults."""
 
@@ -217,7 +273,9 @@ class _NormQuery(NamedTuple):
     v0: Any
     jacobi: str
     start_key: str
-    recovery: str  # "none" | "raise"
+    recovery: str  # "none" | "raise" | "auto"
+    ckpt_dir: Optional[str]  # solve-checkpoint directory (None = off)
+    ckpt_every: int  # chunked Lanczos loop: steps between snapshots
 
 
 def _norm_group_key(q: _NormQuery) -> tuple:
@@ -240,12 +298,15 @@ class _Prepared:
     conversions: int = 0
     ops_cache: Dict[tuple, object] = dataclasses.field(default_factory=dict)
 
-    def ops_for(self, pol: PrecisionPolicy, device):
+    def ops_for(self, pol: PrecisionPolicy, device, fused: Optional[bool] = None):
+        """The solve's kernel set, memoized per (policy, pin, resolved mode);
+        ``fused=False`` pins the plain update (``recovery="auto"``'s
+        unfuse)."""
         plan = getattr(self.engine, "iteration_plan", None)
-        mode = resolve_update_mode(pol, plan=plan, device=device)
-        key = (pol, mode)
+        mode = resolve_update_mode(pol, plan=plan, device=device, fused=fused)
+        key = (pol, fused, mode)
         if key not in self.ops_cache:
-            self.ops_cache[key] = ops_for_operator(self.operator, pol, device=device)
+            self.ops_cache[key] = ops_for_operator(self.operator, pol, device=device, fused=fused)
         return self.ops_cache[key]
 
     def nbytes(self) -> int:
@@ -367,7 +428,7 @@ class EigenSession:
         if backend in _NOT_PORTED:
             raise NotImplementedError(
                 f"backend {backend!r} is not ported to PyTorch yet (ROADMAP queue A, "
-                f"item {_NOT_PORTED[backend]})"
+                f"{_NOT_PORTED[backend]!r})"
             )
         return backend
 
@@ -409,7 +470,7 @@ class EigenSession:
         engine = make_engine(
             csr, self.cfg.format, accum_dtype=pol.phase_dtype("spmv"), device=self.device
         )
-        op = make_operator(csr, dtype=pol.storage, engine=engine)
+        op = make_operator(csr, "coo", pol.storage, engine)
         return _Prepared(op, engine.format, engine)
 
     def _build_chunked(self, pol: PrecisionPolicy) -> _Prepared:
@@ -496,6 +557,16 @@ class EigenSession:
                     results[idx] = res
         return results  # type: ignore[return-value]
 
+    def ensure_fingerprint(self) -> Optional[str]:
+        """Content digest of this session's matrix, computed on first need
+        (a session built outside the cache has none; the checkpoint tokens
+        need it).  None for matrix-free inputs."""
+        if self.matrix_fingerprint is None:
+            src = self.csr if self.csr is not None else self._dense
+            if src is not None:
+                self.matrix_fingerprint = matrix_fingerprint(src)
+        return self.matrix_fingerprint
+
     def group_key(self, query, defaults: Optional[SolverConfig] = None) -> Optional[tuple]:
         """The key :meth:`eigsh_many` groups by: two queries with equal keys
         (on one session) share one sweep.  None for ``policy="auto"``
@@ -549,23 +620,11 @@ class EigenSession:
         if backend == "restarted" and max_restarts < 1:
             raise ValueError(f"max_restarts must be >= 1, got {max_restarts}")
         jacobi = pick(q.jacobi, cfg.jacobi)
-        if jacobi != "host":
-            raise NotImplementedError(
-                "only jacobi='host' is ported; the device Jacobi waits (ROADMAP queue A, item 5)"
-            )
-        if cfg.checkpoint_dir is not None:
-            raise NotImplementedError(
-                "checkpoint_dir= (snapshots of the restarted and chunked engines) is not "
-                "ported yet (ROADMAP queue A, item 12)"
-            )
+        if jacobi not in JACOBI_PLACEMENTS:
+            raise ValueError(f"jacobi must be one of {JACOBI_PLACEMENTS}, got {jacobi!r}")
         recovery = pick(q.recovery, cfg.recovery) or "raise"
         if recovery not in ("none", "raise", "auto"):
             raise ValueError(f"recovery must be 'none', 'raise', or 'auto'; got {recovery!r}")
-        if recovery == "auto":
-            raise NotImplementedError(
-                "recovery='auto' is not ported yet (only None/'raise'/'none'; ROADMAP queue A, "
-                "item 12)"
-            )
         seed = int(pick(q.seed, cfg.seed))
         if q.v0 is not None:
             digest = hashlib.blake2b(_host_array(q.v0).tobytes(), digest_size=8)
@@ -590,6 +649,8 @@ class EigenSession:
             jacobi=jacobi,
             start_key=start_key,
             recovery=recovery,
+            ckpt_dir=cfg.checkpoint_dir,
+            ckpt_every=int(cfg.checkpoint_every or 8),
         )
 
     def _solve_auto(self, rq: EigQuery, cfg: SolverConfig) -> EigenResult:
@@ -665,6 +726,11 @@ class EigenSession:
         return int(self.n)
 
     def _solve_group(self, group: List[_NormQuery]):
+        if group[0].recovery == "auto":
+            return self._solve_group_recovering(group)
+        return self._solve_group_inner(group)
+
+    def _solve_group_inner(self, group: List[_NormQuery], fused_pin: Optional[bool] = None):
         backend, pol = group[0].backend, group[0].pol
         prep, built = self._ensure(backend, pol)
         if not built:
@@ -674,7 +740,76 @@ class EigenSession:
             starts.setdefault(q.start_key, []).append(q)
         if backend == "restarted":
             return self._run_restarted(starts, prep, built)
-        return self._run_fixed(starts, prep, built, backend)
+        return self._run_fixed(starts, prep, built, backend, fused_pin=fused_pin)
+
+    def _solve_group_recovering(self, group: List[_NormQuery]):
+        """``recovery="auto"``: run the group, catching in-solve failures and
+        escalating along the reference's axes: a new start vector on a lucky
+        breakdown (beta underflow), one :func:`auto_ladder` rung up on a
+        non-finite value, the plain update on a kernel error, the chunked
+        backend on an allocation failure.  Each action lands in the trail
+        that rides out on the results as ``recovery_trail``; an
+        unrecoverable (or exhausted) failure re-raises, a
+        :class:`NumericalBreakdown` with the trail attached."""
+        trail: List[dict] = []
+        qs = list(group)
+        fused_pin: Optional[bool] = None
+        reseeds = 0
+        last_exc: Optional[BaseException] = None
+        for attempt in range(_MAX_RECOVERY_ATTEMPTS):
+            try:
+                out = self._solve_group_inner(qs, fused_pin=fused_pin)
+            except Exception as exc:
+                last_exc = exc
+                action = _classify_failure(exc)
+                if action is None:
+                    raise self._attach_trail(exc, trail)
+                entry = {"action": action, "error": f"{type(exc).__name__}: {exc}",
+                         "attempt": attempt}
+                if isinstance(exc, NumericalBreakdown):
+                    entry["kind"] = exc.kind
+                    entry["iteration"] = exc.iteration
+                if action == "reseed":
+                    if reseeds >= _MAX_RESEEDS:
+                        raise self._attach_trail(exc, trail)
+                    reseeds += 1
+                    seed2 = qs[0].seed + 1000 + attempt
+                    entry["from"] = qs[0].start_key
+                    entry["to"] = f"seed:{seed2}"
+                    qs = [q._replace(seed=seed2, v0=None, start_key=f"seed:{seed2}") for q in qs]
+                elif action == "escalate_policy":
+                    nxt = _next_rung(qs[0].pol)
+                    if nxt is None:  # already at the top of the ladder
+                        raise self._attach_trail(exc, trail)
+                    entry["from"] = qs[0].pol.name
+                    entry["to"] = nxt.name
+                    qs = [q._replace(pol=nxt, pkey=policy_key(nxt)) for q in qs]
+                elif action == "unfuse":
+                    if fused_pin is False:
+                        raise self._attach_trail(exc, trail)
+                    entry["from"] = "fused"
+                    entry["to"] = "unfused"
+                    fused_pin = False
+                elif action == "fallback_chunked":
+                    if qs[0].backend == "chunked" or self.csr is None:
+                        raise self._attach_trail(exc, trail)
+                    entry["from"] = qs[0].backend
+                    entry["to"] = "chunked"
+                    qs = [q._replace(backend="chunked") for q in qs]
+                trail.append(entry)
+                self.stats["recoveries"] = self.stats.get("recoveries", 0) + 1
+                continue
+            if trail:
+                out = [(idx, dataclasses.replace(res, recovery_trail=list(trail)))
+                       for idx, res in out]
+            return out
+        raise self._attach_trail(last_exc, trail)
+
+    @staticmethod
+    def _attach_trail(exc, trail):
+        if isinstance(exc, NumericalBreakdown) and trail:
+            exc.recovery_trail = list(trail)
+        return exc
 
     def _finish(self, q: _NormQuery, prep: _Prepared, built: bool, *, eigenvalues, eigenvectors,
                 residuals, evals_f64, iterations, restarts, timings, partition, tridiag,
@@ -695,7 +830,7 @@ class EigenSession:
         spmv = dict(part.get("spmv") or (
             prep.engine.describe() if prep.engine is not None else {"format": prep.spmv_format}))
         # The reuse contract, verified: what THIS call paid.  No autotuner
-        # yet (ROADMAP queue A, item 9): no probes.
+        # yet (ROADMAP queue A, "Autotuner"): no probes.
         spmv["conversions"] = prep.conversions if built else 0
         spmv["tuner_probes"] = 0
         spmv["reused"] = not built
@@ -752,24 +887,54 @@ class EigenSession:
             "spmv": spmv,
         }
 
-    def _run_fixed(self, starts, prep: _Prepared, built: bool, backend: str):
+    def _solve_checkpoint(self, q: _NormQuery, pol, backend: str, k: int, m: int):
+        """(store, token) for this sweep's snapshots, or None when solve
+        checkpointing is off.  The token hashes the matrix fingerprint and
+        every parameter that shapes the trajectory, plus ``package``: the
+        reference's tokens never name one, so neither package resumes the
+        other's snapshot under a shared root.  Budget knobs (max_restarts,
+        the snapshot period) stay out, so a run relaunched with another
+        budget still resumes."""
+        if q.ckpt_dir is None:
+            return None
+        from ..serving.store import SolveCheckpoint
+
+        store = SolveCheckpoint(q.ckpt_dir)
+        token = SolveCheckpoint.token(
+            self.ensure_fingerprint(), backend=backend, policy=pol.name, k=k, m=m,
+            start=q.start_key, tol=q.tol_eff, reorth=q.reorth, package="repro_torch",
+        )
+        return store, token
+
+    def _run_fixed(self, starts, prep: _Prepared, built: bool, backend: str,
+                   fused_pin: Optional[bool] = None):
         all_qs = [q for qs in starts.values() for q in qs]
-        pol, reorth = all_qs[0].pol, all_qs[0].reorth
+        pol, reorth, jacobi = all_qs[0].pol, all_qs[0].reorth, all_qs[0].jacobi
         chunked = backend == "chunked"
         out = []
         for qs in starts.values():
             k_max = max(q.k for q in qs)
+            m = max(q.m for q in qs)
             staging0 = dict(prep.operator.staging) if chunked else {}
+            ckpt = None
+            if chunked:  # as in the reference, only the chunked sweep snapshots
+                pair = self._solve_checkpoint(qs[0], pol, backend, k_max, m)
+                if pair is not None:
+                    # The operator rides along so the loop can save and
+                    # restore its chunk cursor inside a step.
+                    ckpt = (*pair, qs[0].ckpt_every, prep.operator)
             sweep = solve_fixed(
                 prep.operator,
                 k_max,
                 policy=pol,
                 reorth=reorth,
-                num_iters=max(q.m for q in qs),
+                num_iters=m,
                 v1=qs[0].v0,
                 seed=qs[0].seed,
-                ops=prep.ops_for(pol, self.device),
+                jacobi=jacobi,
+                ops=prep.ops_for(pol, self.device, fused=fused_pin),
                 probe=qs[0].recovery != "none",
+                checkpoint=ckpt,
             )
             self.stats["sweeps"] += 1
             partition = self._chunked_partition(prep.operator, staging0) if chunked else {}
@@ -816,6 +981,7 @@ class EigenSession:
                 seed=q0.seed,
                 v1=q0.v0,
                 probe=q0.recovery != "none",
+                checkpoint=self._solve_checkpoint(q0, q0.pol, "restarted", k_max, m),
             )
             self.stats["sweeps"] += 1
             for q in qs:
@@ -858,6 +1024,7 @@ def prepare(
     jacobi: str = "host",
     recovery: Optional[str] = None,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 8,
     device: str = "cuda",
 ) -> EigenSession:
     """Plan phase of :func:`repro_torch.eigsh`: coerce, select, convert, once,
@@ -880,6 +1047,7 @@ def prepare(
         jacobi=jacobi,
         recovery=recovery,
         checkpoint_dir=checkpoint_dir,
+        checkpoint_every=checkpoint_every,
         device=device,
     )
     return EigenSession(A, cfg, n=n).warmup()

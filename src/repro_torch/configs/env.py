@@ -21,6 +21,8 @@ __all__ = [
     "get_int",
     "get_float",
     "get_str",
+    "is_falsey",
+    "is_truthy",
 ]
 
 
@@ -101,6 +103,13 @@ _DECLARED: Iterable[EnvKnob] = (
         "Total bytes budget (MB) for the warm EigenSession cache.",
     ),
     _k(
+        "REPRO_CHUNK_CKPT_EVERY",
+        "int",
+        1,
+        "Chunks between mid-step chunk-cursor checkpoints in the out-of-core host loop "
+        "(0 = end-of-step saves only).",
+    ),
+    _k(
         "REPRO_DISKCSR_FP_BLOCKS",
         "int",
         16,
@@ -111,6 +120,18 @@ _DECLARED: Iterable[EnvKnob] = (
         "bool",
         True,
         "Validate user matrices (finite values, symmetry probe) on ingestion.",
+    ),
+    _k(
+        "REPRO_SOLVE_CHECKPOINTS",
+        "path",
+        None,
+        "Directory for mid-solve Lanczos checkpoints (unset = checkpointing off).",
+    ),
+    _k(
+        "REPRO_FAULT",
+        "str",
+        None,
+        "Fault-injection spec 'kind[@iter=N][,...]' armed for the next solve (CI robustness legs).",
     ),
 )
 
@@ -135,6 +156,14 @@ def raw(name: str) -> Optional[str]:
     """The raw environment string for a declared knob, or None when unset."""
     knob(name)
     return os.environ.get(name)
+
+
+def is_truthy(value: str) -> bool:
+    return value.strip().lower() in _TRUE
+
+
+def is_falsey(value: str) -> bool:
+    return value.strip().lower() in _FALSE
 
 
 def get_bool(name: str, default: Optional[bool] = None) -> bool:

@@ -1,25 +1,46 @@
 """Fixed-subspace Top-K eigensolver engine (the paper's Fig. 1 pipeline).
 
 ``solve_fixed`` = Lanczos on the operator's device (phase 1) + Jacobi on the
-host (phase 2, the paper's placement) + the back-projection ``X = V^T W``
-and |lambda|-descending selection (phase 3).  The user-facing entry point
-is ``repro_torch.eigsh``.
+host (phase 2, the paper's placement; ``jacobi="jax"`` runs it on the
+device) + the back-projection ``X = V^T W`` and |lambda|-descending
+selection (phase 3).  The user-facing entry point is ``repro_torch.eigsh``;
+``topk_eigs`` is a deprecated shim.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .jacobi import jacobi_eigh_host, tridiag_to_dense
+from .jacobi import jacobi_eigh, jacobi_eigh_host, tridiag_to_dense
 from .lanczos import LanczosResult, check_tridiag_health, lanczos_tridiag, ops_for_operator
 from .operators import LinearOperator
 from .precision import FDF, PrecisionPolicy
 
-__all__ = ["FixedSolveOutput", "ritz_decompose", "ritz_extract", "solve_fixed", "operator_device"]
+__all__ = [
+    "EigResult",
+    "FixedSolveOutput",
+    "ritz_decompose",
+    "ritz_extract",
+    "solve_fixed",
+    "topk_eigs",
+    "operator_device",
+]
+
+JACOBI_PLACEMENTS = ("host", "jax")
+
+
+class EigResult(NamedTuple):
+    """Legacy result type of the deprecated ``topk_eigs`` shims."""
+
+    eigenvalues: torch.Tensor  # (k,) output dtype, |lambda| descending
+    eigenvectors: torch.Tensor  # (n, k) output dtype, column-wise
+    tridiag: LanczosResult  # raw Lanczos output (alpha, beta, basis)
+    wall_time_s: float
 
 
 class FixedSolveOutput(NamedTuple):
@@ -45,22 +66,30 @@ def operator_device(op: LinearOperator) -> torch.device:
     return op.a.device
 
 
-def ritz_decompose(lres: LanczosResult, policy: PrecisionPolicy):
-    """Phase 2: host Jacobi on the Lanczos tridiagonal.
+def ritz_decompose(lres: LanczosResult, policy: PrecisionPolicy, jacobi: str = "host"):
+    """Phase 2: Jacobi on the Lanczos tridiagonal, on the host (``"host"``)
+    or on the basis's device in the ritz-phase dtype (``"jax"``, the
+    reference's name for its device placement).
 
     Returns ``(evals, w, evals_f64, w_f64, beta_m)``: ``evals`` / ``w`` on
     the basis's device in the ritz-phase dtype (|lambda| descending), the
     f64 host copies for the residual arithmetic, and the final residual norm
     ``beta_m``.
     """
+    if jacobi not in JACOBI_PLACEMENTS:
+        raise ValueError(f"jacobi must be one of {JACOBI_PLACEMENTS}, got {jacobi!r}")
     rzdt = policy.phase_dtype("ritz")
     dev = lres.basis.device
-    t_host = tridiag_to_dense(
-        lres.alpha.cpu().to(torch.float64).numpy(), lres.beta.cpu().to(torch.float64).numpy()
-    )
-    evals_f64, w_host = jacobi_eigh_host(t_host)
-    evals = torch.as_tensor(evals_f64).to(device=dev, dtype=rzdt)
-    w = torch.as_tensor(w_host).to(device=dev, dtype=rzdt)
+    if jacobi == "host":
+        t_host = tridiag_to_dense(
+            lres.alpha.cpu().to(torch.float64).numpy(), lres.beta.cpu().to(torch.float64).numpy()
+        )
+        evals_f64, w_host = jacobi_eigh_host(t_host)
+        evals = torch.as_tensor(evals_f64).to(device=dev, dtype=rzdt)
+        w = torch.as_tensor(w_host).to(device=dev, dtype=rzdt)
+    else:
+        evals, w = jacobi_eigh(tridiag_to_dense(lres.alpha, lres.beta).to(rzdt))
+        evals_f64 = evals.cpu().to(torch.float64).numpy()
     # Residual arithmetic sees W as the solver uses it: rounded through rzdt.
     w_f64 = w.cpu().to(torch.float64).numpy()
     beta_m = float(lres.beta_last.cpu().to(torch.float64)) if lres.beta_last is not None else 0.0
@@ -93,8 +122,10 @@ def solve_fixed(
     num_iters: Optional[int] = None,
     v1=None,
     seed: int = 0,
+    jacobi: str = "host",
     ops=None,
     probe: bool = True,
+    checkpoint=None,
 ) -> FixedSolveOutput:
     """The K eigenpairs of largest |lambda| of a symmetric operator.
 
@@ -102,7 +133,9 @@ def solve_fixed(
     the start vector (any array-like of length n); without one, it is drawn
     from a ``torch.Generator`` seeded with ``seed`` on the operator's device
     (the reference draws from ``jax.random``, which PyTorch cannot
-    reproduce: pass the same ``v1`` to both to compare them).
+    reproduce: pass the same ``v1`` to both to compare them).  ``jacobi``
+    places phase 2 (see :func:`ritz_decompose`); ``checkpoint`` goes to
+    :func:`~repro_torch.core.lanczos.lanczos_tridiag`.
     """
     policy = policy.effective()
     m = num_iters or k
@@ -122,14 +155,15 @@ def solve_fixed(
     t0 = time.perf_counter()
     if ops is None:
         ops = ops_for_operator(op, policy, device=dev)
-    lres = lanczos_tridiag(op.bound_matvec(policy), v1, m, policy, reorth=reorth, ops=ops)
+    lres = lanczos_tridiag(op.bound_matvec(policy), v1, m, policy, reorth=reorth, ops=ops,
+                           checkpoint=checkpoint)
     _sync(dev)
     if probe:
         check_tridiag_health(lres, policy)
     t_lanczos = time.perf_counter() - t0
 
     t1 = time.perf_counter()
-    evals, w, evals_f64, w_f64, beta_m = ritz_decompose(lres, policy)
+    evals, w, evals_f64, w_f64, beta_m = ritz_decompose(lres, policy, jacobi)
     t_jacobi = time.perf_counter() - t1
 
     t2 = time.perf_counter()
@@ -151,3 +185,28 @@ def solve_fixed(
             "total_s": time.perf_counter() - t0,
         },
     )
+
+
+def topk_eigs(
+    op: LinearOperator,
+    k: int,
+    policy: PrecisionPolicy = FDF,
+    reorth: str = "half",
+    num_iters: Optional[int] = None,
+    v1=None,
+    seed: int = 0,
+    jacobi: str = "host",
+) -> EigResult:
+    """Deprecated: use :func:`repro_torch.eigsh` (the unified frontend).
+    Runs on the operator's device."""
+    warnings.warn(
+        "topk_eigs is deprecated; use repro_torch.eigsh(A, k, backend='single', ...)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    from ..api import eigsh
+
+    res = eigsh(op, k, policy=policy, backend="single", reorth=reorth, num_iters=num_iters,
+                v0=v1, seed=seed, jacobi=jacobi, device=str(operator_device(op)))
+    return EigResult(eigenvalues=res.eigenvalues, eigenvectors=res.eigenvectors,
+                     tridiag=res.tridiag, wall_time_s=res.timings["total_s"])

@@ -8,7 +8,10 @@ overrides), each result rounded back to the carried compute dtype.
 
 Nothing in the loop reads a value back to the host: the step index is a
 Python int, alpha and beta stay 0-d device tensors, and the health probe
-(:func:`check_tridiag_health`) runs once, after the loop.
+(:func:`check_tridiag_health`) runs once, after the loop.  The fault taps
+(``testing/faults.py``) are no-ops unless a fault is armed, and a solve
+checkpoint (``checkpoint=``, the chunked engine's) reads the carry back
+only when it saves.
 
 The update modes of the :class:`~repro_torch.kernels.engine.IterationPlan`:
 
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from ..configs import env as envcfg
+from ..testing import faults as _faults
 from .precision import PrecisionPolicy, compensated_sum
 
 __all__ = [
@@ -123,11 +127,15 @@ def fused_update_enabled(policy: PrecisionPolicy) -> bool:
     return policy.phase_dtype("alpha_beta") == policy.compute
 
 
-def resolve_update_mode(policy: PrecisionPolicy, plan=None, device="cuda") -> str:
-    """The update mode of this solve: the policy gate, then a
+def resolve_update_mode(policy: PrecisionPolicy, plan=None, device="cuda",
+                        fused: Optional[bool] = None) -> str:
+    """The update mode of this solve: a caller's ``fused=`` pin (``False``
+    is how ``recovery="auto"`` unfuses), the policy gate, then a
     ``REPRO_ITER_UPDATE`` pin, then ``REPRO_FUSED_LANCZOS=1`` set explicitly
     (force fusion), then the engine's plan, or the static table for
     ``device`` when there is no plan."""
+    if fused is not None:
+        return "fused" if (fused and fused_update_enabled(policy)) else "unfused"
     if not fused_update_enabled(policy):
         return "unfused"
     from ..kernels.engine import ITER_UPDATE_MODES, table_update_mode
@@ -181,9 +189,10 @@ def _make_fused_iteration(operator, policy: PrecisionPolicy) -> Optional[Callabl
 
 
 def make_local_ops(matvec: Callable, policy: PrecisionPolicy, plan=None, operator=None,
-                   device="cuda") -> Ops:
+                   device="cuda", fused: Optional[bool] = None) -> Ops:
     """Single-device ops: plain reductions in the per-phase compute dtypes,
-    every result cast back to the carried ``compute`` dtype."""
+    every result cast back to the carried ``compute`` dtype; ``fused`` pins
+    the update mode (see :func:`resolve_update_mode`)."""
     cdt = policy.compute
     abdt = policy.phase_dtype("alpha_beta")
     rdt = policy.phase_dtype("reorth")
@@ -198,7 +207,7 @@ def make_local_ops(matvec: Callable, policy: PrecisionPolicy, plan=None, operato
         coeffs = basis_c @ u.to(policy.storage).to(rdt)
         return (u.to(rdt) - coeffs @ basis_c).to(cdt)
 
-    mode = resolve_update_mode(policy, plan=plan, device=device)
+    mode = resolve_update_mode(policy, plan=plan, device=device, fused=fused)
     fused_iteration = None
     if mode == "fused_spmv":
         fused_iteration = _make_fused_iteration(operator, policy)
@@ -217,12 +226,14 @@ def make_local_ops(matvec: Callable, policy: PrecisionPolicy, plan=None, operato
     )
 
 
-def ops_for_operator(operator, policy: PrecisionPolicy, device="cuda") -> Ops:
+def ops_for_operator(operator, policy: PrecisionPolicy, device="cuda",
+                     fused: Optional[bool] = None) -> Ops:
     """Ops routed by the operator's engine plan (or the device's table)."""
     eng = getattr(operator, "engine", None)
     plan = getattr(eng, "iteration_plan", None)
     return make_local_ops(
-        operator.bound_matvec(policy), policy, plan=plan, operator=operator, device=device
+        operator.bound_matvec(policy), policy, plan=plan, operator=operator, device=device,
+        fused=fused,
     )
 
 
@@ -243,7 +254,7 @@ def _reorth_mask(m: int, i: int, mode: str, dtype, device) -> torch.Tensor:
 
 
 def _lanczos_loop(v1: torch.Tensor, ops: Ops, num_iters: int, policy: PrecisionPolicy,
-                  reorth: str) -> LanczosResult:
+                  reorth: str, checkpoint=None) -> LanczosResult:
     m = num_iters
     n = v1.shape[0]
     dev = v1.device
@@ -259,30 +270,79 @@ def _lanczos_loop(v1: torch.Tensor, ops: Ops, num_iters: int, policy: PrecisionP
     v_prev = torch.zeros((n,), dtype=cdt, device=dev)
     w = torch.zeros((n,), dtype=cdt, device=dev)
     beta_prev = torch.zeros((), dtype=cdt, device=dev)
-    for i in range(m):
-        # --- normalize the incoming vector (paper lines 5-7) ---
-        v = v1 if i == 0 else w / torch.clamp_min(beta_prev, tiny)
-        basis[i] = v.to(sdt)
-        nrm_sq = None
-        if ops.fused_iteration is not None:
-            # --- lines 9-11 in two fused passes ---
-            u, alpha, fused_nrm = ops.fused_iteration(v, v_prev, beta_prev)
-            alphas[i] = alpha
-            if reorth == "none":
-                nrm_sq = fused_nrm
-        else:
-            # --- projection (line 9): SpMV in compute precision ---
-            u = ops.matvec(v.to(sdt)).to(cdt)
-            # --- alpha (line 10) ---
-            alpha = ops.dot(v, u)
-            alphas[i] = alpha
-            # --- three-term recurrence (line 11) ---
-            if ops.fused_update is not None:
-                u, fused_nrm = ops.fused_update(u, v, v_prev, alpha, beta_prev)
+    start = 0
+    ckpt_op = None
+    chunk_every = 0
+    if checkpoint is not None:
+        store, token, every, *rest = checkpoint
+        # Optional 4th element: a ChunkedOperator whose streamed matvec
+        # checkpoints its chunk cursor mid-step.
+        ckpt_op = rest[0] if rest and hasattr(rest[0], "set_resume") else None
+        state = store.load(token)
+        if (state is not None and state.get("engine") == "lanczos"
+                and int(state.get("n", -1)) == n and int(state.get("m", -1)) == m):
+            basis = state["basis"].to(device=dev, dtype=sdt)
+            alphas = state["alphas"].to(device=dev, dtype=cdt)
+            betas = state["betas"].to(device=dev, dtype=cdt)
+            v_prev = state["v_prev"].to(device=dev, dtype=cdt)
+            w = state["w"].to(device=dev, dtype=cdt)
+            beta_prev = state["beta_prev"].to(device=dev, dtype=cdt)
+            if state.get("chunk") is not None and ckpt_op is not None:
+                # A mid-step snapshot holds step i's starting carry: re-enter
+                # step i with the matvec armed to skip the chunks already
+                # summed.  Chunks run in a fixed order, so the resumed
+                # sweep is bit-identical.
+                start = int(state["i"])
+                ckpt_op.set_resume(int(state["chunk"]) + 1, state["partial"])
+            else:
+                start = int(state["i"]) + 1
+        if ckpt_op is not None and ckpt_op.num_chunks > 1:
+            chunk_every = envcfg.get_int("REPRO_CHUNK_CKPT_EVERY")
+
+    def snapshot(i, **extra):
+        # Step i's carry; basis row i, if already written, is rewritten with
+        # the same value on resume.
+        store.save(token, {"engine": "lanczos", "i": i, "n": n, "m": m, **extra,
+                           "basis": basis, "alphas": alphas, "betas": betas,
+                           "v_prev": v_prev, "w": w, "beta_prev": beta_prev})
+
+    for i in range(start, m):
+        if chunk_every > 0:
+            def chunk_hook(c, partial, _i=i):
+                if (c + 1) % chunk_every or c + 1 >= ckpt_op.num_chunks:
+                    return  # the end-of-step save covers the last chunk
+                snapshot(_i, chunk=c, partial=partial)
+
+            ckpt_op.set_step_hook(chunk_hook)
+        try:
+            # --- normalize the incoming vector (paper lines 5-7) ---
+            v = v1 if i == 0 else w / torch.clamp_min(beta_prev, tiny)
+            basis[i] = v.to(sdt)
+            nrm_sq = None
+            if ops.fused_iteration is not None:
+                # --- lines 9-11 in two fused passes ---
+                u, alpha, fused_nrm = ops.fused_iteration(v, v_prev, beta_prev)
+                u = _faults.tap_spmv(u, i)
+                alphas[i] = alpha
                 if reorth == "none":
                     nrm_sq = fused_nrm
             else:
-                u = u - alpha * v - beta_prev * v_prev
+                # --- projection (line 9): SpMV in compute precision ---
+                u = ops.matvec(v.to(sdt)).to(cdt)
+                u = _faults.tap_spmv(u, i)
+                # --- alpha (line 10) ---
+                alpha = ops.dot(v, u)
+                alphas[i] = alpha
+                # --- three-term recurrence (line 11) ---
+                if ops.fused_update is not None:
+                    u, fused_nrm = ops.fused_update(u, v, v_prev, alpha, beta_prev)
+                    if reorth == "none":
+                        nrm_sq = fused_nrm
+                else:
+                    u = u - alpha * v - beta_prev * v_prev
+        finally:
+            if chunk_every > 0:
+                ckpt_op.set_step_hook(None)
         # --- re-orthogonalization (lines 12-21) ---
         if reorth != "none":
             mask = _reorth_mask(m, i, reorth, cdt, dev)
@@ -293,8 +353,13 @@ def _lanczos_loop(v1: torch.Tensor, ops: Ops, num_iters: int, policy: PrecisionP
             beta = torch.sqrt(torch.clamp_min(nrm_sq.to(cdt), 0.0))
         else:
             beta = torch.sqrt(torch.clamp_min(ops.dot(u, u), 0.0))
+        beta = _faults.tap_beta(beta, i)
         betas[i] = beta
         v_prev, w, beta_prev = v, u, beta
+        if checkpoint is not None and (i + 1) % every == 0 and i + 1 < m:
+            snapshot(i)
+    if checkpoint is not None:
+        store.clear(token)  # completed: the snapshot must not resurrect
     return LanczosResult(alpha=alphas, beta=betas[: m - 1], basis=basis, beta_last=betas[m - 1])
 
 
@@ -305,9 +370,19 @@ def lanczos_tridiag(
     policy: PrecisionPolicy,
     reorth: str = "half",
     ops: Optional[Ops] = None,
+    checkpoint=None,
 ) -> LanczosResult:
-    """Run ``num_iters`` Lanczos steps from ``v1`` (see the module docstring)."""
+    """Run ``num_iters`` Lanczos steps from ``v1`` (see the module docstring).
+
+    ``checkpoint`` is ``(store, token, every[, chunked_operator])`` (see
+    :class:`~repro_torch.serving.store.SolveCheckpoint`): the loop carry is
+    saved every ``every`` completed steps and, with a chunked operator,
+    every ``REPRO_CHUNK_CKPT_EVERY`` chunks inside a step; a rerun with the
+    same token resumes from the last snapshot bit-identically, and a
+    completed sweep clears it.
+    """
     policy = policy.effective()
+    _faults.check_sweep_entry()
     ops = ops or make_local_ops(matvec, policy, device=v1.device)
-    return _lanczos_loop(v1, ops, num_iters, policy, reorth)
+    return _lanczos_loop(v1, ops, num_iters, policy, reorth, checkpoint=checkpoint)
 

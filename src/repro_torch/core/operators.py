@@ -29,6 +29,7 @@ from ..sparse.formats import (
     to_device_ell,
     to_device_hybrid,
 )
+from ..testing import faults as _faults
 from .precision import PrecisionPolicy
 
 __all__ = [
@@ -98,21 +99,48 @@ class DenseOperator(LinearOperator):
 
 @dataclasses.dataclass
 class SparseOperator(LinearOperator):
-    """Explicit sparse matrix on a device container, run by its engine."""
+    """Explicit sparse matrix on a device container, run by its engine, or
+    without one by a legacy ``impl``: ``"coo"`` (the segmented sum),
+    ``"ell"`` / ``"ell_kernel"`` (``spmv_ell``) or ``"bsr_kernel"``
+    (``spmv_bsr`` on a ``(val, bcol, n_rows)`` tuple)."""
 
-    mat: object  # DeviceCOO | DeviceELL | DeviceBSR | DeviceHybrid
-    engine: SpmvEngine
+    mat: object  # DeviceCOO | DeviceELL | DeviceBSR | DeviceHybrid | (val, bcol, n_rows)
+    engine: Optional[SpmvEngine] = None
+    impl: str = "engine"
 
     @property
     def n(self) -> int:
+        if isinstance(self.mat, tuple):  # blocked ELL: (val, bcol, n_rows)
+            return int(self.mat[2])
         return self.mat.n_rows
 
     @property
+    def device(self) -> torch.device:
+        if self.engine is not None:
+            return torch.device(self.engine.device)
+        return (self.mat[0] if isinstance(self.mat, tuple) else self.mat.val).device
+
+    @property
     def spmv_format(self) -> str:
-        return self.engine.format
+        if self.engine is not None:
+            return self.engine.format
+        return {"ell_kernel": "ell", "bsr_kernel": "bsr"}.get(self.impl, self.impl)
 
     def matvec(self, x, accum_dtype=None):
-        return self.engine.spmv(self.mat, x, accum_dtype=accum_dtype)
+        if self.engine is not None:
+            return self.engine.spmv(self.mat, x, accum_dtype=accum_dtype)
+        from ..kernels import ops as kops
+
+        if self.impl == "coo":
+            return self.mat.matvec(x, accum_dtype=accum_dtype)
+        if self.impl in ("ell", "ell_kernel"):
+            # The reference's "ell" is a plain gather; here both run the kernel.
+            return kops.spmv_ell(self.mat, x, accum_dtype=accum_dtype)
+        if self.impl == "bsr_kernel":
+            val, bcol, n_rows = self.mat
+            acc = accum_dtype or torch.float32
+            return kops.bsr_matvec(val, bcol, x, acc)[:n_rows]
+        raise ValueError(f"unknown SpMV impl {self.impl!r}")
 
 
 @dataclasses.dataclass
@@ -144,10 +172,31 @@ class CallableOperator(LinearOperator):
         return y.to(accum_dtype) if accum_dtype is not None else y
 
 
-def make_operator(csr: CSR, dtype=torch.float32, engine: SpmvEngine = None) -> SparseOperator:
-    """Build the device layout the engine chose, on the engine's device."""
+_IMPLS = ("coo", "ell", "ell_kernel", "bsr_kernel", "chunked")
+
+
+def make_operator(csr: CSR, impl: str = "coo", dtype=torch.float32,
+                  engine: Optional[SpmvEngine] = None, device=None) -> LinearOperator:
+    """Build a solver operator for an explicit sparse matrix.
+
+    With an :class:`SpmvEngine`, the engine's format drives the layout, on
+    the engine's device (``impl`` is ignored); otherwise ``impl`` picks one
+    of the reference's legacy paths (``"coo"``, ``"ell"``, ``"ell_kernel"``,
+    ``"bsr_kernel"``, ``"chunked"``) on ``device`` ("cuda" unless given).
+    """
     if engine is None:
-        raise ValueError("make_operator needs an SpmvEngine (see kernels.engine.make_engine)")
+        if impl not in _IMPLS:
+            raise ValueError(f"unknown operator impl {impl!r}; expected one of {_IMPLS}")
+        dev = torch.device(device if device is not None else "cuda")
+        if impl == "coo":
+            return SparseOperator(to_device_coo(csr, dtype=dtype, device=dev), impl="coo")
+        if impl in ("ell", "ell_kernel"):
+            return SparseOperator(to_device_ell(csr, dtype=dtype, device=dev), impl=impl)
+        if impl == "bsr_kernel":
+            from ..kernels.spmv_bsr import blocked_ell_from_csr
+
+            return SparseOperator(blocked_ell_from_csr(csr, dtype=dtype, device=dev), impl=impl)
+        return ChunkedOperator(csr, dtype=dtype, device=dev)
     dev, t = engine.device, engine.tiles
     if engine.format == "ell":
         mat = to_device_ell(csr, dtype=dtype, row_tile=t.block_r, slot_tile=t.block_w, device=dev)
@@ -234,8 +283,13 @@ class ChunkedOperator(LinearOperator):
     by the ordered segmented sum and added into ``y``.  Counters accumulate
     in ``self.staging`` (``staging_stats()`` adds bandwidth and compression).
 
+    **Faults.**  Staging chunk ``j`` first consults the fault harness
+    (``check_chunk_io``).  A stream that raises drains the copy stream and
+    frees every window before the error leaves, so no later stream (nor the
+    allocator, once the operator is dropped) meets a copy still in flight.
+
     Not ported yet: the reference's ``mesh`` (row-sharded chunks, ROADMAP
-    item A10) and its chunk-I/O fault hooks (item A12).
+    queue A, "Multi-device").
     """
 
     STAGING_MODES = ("f32", "bf16", "fp8", "auto")
@@ -480,6 +534,7 @@ class ChunkedOperator(LinearOperator):
         def stage(j):
             if j >= self.num_chunks or j in staged:
                 return
+            _faults.check_chunk_io(j)
             t0 = time.perf_counter()
             win = wins[j % len(wins)]
             self._release(win)
@@ -502,19 +557,35 @@ class ChunkedOperator(LinearOperator):
             resident = sum(w.chunk is not None for w in wins)
             self.staging["max_resident"] = max(self.staging["max_resident"], resident)
 
-        for j in range(start, min(start + depth, self.num_chunks)):
-            stage(j)
-        for i in range(start, self.num_chunks):
-            stage(i)
-            win = wins[i % len(wins)]
-            if cuda:
-                torch.cuda.current_stream(self.device).wait_event(win.copied)
-            consume(i, staged.pop(i))
-            if cuda:
-                win.done.record(torch.cuda.current_stream(self.device))
-                win.pending = True
-            if depth:
-                stage(i + depth)  # into the window of chunk i - 1, while chunk i computes
+        try:
+            for j in range(start, min(start + depth, self.num_chunks)):
+                stage(j)
+            for i in range(start, self.num_chunks):
+                stage(i)
+                win = wins[i % len(wins)]
+                if cuda:
+                    torch.cuda.current_stream(self.device).wait_event(win.copied)
+                consume(i, staged.pop(i))
+                if cuda:
+                    win.done.record(torch.cuda.current_stream(self.device))
+                    win.pending = True
+                if depth:
+                    stage(i + depth)  # into the window of chunk i - 1, while chunk i computes
+        except BaseException:
+            self._abort_stream()
+            raise
+
+    def _abort_stream(self) -> None:
+        """After a failed stream: wait for every copy and kernel it queued,
+        then mark every window free.  A staged chunk that no kernel consumed
+        has no ``done`` event, so nothing else would order a later write of
+        its pinned buffer after its copy."""
+        if self.device.type == "cuda":
+            self._copy_stream.synchronize()
+            torch.cuda.current_stream(self.device).synchronize()
+        for win in self._windows or ():
+            win.chunk = None
+            win.pending = False
 
     def resident_bytes(self) -> int:
         """Bytes this operator holds: its staging windows (host and device

@@ -29,6 +29,8 @@ __all__ = [
     "dtype_name",
     "compensated_sum",
     "reduce_sum",
+    "dot",
+    "norm2",
     "auto_ladder",
     "phase_op_counts",
 ]
@@ -155,6 +157,16 @@ def reduce_sum(x: torch.Tensor, policy: PrecisionPolicy) -> torch.Tensor:
     return torch.sum(x.to(policy.compute))
 
 
+def dot(a: torch.Tensor, b: torch.Tensor, policy: PrecisionPolicy) -> torch.Tensor:
+    """Mixed-precision dot product: storage-dtype inputs, compute-dtype accum."""
+    prod = a.to(policy.compute) * b.to(policy.compute)
+    return reduce_sum(prod, policy)
+
+
+def norm2(a: torch.Tensor, policy: PrecisionPolicy) -> torch.Tensor:
+    return torch.sqrt(dot(a, a, policy))
+
+
 # --------------------------- accuracy-driven auto ----------------------------
 
 # Escalation ladder of ``policy="auto"``, cheapest first: the selector probes
@@ -191,7 +203,7 @@ def phase_op_counts(
     the dtype of the phase that runs it.  An estimate of work by dtype, not
     a hardware counter.  The reference's model for the host Jacobi; its
     ``executed=`` and device-Jacobi terms serve the jaxpr audit, which the
-    port does not have yet (ROADMAP queue A, item 14)."""
+    port does not have yet (ROADMAP queue A, "Analysis")."""
     p = policy.effective()
     counts: Dict[str, int] = {}
 

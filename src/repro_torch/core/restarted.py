@@ -18,25 +18,34 @@ The reference's ``solve_restarted`` (``repro/core/restarted.py``), with the
 host loop over tensors: alpha and beta are host floats, so every step reads
 two scalars back (the convergence loop is host-orchestrated by design).
 The user-facing entry point is ``repro_torch.eigsh`` with ``tol=`` (or
-``backend="restarted"``).  Solve checkpoints are not ported yet (ROADMAP
-queue A, item 12).
+``backend="restarted"``); ``topk_eigs_restarted`` is a deprecated shim.
+As in the reference, the engine keeps the host Jacobi whatever ``jacobi=``
+the caller asked for.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from .eigensolver import _sync, operator_device
+from ..testing import faults as _faults
+from .eigensolver import EigResult, _sync, operator_device
 from .jacobi import jacobi_eigh_host
 from .lanczos import LanczosResult, NumericalBreakdown
 from .operators import LinearOperator
 from .precision import FDF, PrecisionPolicy
 
-__all__ = ["RestartedSolveOutput", "restart_kernels", "ritz_project", "solve_restarted"]
+__all__ = [
+    "RestartedSolveOutput",
+    "restart_kernels",
+    "ritz_project",
+    "solve_restarted",
+    "topk_eigs_restarted",
+]
 
 
 def restart_kernels(policy: PrecisionPolicy):
@@ -96,6 +105,7 @@ def solve_restarted(
     seed: int = 0,
     v1=None,
     probe: bool = True,
+    checkpoint=None,
 ) -> RestartedSolveOutput:
     """Top-k eigenpairs by |lambda|, restarting until the Ritz residual
     bound meets ``tol`` (relative) for every pair or ``max_restarts`` cycles
@@ -106,6 +116,13 @@ def solve_restarted(
     from the same vector.  ``probe`` turns a non-finite alpha or beta, or a
     beta below ``finfo(compute).tiny * 1e3`` before the subspace is full,
     into a :class:`NumericalBreakdown` at the offending step.
+
+    ``checkpoint`` is a ``(store, token)`` pair (see
+    :class:`~repro_torch.serving.store.SolveCheckpoint`): the restart state
+    (basis block, projected matrix, arrow border, next start vector,
+    counters) is saved after every compression, and a rerun with the same
+    token resumes at the next cycle bit-identically (each cycle depends only
+    on that state); a completed solve clears the snapshot.
 
     The basis lives in the storage dtype, one preallocated ``(m, n)``
     tensor written row by row.  Where the reorth dtype differs from the
@@ -155,7 +172,26 @@ def solve_restarted(
     pol_name = getattr(policy, "name", None) or str(policy)
     t_lanczos = t_jacobi = 0.0
 
-    for cycle in range(max_restarts):
+    start_cycle = 0
+    if checkpoint is not None:
+        store, token = checkpoint
+        state = store.load(token)
+        if (state is not None and state.get("engine") == "restarted"
+                and int(state.get("n", -1)) == n and int(state.get("m", -1)) == m
+                and int(state.get("k", -1)) == k):
+            basis.copy_(state["basis"])
+            if basis_r is not basis:  # the mirror, rebuilt from the loaded rows
+                basis_r.copy_(basis)
+            t_hat = np.asarray(state["t_hat"], np.float64)
+            s_border = np.asarray(state["s_border"], np.float64)
+            v = state["v"].to(device=dev, dtype=cdt)
+            nkeep = int(state["nkeep"])
+            steps = int(state["steps"])
+            restarts = int(state["restarts"])
+            start_cycle = int(state["cycle"]) + 1
+
+    for cycle in range(start_cycle, max_restarts):
+        _faults.check_solve_crash(cycle)
         t1 = time.perf_counter()
         # --- fill rows nkeep..m-1 with fully re-orthogonalized Lanczos steps ---
         beta_prev = 0.0
@@ -165,6 +201,7 @@ def solve_restarted(
             if basis_r is not basis:
                 basis_r[i].copy_(basis[i])
             u = mv(basis[i]).to(cdt)
+            u = _faults.tap_spmv(u, i)
             alpha = float(_dot(v, u))
             if probe and not np.isfinite(alpha):
                 raise NumericalBreakdown("nonfinite", i, pol_name, f"alpha={alpha!r}")
@@ -180,6 +217,7 @@ def solve_restarted(
             # reference masks the rest, which are zero).
             u = _orth(u, basis_r[: i + 1])
             beta = float(torch.sqrt(torch.clamp_min(_dot(u, u), 0.0)))
+            beta = float(_faults.tap_beta(beta, i))
             if probe:
                 if not np.isfinite(beta):
                     raise NumericalBreakdown("nonfinite", i, pol_name, f"beta={beta!r}")
@@ -222,6 +260,17 @@ def solve_restarted(
         nkeep = k
         # v (the next Lanczos vector) already holds the residual direction
 
+        if checkpoint is not None:
+            store, token = checkpoint
+            store.save(token, {
+                "engine": "restarted", "cycle": cycle, "n": n, "m": m, "k": k,
+                "nkeep": nkeep, "steps": steps, "restarts": restarts,
+                "basis": basis, "t_hat": t_hat, "s_border": s_border, "v": v,
+            })
+
+    if checkpoint is not None:
+        store, token = checkpoint
+        store.clear(token)  # completed: the snapshot must not resurrect
     evals_k = torch.as_tensor(evals[:k]).to(device=dev, dtype=policy.output)
     wk = torch.as_tensor(w[:, :k]).to(device=dev, dtype=rzdt)
     x = ritz_project(basis_z, wk, policy)
@@ -243,3 +292,28 @@ def solve_restarted(
         timings={"lanczos_s": t_lanczos, "jacobi_s": t_jacobi,
                  "total_s": time.perf_counter() - t0},
     )
+
+
+def topk_eigs_restarted(
+    op: LinearOperator,
+    k: int,
+    policy: PrecisionPolicy = FDF,
+    m: Optional[int] = None,
+    max_restarts: int = 30,
+    tol: float = 1e-8,
+    seed: int = 0,
+) -> EigResult:
+    """Deprecated: use :func:`repro_torch.eigsh` with ``tol=`` (or
+    ``backend="restarted"``)."""
+    warnings.warn(
+        "topk_eigs_restarted is deprecated; use "
+        "repro_torch.eigsh(A, k, backend='restarted', tol=..., subspace=m, ...)",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    from ..api import eigsh
+
+    res = eigsh(op, k, policy=policy, backend="restarted", tol=tol, subspace=m,
+                max_restarts=max_restarts, seed=seed, device=str(operator_device(op)))
+    return EigResult(eigenvalues=res.eigenvalues, eigenvectors=res.eigenvectors,
+                     tridiag=res.tridiag, wall_time_s=res.timings["total_s"])

@@ -26,6 +26,7 @@ __all__ = [
     "bsr_matvec",
     "spmv_ell",
     "spmv_ell_alpha",
+    "spmv_ell_packed",
     "spmv_bsr",
     "lanczos_update",
     "mixed_dot",
@@ -70,6 +71,14 @@ def spmv_ell(mat, x, accum_dtype=None) -> torch.Tensor:
     """SpMV on a ``DeviceELL``; ``(n_rows,)`` in the accum dtype."""
     acc = accum_dtype or torch.float32
     return ell_matvec(mat.val, mat.col, x, acc)[: mat.n_rows]
+
+
+def spmv_ell_packed(val, scale, base, dcol, x, n_rows: int, accum_dtype=None) -> torch.Tensor:
+    """SpMV over one packed chunk (``spmv_ell_packed.py``'s layout) ->
+    ``(n_rows,)`` in the accum dtype.  Unlike the reference, f64
+    accumulation runs the kernel too: the card has f64."""
+    acc = accum_dtype or torch.float32
+    return packed_ell_matvec(val, scale, base, dcol, x, acc)[:n_rows]
 
 
 def spmv_bsr(mat, x, accum_dtype=None) -> torch.Tensor:

@@ -11,7 +11,7 @@ import torch
 
 from . import build as _b
 
-__all__ = ["spmv_bsr_kernel_call"]
+__all__ = ["spmv_bsr_kernel_call", "blocked_ell_from_csr"]
 
 
 def spmv_bsr_kernel_call(
@@ -37,3 +37,12 @@ def spmv_bsr_kernel_call(
 
 
 spmv_bsr_kernel_call.launches = 0
+
+
+def blocked_ell_from_csr(csr, block_size: int = 8, dtype=torch.float32, device="cuda"):
+    """Host conversion CSR -> ``(val, bcol, n_rows)``, zero-padded to uniform
+    slots: the reference's tuple-returning shim over ``to_device_bsr``."""
+    from ..sparse.formats import to_device_bsr
+
+    bsr = to_device_bsr(csr, block_size=block_size, dtype=dtype, device=device)
+    return bsr.val, bsr.bcol, bsr.n_rows

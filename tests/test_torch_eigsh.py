@@ -165,12 +165,7 @@ def test_result_round_trips_through_json():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"tol": 1e-6, "checkpoint_dir": "snapshots"}, "restarted"),
-    ({"backend": "chunked", "checkpoint_dir": "snapshots"}, "checkpoint_dir"),
     ({"backend": "distributed"}, "distributed"),
-    ({"recovery": "auto"}, "recovery"),
-    ({"jacobi": "jax"}, "jacobi"),
-    ({"policy": "auto", "tol": 1e-4, "recovery": "auto"}, "auto"),
 ])
 def test_unported_paths_raise_not_implemented(kwargs, match):
     csr = repro_torch.sparse.generate("road", 256, 2.1, seed=0)
