@@ -83,7 +83,23 @@ before the last line:
    two placements' ``jacobi_s``; (e) ``topk_eigs`` on ``make_operator(road,
    "ell")`` (a DeprecationWarning, rel 1e-12 of ``eigsh(format="ell")``),
    ``make_operator(block, "bsr_kernel")`` and ``kernels.ops.spmv_ell_packed``
-   with f64 accumulation on phase 2's bf16 chunk.
+   with f64 accumulation on phase 2's bf16 chunk;
+12. the measured autotuner and the serving layer, full width, with
+   ``REPRO_SPMV_TUNE=1`` and the tune cache and session store in a
+   temporary directory (deleted at the end): (a) ``prepare(road)`` (FDF)
+   probes once, prints every candidate's us and the chosen tiles and plan, a
+   second ``prepare`` adds no probe, the tuned solve launches what its plan
+   says and is within rel 1e-9 of phase 3's; the same on the BSR matrix
+   (its block edge) against phase 6; (b) an ``EigenScheduler`` with road
+   and web resident serves 3 threads x 6 queries (k in 2..8, one ``v0`` per
+   matrix): each result equals ``eigsh_many`` of the same query (rel 1e-9),
+   launches match the sweeps under each plan, and the ``ServerStats``
+   (coalesce rate, e2e and queue p50/p99, queries/s) print; (c)
+   ``close(persist=True)`` and a second scheduler on the same store: 0
+   conversions, 0 probes, the same bits; entry bytes, save and load
+   seconds; (d) ``scheduler_crash``: the watchdog fails the stranded
+   requests with ``SchedulerCrashedError`` and ``start()`` serves again;
+   (e) ``python -m repro_torch.launch.serve --smoke`` exits 0.
 
 ``repro_torch.eigsh`` keeps a cache of prepared sessions, so every call a
 phase reports as cold (``solve``) clears it first; phase 7 prints its
@@ -1247,6 +1263,231 @@ def phase_robustness(road, central, block, path, v_road, v_central, v_block, mai
           f"{perr:.3e} (<= 1e-12 of max |y|), 1 launch")
 
 
+def phase_serving(road, web, block, v_road, v_web, v_block, main_res, bsr_res, smi,
+                  dev="cuda", launcher=True) -> None:
+    """Phase 12: the measured autotuner and the serving layer at full width,
+    with ``REPRO_SPMV_TUNE=1``, no ``REPRO_ITER_UPDATE`` pin, the tune cache
+    and the session store in a temporary directory (deleted at the end):
+    (a) tuned ``prepare`` on road (FDF) and on the BSR kron matrix, (b) an
+    ``EigenScheduler`` over road and web under a threaded query stream, (c)
+    its warm restart from the store, (d) the watchdog under
+    ``scheduler_crash``, (e) ``python -m repro_torch.launch.serve --smoke``
+    as a subprocess."""
+    import threading
+
+    import repro_torch
+    from repro_torch.api import SolverConfig
+    from repro_torch.kernels.engine import tuner_probe_count
+    from repro_torch.serving import (EigenScheduler, SchedulerConfig, SchedulerCrashedError,
+                                     SessionStore)
+    from repro_torch.sparse.formats import conversion_count
+    from repro_torch.testing import faults
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serving_")
+    cache = os.path.join(tmp, "spmv_tune.json")
+    saved = {name: os.environ.get(name) for name in
+             ("REPRO_SPMV_TUNE", "REPRO_SPMV_TUNE_CACHE", "REPRO_ITER_UPDATE")}
+    os.environ.update(REPRO_SPMV_TUNE="1", REPRO_SPMV_TUNE_CACHE=cache)
+    os.environ.pop("REPRO_ITER_UPDATE", None)
+    per_plan = {"fused_spmv": {"spmv_ell_alpha": K, "lanczos_update": K, "spmv_ell": 0},
+                "fused": {"spmv_ell": K, "lanczos_update": K, "spmv_ell_alpha": 0},
+                "unfused": {"spmv_ell": K, "lanczos_update": 0, "spmv_ell_alpha": 0}}
+    try:
+        # (a) tuned prepare: probes once, a second prepare adds none, the
+        # tuned solve launches what its plan says
+        for tag, A, v, want_res, spmv_kernel in (("road", road, v_road, main_res, "spmv_ell"),
+                                                 ("bsr", block, v_block, bsr_res, "spmv_bsr")):
+            p0 = tuner_probe_count()
+            known = set(json.load(open(cache))["entries"]) if os.path.exists(cache) else set()
+            t0 = time.perf_counter()
+            sess = repro_torch.prepare(A, device=dev)
+            cold_s = time.perf_counter() - t0
+            probes = tuner_probe_count() - p0
+            check(probes == sess.prepare_tuner_probes and probes >= 1,
+                  f"tuned {tag}: {probes} probes, session reports {sess.prepare_tuner_probes}")
+            p1 = tuner_probe_count()
+            sess2 = repro_torch.prepare(A, device=dev)
+            check(tuner_probe_count() == p1 and sess2.prepare_tuner_probes == 0,
+                  f"tuned {tag}: a second prepare ran {tuner_probe_count() - p1} probes")
+            reset_launches()
+            res = sess.eigsh(K, v0=v)
+            sync(dev)
+            launches = read_launches()
+            spmv = res.partition["spmv"]
+            plan = spmv["iteration_plan"]
+            want = dict(per_plan[plan["effective"]])
+            if tag == "bsr":
+                want = {"spmv_bsr": K, "lanczos_update": want["lanczos_update"]}
+            else:
+                want[spmv_kernel] = want.pop("spmv_ell")
+            got = {name: launches[name] for name in want}
+            check(got == want, f"tuned {tag}: launches {launches}, plan {plan['effective']} "
+                  f"wants {want}")
+            with open(cache) as f:
+                entries = json.load(f)["entries"]
+            for key, rec in sorted(entries.items()):
+                if key not in known:
+                    cands = ", ".join(f"{name} {us:.1f}" for name, us in rec["candidates_us"].items())
+                    print(f"[serve] (a) {tag} probe {key}: {cands} us -> "
+                          f"{rec.get('update', '')} {rec['block_r']}x{rec['block_w']} "
+                          f"bs{rec['block_size']}")
+            print(f"[serve] (a) tuned {tag}: format {res.spmv_format}, tiles {spmv['block_r']}x"
+                  f"{spmv['block_w']} bs{spmv['block_size']} ({spmv['tiles_from']}), plan "
+                  f"{plan['update']} ({plan['source']}, effective {plan['effective']}); "
+                  f"{probes} probes, prepare {cold_s:.3f} s cold (probes included), second "
+                  f"prepare 0 probes; launches {got} on {smi}")
+            err = check_eigs(f"tuned {tag}", res, want_res, 1e-9)
+            print(f"[serve] (a) tuned {tag} vs phase {'3' if tag == 'road' else '6'}: max rel err "
+                  f"{err:.3e} (<= 1e-9)")
+            del sess, sess2
+
+        # (b) the scheduler: road (ELL) and web (hybrid) resident, 3 threads x
+        # 6 queries, one group key per matrix (one v0, num_iters = K)
+        store = SessionStore(os.path.join(tmp, "store"))
+        scfg = SchedulerConfig(admission_window_s=0.02, max_group=16, watchdog_interval_s=0.1)
+        solver = SolverConfig(device=dev)
+        mats = {"road": (road, v_road), "web": (web, v_web)}
+        sched = EigenScheduler(scfg, store=store)
+        add_s = {}
+        for name, (A, _) in mats.items():
+            t0 = time.perf_counter()
+            sched.add_matrix(A, name=name, config=solver)
+            add_s[name] = time.perf_counter() - t0
+        sweeps0 = {name: sched.session(name).stats["sweeps"] for name in mats}
+        results, errors = {}, []
+
+        def submitter(tid):
+            try:
+                hs = []
+                for i in range(6):
+                    name = ("road", "web")[(tid + i) % 2]
+                    k = (2, 4, 6, 8)[(tid * 6 + i) % 4]
+                    hs.append((name, k, sched.submit(name, k=k, num_iters=K, v0=mats[name][1])))
+                results[tid] = [(name, k, h.result(timeout=300.0)) for name, k, h in hs]
+            except Exception as exc:  # reported below
+                errors.append(exc)
+
+        reset_launches()
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=submitter, args=(t,)) for t in range(3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600.0)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check(not errors and not any(t.is_alive() for t in threads) and len(results) == 3,
+              f"scheduler stream: errors {errors[:1]}, results {len(results)}")
+        stats = sched.stats()
+        sweeps = {name: sched.session(name).stats["sweeps"] - sweeps0[name] for name in mats}
+        plans = {name: r.partition["spmv"]["iteration_plan"]["effective"]
+                 for per in results.values() for name, _, r in per}
+        want = {kern: sum(sweeps[name] * per_plan[plans[name]][kern] for name in mats)
+                for kern in ("spmv_ell", "spmv_ell_alpha", "lanczos_update")}
+        got = {kern: launches[kern] for kern in want}
+        check(got == want, f"scheduler launches {got}, sweeps {sweeps} under plans {plans} "
+              f"want {want}")
+        worst = 0.0
+        for per_thread in results.values():
+            for name, k, r in per_thread:
+                (alone,) = sched.session(name).eigsh_many([{"k": k, "num_iters": K,
+                                                            "v0": mats[name][1]}])
+                check(r.k == k, f"scheduler: asked k={k}, got {r.k}")
+                lam, want_lam = r.eigenvalues.double().cpu(), alone.eigenvalues.double().cpu()
+                worst = max(worst, float((lam - want_lam).abs().max() / want_lam.abs().max()))
+        check(worst <= 1e-9, f"scheduler: results differ from eigsh_many by {worst:.3e}")
+        # Host cost of admitting one query: group_key validates it and
+        # digests its v0 (the dispatch's eigsh_many digests it again).
+        key_ms = {}
+        for name, (_, v) in mats.items():
+            t0 = time.perf_counter()
+            sched.session(name).group_key({"k": 2, "num_iters": K, "v0": v})
+            key_ms[name] = (time.perf_counter() - t0) * 1e3
+        e2e, q = stats.latency["e2e"], stats.latency["queue"]
+        print(f"[serve] (b) {stats.summary()}")
+        print(f"[serve] (b) 3 threads x 6 queries (k in 2..8, num_iters {K}, FDF) on road "
+              f"n={road.n:,} ({plans['road']}) and web n={web.n:,} ({plans['web']}): completed "
+              f"{stats.completed}, sweeps {sweeps}, coalesce rate {stats.coalesce_rate:.3f}, e2e "
+              f"p50 {e2e['p50_s'] * 1e3:.2f} ms p99 {e2e['p99_s'] * 1e3:.2f} ms, queue p50 "
+              f"{q['p50_s'] * 1e3:.2f} ms p99 {q['p99_s'] * 1e3:.2f} ms, "
+              f"{stats.completed / wall:.2f} queries/s ({wall:.3f} s wall); launches {got} "
+              f"({launches['spmv_ell'] / max(1, sum(sweeps.values())):.2f} spmv_ell a sweep); "
+              f"vs eigsh_many max rel err {worst:.3e} (<= 1e-9); group_key with v0 "
+              + ", ".join(f"{n} {ms:.1f} ms" for n, ms in key_ms.items()) + "; cold add_matrix "
+              + ", ".join(f"{n} {s:.3f} s" for n, s in add_s.items()) + f" on {smi}")
+        before = {name: next(r for per in results.values() for n, k, r in per
+                             if n == name and k == K) for name in mats}
+
+        # (c) warm restart from the store
+        t0 = time.perf_counter()
+        sched.close(persist=True)
+        save_s = time.perf_counter() - t0
+        entry_bytes = {e: dir_bytes(os.path.join(store.root, e)) for e in store.entries()}
+        conv0, probes0 = conversion_count(), tuner_probe_count()
+        sched2 = EigenScheduler(scfg, store=store)
+        load_s = {}
+        for name, (A, _) in mats.items():
+            t0 = time.perf_counter()
+            sched2.add_matrix(A, name=name, config=solver)
+            load_s[name] = time.perf_counter() - t0
+        first = {name: sched2.submit(name, k=K, num_iters=K, v0=mats[name][1]).result(timeout=300.0)
+                 for name in mats}
+        dconv, dprobes = conversion_count() - conv0, tuner_probe_count() - probes0
+        st2 = sched2.stats()
+        check(dconv == 0 and dprobes == 0 and st2.warm_starts == 2,
+              f"warm restart: {dconv} conversions, {dprobes} probes, {st2.warm_starts} warm starts")
+        for name in mats:
+            check(first[name].session_reuse and torch.equal(first[name].eigenvalues,
+                                                            before[name].eigenvalues),
+                  f"warm restart {name}: reuse {first[name].session_reuse}, bits differ")
+        print(f"[serve] (c) close(persist=True) {save_s:.3f} s; entries "
+              + ", ".join(f"{b:,} bytes" for b in entry_bytes.values())
+              + "; warm add_matrix " + ", ".join(f"{n} {s:.3f} s" for n, s in load_s.items())
+              + f"; 0 conversions, 0 probes, first results session_reuse and the same bits "
+              f"as before the restart on {smi}")
+
+        # (d) the watchdog fails every stranded request, start() serves again.
+        # Seeded starts: a submit with a v0 digests it (tens of ms at 4.19M
+        # rows), and the three must queue inside one admission window.
+        t0 = time.perf_counter()
+        with faults.inject("scheduler_crash"):
+            hs = [sched2.submit("road", k=2, num_iters=K) for _ in range(3)]
+            excs = [h.exception(timeout=30.0) for h in hs]
+        crash_s = time.perf_counter() - t0
+        check(all(isinstance(e, SchedulerCrashedError) for e in excs) and crash_s < 10.0,
+              f"watchdog: {[type(e).__name__ for e in excs]} after {crash_s:.2f} s")
+        sched2.start()
+        again = sched2.submit("road", k=2, num_iters=K).result(timeout=300.0)
+        check(again.k == 2, "watchdog: the restarted scheduler did not serve")
+        print(f"[serve] (d) scheduler_crash: {len(excs)} stranded requests failed with "
+              f"SchedulerCrashedError in {crash_s:.3f} s (watchdog every "
+              f"{scfg.watchdog_interval_s} s; {sched2.stats().watchdog_trips} trip); start() "
+              "serves again")
+        sched2.close(persist=False)
+
+        # (e) the launcher, as a user runs it
+        if launcher:
+            env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", "--smoke",
+                                  "--device", dev], capture_output=True, text=True, env=env,
+                                 cwd=ROOT, timeout=300)
+            lines = (out.stdout + out.stderr).strip().splitlines()
+            check(out.returncode == 0, f"launch.serve --smoke exited {out.returncode}: "
+                  + " | ".join(lines[-5:]))
+            print(f"[serve] (e) python -m repro_torch.launch.serve --smoke: exit 0 in "
+                  f"{time.perf_counter() - t0:.1f} s; "
+                  + " | ".join(ln for ln in lines if ln.startswith(("throughput", "restart"))))
+    finally:
+        faults.reset()
+        for name, val in saved.items():
+            if val is None:
+                os.environ.pop(name, None)
+            else:
+                os.environ[name] = val
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def phase_device() -> str:
     """Phase 1: the card's name and power limit (``nvidia-smi``, returned),
     the versions, and the build of the kernels with each new kernel's
@@ -1445,6 +1686,9 @@ def main() -> int:
         # ---- phase 11: solve robustness, the device Jacobi, the legacy entry points
         phase_robustness(road, central, block, path, v_road, v_central, v_block, main_res,
                          chunk_res, bres, smi)
+
+        # ---- phase 12: the measured autotuner and the serving layer
+        phase_serving(road, web, block, v_road, v_web, v_block, main_res, bres, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 

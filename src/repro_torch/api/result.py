@@ -15,7 +15,7 @@ import torch
 
 from ..core.lanczos import LanczosResult
 
-__all__ = ["EigenResult"]
+__all__ = ["EigenResult", "with_queue_time"]
 
 
 def _np(a) -> np.ndarray:
@@ -145,6 +145,12 @@ class EigenResult:
             recovery_trail=d.get("recovery_trail"),
         )
 
+    @property
+    def queue_s(self) -> float:
+        """Seconds this query waited in a serving queue before its solve was
+        dispatched (0.0 when the result was not produced by a scheduler)."""
+        return float(self.timings.get("queue_s", 0.0))
+
     def summary(self) -> str:
         """One-paragraph human-readable report."""
         lam = _np(self.eigenvalues).astype(np.float64)
@@ -162,3 +168,18 @@ class EigenResult:
             f"max residual {self.residuals.max():.2e}",
         ]
         return "\n".join(lines)
+
+
+def with_queue_time(res: EigenResult, queue_s: float) -> EigenResult:
+    """Stamp the serving queue/solve timing split onto a result.
+
+    Returns a copy whose ``timings`` carry ``"queue_s"`` (seconds between
+    submission and dispatch: scheduler wait, not solver work) and
+    ``"e2e_s"`` (``queue_s + total_s``: the latency the submitter
+    observed).  ``"total_s"`` / ``"solve_s"`` / ``"prepare_s"`` keep their
+    solver-side meaning.
+    """
+    t = dict(res.timings)
+    t["queue_s"] = float(queue_s)
+    t["e2e_s"] = float(queue_s) + float(t.get("total_s", 0.0))
+    return dataclasses.replace(res, timings=t)

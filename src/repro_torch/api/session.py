@@ -33,9 +33,13 @@ of host data and device plans): a repeat call on a byte-identical matrix
 reuses the built layout.  An evicted session, and every session on
 :func:`session_cache_clear`, drops its plans and so their device memory.
 
+A session's built in-core plans export (:meth:`EigenSession.export_state`)
+and import (:meth:`EigenSession.import_plans`) as host NumPy arrays plus
+their engine configuration: the serving layer's ``SessionStore`` warms a
+restarted server from them with no conversion and no tuner probe.
+
 This is the reference's ``repro/api/session.py`` without the distributed
-backend (ROADMAP queue A, "Multi-device") and plan export and import
-(queue A, "Serving").
+backend (ROADMAP queue A, "Multi-device").
 """
 
 from __future__ import annotations
@@ -65,7 +69,15 @@ from ..core.operators import (
 )
 from ..core.precision import PrecisionPolicy, auto_ladder, dtype_name, phase_op_counts
 from ..core.restarted import solve_restarted
-from ..kernels.engine import FORMATS, SpmvEngine, ell_overhead_bound, make_engine
+from ..kernels.engine import (
+    FORMATS,
+    IterationPlan,
+    SpmvEngine,
+    TileConfig,
+    ell_overhead_bound,
+    make_engine,
+    tuner_probe_count,
+)
 from ..sparse.diskcsr import DiskCSR, is_diskcsr
 from ..sparse.formats import CSR, conversion_count
 from ..testing.faults import InjectedKernelError
@@ -108,6 +120,12 @@ _DISK_VERIFY_MAX_BYTES = 1 << 28
 # ladder's f32-storage rung, so coercion never rounds the input below what
 # any rung needs; each rung builds its own plan lazily.
 _AUTO_PLAN_POLICY = "FFF"
+
+# Bump on any incompatible change to what export_state writes.  The header
+# also names the package: the port pads ELL slots to 8, the reference to 128
+# lanes, so neither package imports the other's plans.
+_EXPORT_SCHEMA = 1
+_PACKAGE = "repro_torch"
 
 
 def resolve_device(device) -> torch.device:
@@ -296,6 +314,7 @@ class _Prepared:
     engine: Optional[SpmvEngine]
     build_s: float = 0.0
     conversions: int = 0
+    tuner_probes: int = 0
     ops_cache: Dict[tuple, object] = dataclasses.field(default_factory=dict)
 
     def ops_for(self, pol: PrecisionPolicy, device, fused: Optional[bool] = None):
@@ -341,6 +360,7 @@ class EigenSession:
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         t0 = time.perf_counter()
+        conv0, probes0 = conversion_count(), tuner_probe_count()
         pol0 = _plan_policy(cfg.policy)
         ci = _coerced or coerce_input(A, n=n, storage_dtype=pol0.storage, device=self.device)
         self.op, self.csr, self.n = ci.operator, ci.csr, ci.n
@@ -354,6 +374,8 @@ class EigenSession:
         self._query_lock = threading.RLock()
         self.stats = {"queries": 0, "sweeps": 0, "cache_hits": 0}
         self.prepare_s = time.perf_counter() - t0
+        self.prepare_conversions = conversion_count() - conv0
+        self.prepare_tuner_probes = tuner_probe_count() - probes0
         # Coercion cost no result has reported yet: the first query that
         # builds a plan claims it (warmup() charges it to prepare_s).
         self._unclaimed_init_s = self.prepare_s
@@ -365,6 +387,8 @@ class EigenSession:
         prep, built = self._ensure(backend, _plan_policy(self.cfg.policy))
         if built:
             self.prepare_s += prep.build_s
+            self.prepare_conversions += prep.conversions
+            self.prepare_tuner_probes += prep.tuner_probes
         self._unclaimed_init_s = 0.0
         return self
 
@@ -444,10 +468,11 @@ class EigenSession:
             if hit is not None:
                 return hit, False
             t0 = time.perf_counter()
-            conv0 = conversion_count()
+            conv0, probes0 = conversion_count(), tuner_probe_count()
             prep = self._build_chunked(pol) if kind == "chunked" else self._build_single(pol)
             prep.build_s = time.perf_counter() - t0
             prep.conversions = conversion_count() - conv0
+            prep.tuner_probes = tuner_probe_count() - probes0
             self._prepared[key] = prep
         # A lazy build grew this session: let the cache re-check its budget.
         _cache_enforce_budget()
@@ -467,9 +492,8 @@ class EigenSession:
         # An in-core layout holds the whole matrix anyway: a mapping that
         # reached this backend fits, and is read once.
         csr = self.csr.to_csr() if isinstance(self.csr, DiskCSR) else self.csr
-        engine = make_engine(
-            csr, self.cfg.format, accum_dtype=pol.phase_dtype("spmv"), device=self.device
-        )
+        engine = make_engine(csr, self.cfg.format, accum_dtype=pol.phase_dtype("spmv"),
+                             storage_dtype=pol.storage, device=self.device)
         op = make_operator(csr, "coo", pol.storage, engine)
         return _Prepared(op, engine.format, engine)
 
@@ -484,7 +508,8 @@ class EigenSession:
                   staging=envcfg.raw("REPRO_CHUNK_STAGING") or cfg.staging, device=self.device)
         fmt = cfg.format if cfg.format != "auto" else "ell"
         # Per-chunk BSR / hybrid staging does not exist: ELL or COO.
-        engine = make_engine(csr, fmt, accum_dtype=acc, allowed=("coo", "ell"), device=self.device)
+        engine = make_engine(csr, fmt, accum_dtype=acc, allowed=("coo", "ell"),
+                             storage_dtype=pol.storage, device=self.device)
         op = ChunkedOperator(csr, engine=engine, **kw)  # O(n) planning, nothing staged
         if cfg.format == "auto":
             # ELL when the chunks' padded slots stay within the ELL overhead
@@ -497,7 +522,7 @@ class EigenSession:
             ell_bytes = op.padded_slots * (itemsize + 4)
             if not (op.padded_slots / nnz <= ell_overhead_bound() and ell_bytes <= 4 * nnz * 12):
                 engine = make_engine(csr, "coo", stats=engine.stats, accum_dtype=acc,
-                                     device=self.device)
+                                     storage_dtype=pol.storage, device=self.device)
                 op = ChunkedOperator(csr, engine=engine, **kw)
         return _Prepared(op, engine.format, engine)
 
@@ -578,6 +603,124 @@ class EigenSession:
         if is_auto_policy(requested):
             return None
         return _norm_group_key(self._normalize(rq, 0, cfg))
+
+    # --------------------------------------------------- persistence hooks
+
+    def export_state(self) -> dict:
+        """Serializable snapshot of this session's built in-core plans (the
+        warm state a restarted server needs): each plan's device-container
+        arrays as host NumPy (bf16 widened to f32, its dtype recorded) and
+        its engine configuration (format, accumulator, tiles and their
+        provenance, iteration plan).  The header names the package and its
+        version, the matrix fingerprint and the layout-config fingerprint,
+        so :meth:`import_plans` can reject stale or foreign artifacts.
+
+        Only "single" plans over a device container (COO / ELL / BSR /
+        hybrid) or a dense operator export: chunked plans keep the matrix on
+        the host anyway, and rebuild on demand.  A DiskCSR session also
+        records a pointer to its directory (``matrix_ref``), never a copy
+        of the payload.
+        """
+        from .. import __version__
+
+        with self._build_lock:
+            items = list(self._prepared.items())
+        plans = []
+        for key, prep in items:
+            if key[0] != "single":
+                continue
+            exported = _export_operator(prep.operator)
+            if exported is None:
+                continue
+            container, tensors, extra = exported
+            arrays, dtypes = {}, {}
+            for name, t in tensors.items():
+                arrays[name], dtypes[name] = _host_numpy(t)
+            e = prep.engine
+            engine_cfg = None if e is None else {
+                "format": e.format,
+                "accum_dtype": dtype_name(e.accum_dtype),
+                "tiles": dataclasses.asdict(e.tiles),
+                "requested": e.requested,
+                "tiles_from": e.tiles_from,
+                "iteration_plan": (
+                    e.iteration_plan.as_dict() if e.iteration_plan is not None else None
+                ),
+            }
+            plans.append({
+                "plan_key": key[1],
+                "container": container,
+                "spmv_format": str(prep.spmv_format),
+                "engine": engine_cfg,
+                "dtypes": dtypes,
+                "arrays": arrays,
+                **extra,
+            })
+        state = {
+            "schema": _EXPORT_SCHEMA,
+            "package": _PACKAGE,
+            "repro_version": __version__,
+            "matrix_fingerprint": self.ensure_fingerprint(),
+            "layout_fingerprint": config_fingerprint(self.cfg, _LAYOUT_FIELDS),
+            "layout": {f: repr(getattr(self.cfg, f)) for f in _LAYOUT_FIELDS},
+            "n": int(self.n),
+            "plans": plans,
+        }
+        if isinstance(self.csr, DiskCSR):
+            state["matrix_ref"] = {
+                "kind": "diskcsr",
+                "path": self.csr.path,
+                "fingerprint": self.ensure_fingerprint(),
+            }
+        return state
+
+    def import_plans(self, state: dict) -> int:
+        """Install plans exported by :meth:`export_state`; returns how many
+        were imported.  Containers are rebuilt on the session's device with
+        the plain constructors, never the ``to_device_*`` converters, so
+        ``conversion_count()`` does not move; the persisted tiles and plan
+        ride in, so ``tuner_probe_count()`` does not either.
+
+        Stale or foreign artifacts are rejected, not trusted: a mismatched
+        schema, package, version, matrix fingerprint, layout fingerprint or
+        dimension warns and returns 0, and the session cold-builds lazily.
+        """
+        from .. import __version__
+
+        header_checks = (
+            ("schema", state.get("schema"), _EXPORT_SCHEMA),
+            ("package", state.get("package"), _PACKAGE),
+            ("repro_version", state.get("repro_version"), __version__),
+            ("matrix_fingerprint", state.get("matrix_fingerprint"), self.ensure_fingerprint()),
+            ("layout_fingerprint", state.get("layout_fingerprint"),
+             config_fingerprint(self.cfg, _LAYOUT_FIELDS)),
+            ("n", state.get("n"), int(self.n)),
+        )
+        for field, got, want in header_checks:
+            if got != want:
+                warnings.warn(
+                    f"stale persisted session rejected ({field}: saved {got!r} != "
+                    f"current {want!r}); falling back to a cold rebuild",
+                    stacklevel=2,
+                )
+                return 0
+        imported = 0
+        for plan in state.get("plans", ()):
+            try:
+                prep = _import_plan(plan, int(self.n), self.device)
+            except Exception as exc:  # a corrupt payload: warn, keep serving
+                warnings.warn(
+                    f"corrupt persisted plan {plan.get('plan_key')!r} skipped "
+                    f"({type(exc).__name__}: {exc}); it will cold-rebuild on demand",
+                    stacklevel=2,
+                )
+                continue
+            key = ("single", str(plan["plan_key"]))
+            with self._build_lock:
+                if key not in self._prepared:
+                    self._prepared[key] = prep
+                    imported += 1
+        return imported
 
     # ---------------------------------------------------------- internals
 
@@ -829,10 +972,9 @@ class EigenSession:
         part = dict(partition) if partition else {}
         spmv = dict(part.get("spmv") or (
             prep.engine.describe() if prep.engine is not None else {"format": prep.spmv_format}))
-        # The reuse contract, verified: what THIS call paid.  No autotuner
-        # yet (ROADMAP queue A, "Autotuner"): no probes.
+        # The reuse contract, verified: what THIS call paid.
         spmv["conversions"] = prep.conversions if built else 0
-        spmv["tuner_probes"] = 0
+        spmv["tuner_probes"] = prep.tuner_probes if built else 0
         spmv["reused"] = not built
         if prep.engine is not None:
             rec = prep.engine.iteration_plan.as_dict()
@@ -999,6 +1141,95 @@ class EigenSession:
                     group_size=len(qs),
                 ))
         return out
+
+
+# ------------------------------------------------- plan (de)serialization
+
+
+def _host_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """(host array, dtype name) of a tensor; bf16 widens to f32 (exact)."""
+    t = t.detach().cpu()
+    name = str(t.dtype).replace("torch.", "")
+    if t.dtype == torch.bfloat16:
+        t = t.to(torch.float32)
+    return t.numpy(), name
+
+
+def _export_operator(op) -> Optional[Tuple[str, Dict[str, torch.Tensor], dict]]:
+    """(container type, tensors, scalar fields) of a single-placement
+    operator, or None when it is not persistable (matrix-free, chunked, a
+    legacy blocked-ELL tuple)."""
+    from ..sparse.formats import DeviceBSR, DeviceCOO, DeviceELL, DeviceHybrid
+
+    if isinstance(op, DenseOperator):
+        return "dense", {"a": op.a}, {}
+    if not isinstance(op, SparseOperator):
+        return None
+    m, extra = op.mat, {"impl": op.impl}
+    if isinstance(m, DeviceCOO):
+        return "coo", {"row": m.row, "col": m.col, "val": m.val, "offsets": m.offsets}, extra
+    if isinstance(m, DeviceELL):
+        return "ell", {"val": m.val, "col": m.col}, extra
+    if isinstance(m, DeviceBSR):
+        return "bsr", {"val": m.val, "bcol": m.bcol}, extra
+    if isinstance(m, DeviceHybrid):
+        tensors = {name: getattr(m, name) for name in
+                   ("ell_val", "ell_col", "tail_row", "tail_col", "tail_val", "tail_offsets")}
+        return "hybrid", tensors, {**extra, "tail_nnz": int(m.tail_nnz)}
+    return None
+
+
+def _import_plan(plan: dict, n: int, device: torch.device) -> _Prepared:
+    """Rebuild a :class:`_Prepared` from one exported plan record on
+    ``device``, with the plain container constructors (no conversion) and
+    the persisted tiles and plan (no tuner probe)."""
+    from ..sparse.formats import DeviceBSR, DeviceCOO, DeviceELL, DeviceHybrid
+
+    dtypes = plan.get("dtypes", {})
+
+    def arr(name):
+        t = torch.from_numpy(np.ascontiguousarray(plan["arrays"][name]))
+        want = dtypes.get(name)
+        if want:
+            t = t.to(getattr(torch, want))
+        return t.to(device)
+
+    engine = None
+    ecfg = plan.get("engine")
+    if ecfg:
+        ip = ecfg.get("iteration_plan")
+        iter_plan = None if not ip else IterationPlan(
+            update=ip["update"],
+            tiles=TileConfig(block_r=int(ip["block_r"]), block_w=int(ip["block_w"]),
+                             block_size=int(ip["block_size"])),
+            source=ip.get("source", "tuned"),
+        )
+        engine = SpmvEngine(
+            format=ecfg["format"],
+            accum_dtype=getattr(torch, ecfg["accum_dtype"]),
+            tiles=TileConfig(**{k: int(v) for k, v in ecfg["tiles"].items()}),
+            device=str(device),
+            requested=ecfg.get("requested", ecfg["format"]),
+            stats=None,
+            tiles_from=ecfg.get("tiles_from", "override"),
+            iteration_plan=iter_plan,
+        )
+    ctype = plan["container"]
+    if ctype == "dense":
+        return _Prepared(DenseOperator(arr("a")), "dense", None)
+    if ctype == "coo":
+        mat = DeviceCOO(arr("row"), arr("col"), arr("val"), arr("offsets"), n, n)
+    elif ctype == "ell":
+        mat = DeviceELL(arr("val"), arr("col"), n, n)
+    elif ctype == "bsr":
+        mat = DeviceBSR(arr("val"), arr("bcol"), n, n)
+    elif ctype == "hybrid":
+        mat = DeviceHybrid(arr("ell_val"), arr("ell_col"), arr("tail_row"), arr("tail_col"),
+                           arr("tail_val"), arr("tail_offsets"), int(plan["tail_nnz"]), n, n)
+    else:
+        raise ValueError(f"unknown persisted container type {ctype!r}")
+    op = SparseOperator(mat, engine=engine, impl=plan.get("impl", "engine"))
+    return _Prepared(op, plan.get("spmv_format") or op.spmv_format, engine)
 
 
 # --------------------------------------------------------------- frontends

@@ -43,6 +43,30 @@ def _k(name: str, type: str, default: Any, description: str) -> EnvKnob:
 
 _DECLARED: Iterable[EnvKnob] = (
     _k(
+        "REPRO_SPMV_TUNE",
+        "bool",
+        False,
+        "Enable the measured SpMV/iteration autotuner (off = heuristic tiles).",
+    ),
+    _k(
+        "REPRO_SPMV_TUNE_CACHE",
+        "path",
+        ".cache/spmv_tune.json",
+        "Path of the persistent autotune decision cache ('' disables persistence).",
+    ),
+    _k(
+        "REPRO_SPMV_TUNE_BUDGET",
+        "int",
+        6,
+        "Max number of tile candidates the autotuner measures per matrix.",
+    ),
+    _k(
+        "REPRO_SPMV_TILES",
+        "str",
+        None,
+        "Force SpMV tile config as 'RxW[@B]' (rows x width [@ bsr block]), bypassing heuristics.",
+    ),
+    _k(
         "REPRO_SPMV_ELL_OVERHEAD",
         "float",
         3.0,
@@ -120,6 +144,12 @@ _DECLARED: Iterable[EnvKnob] = (
         "bool",
         True,
         "Validate user matrices (finite values, symmetry probe) on ingestion.",
+    ),
+    _k(
+        "REPRO_SERVING_STORE",
+        "path",
+        None,
+        "Directory for the serving layer's persistent session store (unset = in-memory).",
     ),
     _k(
         "REPRO_SOLVE_CHECKPOINTS",

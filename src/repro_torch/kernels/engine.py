@@ -1,4 +1,5 @@
-"""SpMV execution layer of the port: format selection and launch config.
+"""SpMV execution layer of the port: format selection, launch config and
+the measured autotuner.
 
 The format decision is the reference's (``repro/kernels/engine.py``), ported
 verbatim so the same matrix picks the same layout: ELL while the padded
@@ -8,18 +9,35 @@ tail) when only the hub rows break the ELL bound, COO otherwise.
 
 What is not carried over is the TPU's tiling: the 128-lane width padding,
 the (8, 128) tile table and the sublane minimums.  :class:`TileConfig` here
-is a Hopper launch configuration (row and width padding of 8), fixed for
-now; the measured autotuner is later work.
+is a Hopper layout configuration: the row and slot padding multiples of the
+ELL layouts (8 and 8 by default) and the BSR block edge.
 
-The Lanczos update mode comes from a static table keyed on the device (see
-:func:`table_update_mode`), or from the ``REPRO_ITER_UPDATE`` pin.
+Tiles come from the default :class:`TileConfig` (``select_tiles``), or from
+the **measured autotuner** (:func:`tuned_tiles`) when ``REPRO_SPMV_TUNE=1``:
+a small grid of padding multiples around the default is timed on probe
+SpMVs on the solve's own device, memoized in-process and persisted to a
+JSON cache (``REPRO_SPMV_TUNE_CACHE``, by default
+``build/repro_torch_cache/spmv_tune.json`` of the checkout).
+``REPRO_SPMV_TILES`` pins the tiles outright.  On top of that the tuner
+resolves a **whole-iteration plan** (:class:`IterationPlan`): the Lanczos
+update mode (``unfused`` / ``fused`` / ``fused_spmv``) with the tiles and
+the BSR block edge, timed on the port's own Lanczos step.  With tuning off
+a static table keyed on the device decides (see :func:`table_update_mode`),
+or the ``REPRO_ITER_UPDATE`` pin.  Provenance ("table" | "tuned" |
+"override") lands in ``partition["spmv"]``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import json
+import os
+import threading
+import time
 import warnings
-from typing import Any, Optional, Sequence, Tuple
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,13 +51,21 @@ __all__ = [
     "ITER_UPDATE_MODES",
     "TileConfig",
     "IterationPlan",
+    "TileTuner",
     "SpmvStats",
     "SpmvEngine",
+    "DEFAULT_TUNE_CACHE",
+    "grid_fingerprint",
     "matrix_stats",
     "choose_format",
     "hybrid_width_cap",
+    "select_tiles",
+    "tune_enabled",
+    "tuned_tiles",
     "resolve_iteration_plan",
     "table_update_mode",
+    "get_tuner",
+    "tuner_probe_count",
     "make_engine",
 ]
 
@@ -84,10 +110,17 @@ class TileConfig:
 ITER_UPDATE_MODES = ("unfused", "fused", "fused_spmv")
 
 
+# BSR block edges the iteration probe re-converts through (the kernel's
+# edges; the block size changes the layout, so picking it is a measurement).
+_ITER_BSR_BLOCKS = (4, 8, 16)
+
+
 @dataclasses.dataclass(frozen=True)
 class IterationPlan:
-    """Whole-iteration decision: update mode + tiles, with provenance
-    ("table" or "override"; no measured plans yet)."""
+    """Whole-iteration decision: update mode + tiles (with the BSR block
+    edge), with provenance: "table" (the static default for the device),
+    "tuned" (won a measured whole-iteration probe) or "override" (the
+    ``REPRO_ITER_UPDATE`` pin)."""
 
     update: str = "unfused"
     tiles: TileConfig = TileConfig()
@@ -116,15 +149,503 @@ def table_update_mode(device) -> str:
     return "unfused" if torch.device(device).type == "cpu" else "fused"
 
 
-def resolve_iteration_plan(tiles: TileConfig = TileConfig(), device="cuda") -> IterationPlan:
-    """``REPRO_ITER_UPDATE`` pins the mode ("override"); otherwise the
-    static table decides ("table")."""
+def select_tiles(block_size: int = DEFAULT_BLOCK_SIZE) -> TileConfig:
+    """The prior tiles: the default :class:`TileConfig`, or the pin
+    ``REPRO_SPMV_TILES="block_r,block_w[,block_size]"`` (the ELL layouts'
+    row and slot padding multiples and the BSR block edge)."""
+    env = envcfg.get_str("REPRO_SPMV_TILES")
+    if env:
+        try:
+            parts = [int(p) for p in env.split(",")]
+        except ValueError:
+            parts = []
+        if len(parts) not in (2, 3) or min(parts) < 1:
+            raise ValueError(
+                f"REPRO_SPMV_TILES={env!r}: expected 'block_r,block_w[,block_size]' "
+                "(positive integers)"
+            )
+        bs = parts[2] if len(parts) == 3 else block_size
+        return TileConfig(block_r=parts[0], block_w=parts[1], block_size=bs)
+    return TileConfig(block_size=block_size)
+
+
+# ------------------------------ tile autotuner -------------------------------
+
+# The port's own cache file, beside the kernels' build and the serving store
+# (src/repro_torch/kernels/engine.py -> the repository root).
+DEFAULT_TUNE_CACHE = str(
+    Path(__file__).resolve().parents[3] / "build" / "repro_torch_cache" / "spmv_tune.json"
+)
+# Formats whose layout takes the tile knobs (BSR's is its block edge, which
+# the iteration probe decides).
+_TUNABLE_FORMATS = ("ell", "hybrid")
+# The candidate grid: multiples of the prior's row and slot padding.  Every
+# multiple of 8 slots is a whole number of 16-byte vectors for f64, f32 and
+# the 16-bit types, so each candidate runs the kernel's vector path.
+_ROW_MULTS = (1, 2, 4)
+_SLOT_MULTS = (1, 2)
+# Probe rows: the problem's own row bucket, at most this many.  On the card
+# 1 << 22 rows of 8 f32 slots and their columns are 268 MB, five times the
+# H100's 50 MB L2, so the ranking times the HBM-bound matvec that a large
+# solve pays (the reference's 1 << 16 rows, 4 MB, would sit in L2 and time
+# launch overhead); on the CPU the plain versions run at 1 << 12 rows.
+_PROBE_ROWS_CAP = {"cuda": 1 << 22, "cpu": 1 << 12}
+# Probe columns lie within this many rows of their own row: the locality of
+# a mesh or road network (a uniform random gather would time L2 misses on x).
+_PROBE_BAND = 2048
+# Bump when the cache entry layout itself changes (fields, key format).
+_GRID_SCHEMA = 1
+_PACKAGE = "repro_torch"
+
+
+def grid_fingerprint() -> str:
+    """Hash of the port's candidate space (prior, grids, update modes, BSR
+    edges, probe shape).  Stamped into every persisted entry and checked on
+    load: a change to the space drops the port's stale entries (they
+    re-measure on next use) instead of serving unmeasured tiles."""
+    payload = repr((_PACKAGE, _GRID_SCHEMA, TileConfig(), _ROW_MULTS, _SLOT_MULTS,
+                    ITER_UPDATE_MODES, _ITER_BSR_BLOCKS, sorted(_PROBE_ROWS_CAP.items()),
+                    _PROBE_BAND))
+    return hashlib.blake2b(payload.encode(), digest_size=8).hexdigest()
+
+
+def tune_enabled() -> bool:
+    """Measured tuning is opt-in (``REPRO_SPMV_TUNE=1``)."""
+    return envcfg.get_bool("REPRO_SPMV_TUNE")
+
+
+class TileTuner:
+    """Measured tile cache: in-process memo + persistent JSON.
+
+    One entry per (format, dtypes, shape bucket, device type) key: the
+    fastest :class:`TileConfig` of the measured grid and the raw timings of
+    every candidate.  Whole-iteration plans live in the same file as
+    ``kind: "iteration"`` entries under an ``iter|`` key.  The port's
+    entries carry ``"package": "repro_torch"`` and the current
+    :func:`grid_fingerprint`; its entries with another stamp are dropped on
+    load.  Entries it does not own (the reference's, whose keys name the
+    ``mosaic`` / ``interp`` modes) are kept as they are and written back,
+    so a cache file shared through ``REPRO_SPMV_TUNE_CACHE`` keeps both
+    packages' decisions (the reference's writer does not return the
+    favour).  A missing or corrupt file is an empty cache.
+    """
+
+    def __init__(self, cache_path: Optional[str] = None):
+        self.cache_path = cache_path or DEFAULT_TUNE_CACHE
+        self._mem: Dict[str, TileConfig] = {}
+        self._plans: Dict[str, IterationPlan] = {}
+        self._meta: Dict[str, dict] = {}  # the port's live entries
+        self._foreign: Dict[str, dict] = {}  # entries of another package
+        self._loaded = False
+        self.measure_count = 0  # tune passes actually run
+
+    def _load(self) -> None:
+        if self._loaded:
+            return
+        self._loaded = True
+        fp = grid_fingerprint()
+        try:
+            with open(self.cache_path) as f:
+                entries = json.load(f).get("entries", {})
+        except (OSError, ValueError, AttributeError):
+            return  # absent or corrupt cache = cold start
+        for key, rec in entries.items():
+            if not isinstance(rec, dict):
+                continue
+            if rec.get("package") != _PACKAGE:
+                self._foreign[key] = rec
+                continue
+            if rec.get("grid") != fp:
+                continue  # stale candidate space: drop, re-measure on use
+            try:
+                tiles = TileConfig(block_r=int(rec["block_r"]), block_w=int(rec["block_w"]),
+                                   block_size=int(rec.get("block_size", DEFAULT_BLOCK_SIZE)))
+                if rec.get("kind") == "iteration":
+                    self._plans[key] = IterationPlan(update=str(rec["update"]), tiles=tiles,
+                                                     source="tuned")
+                else:
+                    self._mem[key] = tiles
+            except (KeyError, TypeError, ValueError):
+                continue
+            self._meta[key] = rec
+
+    def lookup(self, key: str) -> Optional[TileConfig]:
+        self._load()
+        return self._mem.get(key)
+
+    def lookup_plan(self, key: str) -> Optional[IterationPlan]:
+        self._load()
+        return self._plans.get(key)
+
+    def _dump(self) -> None:
+        if not self.cache_path:
+            return
+        try:
+            os.makedirs(os.path.dirname(os.path.abspath(self.cache_path)), exist_ok=True)
+            tmp = f"{self.cache_path}.{os.getpid()}.tmp"
+            with open(tmp, "w") as f:
+                json.dump({"version": 2, "entries": {**self._foreign, **self._meta}}, f,
+                          indent=1, sort_keys=True)
+            os.replace(tmp, self.cache_path)
+        except OSError:
+            pass  # read-only cache dir: keep the in-process memo only
+
+    def _record(self, key: str, tiles: TileConfig, timings: Dict[str, float], **extra) -> None:
+        self._meta[key] = {
+            **extra,
+            "package": _PACKAGE,
+            "block_r": tiles.block_r,
+            "block_w": tiles.block_w,
+            "block_size": tiles.block_size,
+            "grid": grid_fingerprint(),
+            "best_us": min(timings.values()) if timings else None,
+            "candidates_us": timings,
+        }
+        self._foreign.pop(key, None)
+        self._dump()
+
+    def record(self, key: str, tiles: TileConfig, timings: Dict[str, float]) -> None:
+        self._load()
+        self._mem[key] = tiles
+        self._record(key, tiles, timings)
+
+    def record_plan(self, key: str, plan: IterationPlan, timings: Dict[str, float]) -> None:
+        self._load()
+        plan = dataclasses.replace(plan, source="tuned")
+        self._plans[key] = plan
+        self._record(key, plan.tiles, timings, kind="iteration", update=plan.update)
+
+
+_TUNER: Optional[TileTuner] = None
+# One tune pass at a time: a scheduler's dispatch thread may build a plan
+# while another thread adds a matrix, and two probes on one card would
+# time each other (and race on the memo and the file).
+_TUNE_LOCK = threading.RLock()
+
+
+def get_tuner() -> TileTuner:
+    """Process-wide tuner bound to the current ``REPRO_SPMV_TUNE_CACHE``."""
+    global _TUNER
+    path = envcfg.raw("REPRO_SPMV_TUNE_CACHE") or DEFAULT_TUNE_CACHE
+    if _TUNER is None or _TUNER.cache_path != path:
+        _TUNER = TileTuner(path)
+    return _TUNER
+
+
+def tuner_probe_count() -> int:
+    """Measured tune passes run by this process so far (0 when tuning is
+    off).  The session layer checks plan reuse against it: a cache-hit
+    solve adds no probes."""
+    return _TUNER.measure_count if _TUNER is not None else 0
+
+
+def _next_pow2(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def _mode(device) -> str:
+    return "cpu" if torch.device(device).type == "cpu" else "cuda"
+
+
+def _tune_key(fmt: str, dtype, n_rows: int, width: int, device, accum_dtype=None) -> str:
+    """Shape-bucketed cache key: tiles depend on the size class, not the
+    exact shape, so nearby problems share one measurement.  The mode is the
+    device type ("cuda" / "cpu", where the reference has "mosaic" /
+    "interp"); the iteration plans also key on the accumulator."""
+    acc = f"|a{dtype_name(accum_dtype)}" if accum_dtype is not None else ""
+    return (f"{fmt}|{dtype_name(dtype)}{acc}|r{_next_pow2(n_rows)}|w{_next_pow2(width)}|"
+            f"{_mode(device)}")
+
+
+def _candidate_tiles(prior: TileConfig) -> Tuple[TileConfig, ...]:
+    """The grid of padding multiples around the prior (the prior first, so a
+    tie keeps it), cut to ``REPRO_SPMV_TUNE_BUDGET`` candidates."""
+    budget = envcfg.get_int("REPRO_SPMV_TUNE_BUDGET")
+    out = []
+    for r in _ROW_MULTS:
+        for w in _SLOT_MULTS:
+            cfg = dataclasses.replace(prior, block_r=prior.block_r * r, block_w=prior.block_w * w)
+            if cfg not in out:
+                out.append(cfg)
+    return tuple(out[: max(1, budget)])
+
+
+def _pad(x: int, mult: int) -> int:
+    return -(-max(1, int(x)) // mult) * mult
+
+
+def _probe_rows(n_rows: int, device, least: int = 8) -> int:
+    return min(max(_next_pow2(n_rows), least), max(_PROBE_ROWS_CAP[_mode(device)], least))
+
+
+def _probe_ell(rows: int, width: int, n_cols: int, dtype, device,
+               gen) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A synthetic (rows, width) ELL on ``device`` over ``n_cols`` columns:
+    normal values, columns within :data:`_PROBE_BAND` of their own row."""
+    val = torch.randn((rows, width), generator=gen, device=device).to(dtype)
+    off = torch.randint(-_PROBE_BAND, _PROBE_BAND + 1, (rows, width), generator=gen,
+                        device=device)
+    col = (torch.arange(rows, device=device)[:, None] + off).remainder(n_cols).to(torch.int32)
+    return val, col
+
+
+def _generator(device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(0)
+
+
+def _time_us(fn: Callable, device, reps: int = 5, inner: int = 4) -> float:
+    """Median time of one ``fn()`` in us after a warm-up call outside the
+    timed reps: CUDA events around ``inner`` calls on the card, the host
+    clock around one call on the CPU (where the plain versions run)."""
+    fn()
+    ts = []
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+        for _ in range(max(1, reps)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(inner):
+                fn()
+            end.record()
+            end.synchronize()
+            ts.append(start.elapsed_time(end) * 1e3 / inner)
+    else:
+        for _ in range(max(1, reps)):
+            t0 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t0) * 1e6)
+    return float(np.median(ts))
+
+
+def _measure_ell_tiles(n_rows: int, width: int, dtype, accum_dtype,
+                       candidates: Sequence[TileConfig], device) -> Dict[str, float]:
+    """Median time (us) of a probe ELL SpMV per candidate, keyed
+    ``"{block_r}x{block_w}"``.
+
+    Each candidate is timed on the layout it would build: the probe's rows
+    (the problem's pow2 row bucket, capped at :data:`_PROBE_ROWS_CAP`)
+    padded to ``block_r``, the problem's width padded to ``block_w``.
+    Candidates that build the same layout are one measurement (the first
+    keeps the name); a ``block_r`` above the probe's rows is skipped (its
+    padding would inflate the real rows, a cost the probe cannot see).
+    """
+    from . import ops as kops
+
+    rows = _probe_rows(n_rows, device, min(c.block_r for c in candidates))
+    gen = _generator(device)
+    x = torch.randn(rows, generator=gen, device=device).to(dtype)
+    layouts: Dict[Tuple[int, int], str] = {}
+    for cfg in candidates:
+        if rows % cfg.block_r:
+            continue
+        shape = (rows, _pad(width, cfg.block_w))
+        layouts.setdefault(shape, f"{cfg.block_r}x{cfg.block_w}")
+    timings: Dict[str, float] = {}
+    for (r, w), name in layouts.items():
+        val, col = _probe_ell(r, w, rows, dtype, device, gen)
+        timings[name] = _time_us(lambda: kops.ell_matvec(val, col, x, accum_dtype), device)
+        del val, col
+    return timings
+
+
+def tuned_tiles(
+    n_rows: int,
+    width: int,
+    dtype=torch.float32,
+    format: str = "ell",
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    device="cuda",
+    accum_dtype=None,
+) -> Tuple[TileConfig, str]:
+    """Resolve the tiles with provenance: "table" | "tuned" | "override".
+
+    The ``REPRO_SPMV_TILES`` pin wins outright ("override"); otherwise the
+    default :class:`TileConfig` is the prior, and with ``REPRO_SPMV_TUNE=1``
+    and an ELL or hybrid layout a measured pass over the grid around it
+    refines it ("tuned"), cached under ``REPRO_SPMV_TUNE_CACHE`` so each
+    (shape bucket, dtype, format, device type) is measured once per cache.
+    ``width`` is the raw row width the layout pads (the longest row, or the
+    hybrid cap); ``accum_dtype`` (default: ``dtype``) is the SpMV's.
+    """
+    prior = select_tiles(block_size)
+    if envcfg.get_str("REPRO_SPMV_TILES"):
+        return prior, "override"
+    if not tune_enabled() or format not in _TUNABLE_FORMATS or n_rows <= 0 or width <= 0:
+        return prior, "table"
+    with _TUNE_LOCK:
+        tuner = get_tuner()
+        key = _tune_key(format, dtype, n_rows, width, device)
+        hit = tuner.lookup(key)
+        if hit is not None:
+            return dataclasses.replace(hit, block_size=block_size), "tuned"
+        timings = _measure_ell_tiles(n_rows, width, dtype, accum_dtype or dtype,
+                                     _candidate_tiles(prior), device)
+        tuner.measure_count += 1
+        if not timings:  # no candidate fits the probe: keep the prior
+            return prior, "table"
+        br, bw = (int(p) for p in min(timings, key=timings.get).split("x"))
+        best = TileConfig(block_r=br, block_w=bw, block_size=block_size)
+        tuner.record(key, best, timings)
+        return best, "tuned"
+
+
+# --------------------------- whole-iteration tuner ---------------------------
+
+
+def _iter_candidates(fmt: str, tiles: TileConfig,
+                     tile_variants: bool) -> Tuple[Tuple[str, TileConfig], ...]:
+    """(update mode, tiles) candidates of the whole-iteration probe, by the
+    reference's rules: ELL probes every mode (``fused_spmv`` is ELL's only)
+    and one taller tile variant; BSR probes the block edges; COO and hybrid
+    choose only the update (their SpMV is the same under every mode)."""
+    if fmt == "bsr":
+        return tuple((mode, dataclasses.replace(tiles, block_size=bs))
+                     for mode in ("unfused", "fused") for bs in _ITER_BSR_BLOCKS)
+    if fmt == "ell":
+        tile_opts = [tiles]
+        if tile_variants:
+            taller = dataclasses.replace(tiles, block_r=tiles.block_r * 2)
+            if taller not in tile_opts:
+                tile_opts.append(taller)
+        return tuple((mode, t) for mode in ITER_UPDATE_MODES for t in tile_opts)
+    return tuple((mode, tiles) for mode in ("unfused", "fused"))
+
+
+def _measure_iteration(
+    n_rows: int,
+    width: int,
+    dtype,
+    accum_dtype,
+    fmt: str,
+    candidates: Sequence[Tuple[str, TileConfig]],
+    device,
+) -> Tuple[Dict[str, float], Dict[str, Tuple[str, TileConfig]]]:
+    """Median time (us) of one synthetic Lanczos step per candidate.
+
+    The step is the port's own (``core/lanczos.py``): the SpMV in the
+    accumulator, alpha, the three-term update and ``||u||^2``, through the
+    same ``kernels.ops`` entry points: ``spmv_ell_alpha`` + ``lanczos_update``
+    under ``fused_spmv``, SpMV + dot + ``lanczos_update`` under ``fused``,
+    SpMV + plain expressions under ``unfused``.  The vectors are carried in
+    the accumulator dtype (FDF's f64), the matrix in the storage dtype.
+    Shapes are bucketed and capped as in :func:`_measure_ell_tiles`;
+    candidates that build the same probe are one measurement.
+    """
+    from ..sparse.formats import DeviceELL
+    from . import ops as kops
+
+    cdt = accum_dtype
+    rows = _probe_rows(n_rows, device, 16)
+    gen = _generator(device)
+    x = torch.randn(rows, generator=gen, device=device).to(cdt)
+    xs = x.to(dtype)
+    xp = torch.randn(rows, generator=gen, device=device).to(cdt)
+    beta = torch.tensor(0.25, dtype=cdt, device=device)
+    ell: Dict[Tuple[int, int], DeviceELL] = {}
+    bsr: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}
+    w_synth = (torch.randn(rows, generator=gen, device=device).to(cdt)
+               if fmt not in ("ell", "bsr") else None)
+
+    def update(w, mode):
+        a = torch.sum(x * w)
+        if mode == "unfused":
+            u = w - a * x - beta * xp
+            return u, torch.sum(u * u)
+        return kops.lanczos_update(w, x, xp, a, beta, accum_dtype=cdt)
+
+    timings: Dict[str, float] = {}
+    by_name: Dict[str, Tuple[str, TileConfig]] = {}
+    for mode, tiles in candidates:
+        if fmt == "ell":
+            shape = (_pad(rows, tiles.block_r), _pad(width, tiles.block_w))
+            if shape not in ell:
+                ell[shape] = DeviceELL(*_probe_ell(*shape, rows, dtype, device, gen), rows, rows)
+            mat = ell[shape]
+            if mode == "fused_spmv":
+                def step(mat=mat):
+                    w, a = kops.spmv_ell_alpha(mat, xs, x, accum_dtype=cdt)
+                    return kops.lanczos_update(w.to(cdt), x, xp, a.to(cdt), beta, accum_dtype=cdt)
+            else:
+                def step(mat=mat, mode=mode):
+                    return update(kops.spmv_ell(mat, xs, accum_dtype=cdt).to(cdt), mode)
+            name = f"{mode}|{shape[0]}x{shape[1]}"
+        elif fmt == "bsr":
+            bs = tiles.block_size
+            if rows % bs:
+                continue
+            if bs not in bsr:
+                nbr = rows // bs
+                slots = max(1, min(8, max(width, 8) // bs))
+                val = torch.randn((nbr, slots, bs, bs), generator=gen, device=device).to(dtype)
+                off = torch.randint(-_PROBE_BAND // bs, _PROBE_BAND // bs + 1, (nbr, slots),
+                                    generator=gen, device=device)
+                bcol = (torch.arange(nbr, device=device)[:, None] + off).remainder(nbr)
+                bsr[bs] = (val, bcol.to(torch.int32))
+
+            def step(pair=bsr[bs], mode=mode):
+                w = kops.bsr_matvec(*pair, xs, cdt)[:rows]
+                return update(w.to(cdt), mode)
+            name = f"{mode}|bs{bs}"
+        else:
+            def step(mode=mode):
+                return update(w_synth, mode)
+            name = f"{mode}|update"
+        if name in by_name:
+            continue  # a tile variant that builds the same probe
+        by_name[name] = (mode, tiles)
+        timings[name] = _time_us(step, device)
+    return timings, by_name
+
+
+def resolve_iteration_plan(
+    n_rows: int,
+    width: int,
+    dtype=torch.float32,
+    format: str = "ell",
+    tiles: TileConfig = TileConfig(),
+    device="cuda",
+    tile_variants: bool = True,
+    accum_dtype=None,
+) -> IterationPlan:
+    """Resolve the whole-iteration plan with provenance.
+
+    A ``REPRO_ITER_UPDATE`` pin wins ("override"); with
+    ``REPRO_SPMV_TUNE=1`` a measured probe over :func:`_iter_candidates`
+    decides and persists ("tuned"); otherwise the static table for the
+    device decides ("table").  ``tiles`` is the resolved SpMV tile choice;
+    the probe may refine it (the taller ELL variant, the BSR block edge)
+    and :func:`make_engine` adopts the winner's tiles.  Unlike the
+    reference, which pins ``"unfused"`` under f64 accumulation (its f64
+    path runs no kernel), the port probes every accumulator: its kernels
+    run f64, and FDF is the default policy.
+    """
     env = (envcfg.get_str("REPRO_ITER_UPDATE") or "").strip().lower()
     if env and env != "auto":
         if env not in ITER_UPDATE_MODES:
             raise ValueError(f"REPRO_ITER_UPDATE={env!r}: expected one of {ITER_UPDATE_MODES}")
         return IterationPlan(update=env, tiles=tiles, source="override")
-    return IterationPlan(update=table_update_mode(device), tiles=tiles, source="table")
+    table = IterationPlan(update=table_update_mode(device), tiles=tiles, source="table")
+    if not tune_enabled() or n_rows <= 0 or width <= 0:
+        return table
+    acc = accum_dtype or dtype
+    with _TUNE_LOCK:
+        tuner = get_tuner()
+        key = "iter|" + _tune_key(format, dtype, n_rows, width, device, acc)
+        hit = tuner.lookup_plan(key)
+        if hit is not None:
+            return hit
+        candidates = _iter_candidates(format, tiles, tile_variants)
+        candidates = candidates[: max(2, envcfg.get_int("REPRO_SPMV_TUNE_BUDGET") * 2)]
+        timings, by_name = _measure_iteration(n_rows, width, dtype, acc, format, candidates,
+                                              device)
+        tuner.measure_count += 1
+        if not timings:  # no candidate fits the probe
+            return table
+        mode, best_tiles = by_name[min(timings, key=timings.get)]
+        plan = IterationPlan(update=mode, tiles=best_tiles, source="tuned")
+        tuner.record_plan(key, plan, timings)
+        return plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -343,13 +864,19 @@ def make_engine(
     block_size: int = DEFAULT_BLOCK_SIZE,
     device="cuda",
     tiles: Optional[TileConfig] = None,
+    storage_dtype: Any = None,
     ell_max_overhead: Optional[float] = None,
     bsr_fill_factor: Optional[float] = None,
 ) -> SpmvEngine:
     """Build a :class:`SpmvEngine` for a matrix (or precomputed stats).
 
     ``format="auto"`` runs :func:`choose_format`; an explicit format is
-    validated against ``allowed`` and used as it is.
+    validated against ``allowed`` and used as it is.  Tiles come from
+    :func:`tuned_tiles` unless ``tiles`` pins them, then the iteration plan
+    from :func:`resolve_iteration_plan`; a tuned plan's tiles (the BSR block
+    edge included) are adopted unless the tiles were pinned.  With
+    ``REPRO_SPMV_TUNE=1`` both probe on ``device`` in ``storage_dtype``
+    (default: ``accum_dtype``).
     """
     requested = format
     if stats is None:
@@ -374,9 +901,27 @@ def make_engine(
                 f"format={format!r} is not supported by this backend (allowed: {tuple(allowed)})"
             )
         fmt = format
-    tiles_from = "override" if tiles is not None else "table"
-    tiles = tiles or TileConfig(block_size=block_size)
     device = str(torch.device(device))
+    sdt = storage_dtype or accum_dtype
+    n_rows = max(s.n_rows for s in stats)
+    # The raw width the layout pads: the hybrid cap, else the longest row.
+    if fmt == "hybrid":
+        width = max(1, max(s.hyb_width for s in stats))
+    else:
+        width = max(1, max(s.max_row_nnz for s in stats))
+    explicit_tiles = tiles is not None
+    if explicit_tiles:
+        tiles_from = "override"
+    else:
+        tiles, tiles_from = tuned_tiles(n_rows, width, sdt, fmt, block_size, device, accum_dtype)
+    pinned = explicit_tiles or tiles_from == "override"
+    plan = resolve_iteration_plan(
+        n_rows, width, sdt, fmt, tiles, device,
+        # A pinned layout is a commitment the probe must not second-guess.
+        tile_variants=not pinned, accum_dtype=accum_dtype,
+    )
+    if plan.source == "tuned" and not pinned:
+        tiles, tiles_from = plan.tiles, "tuned"
     return SpmvEngine(
         format=fmt,
         accum_dtype=accum_dtype,
@@ -385,5 +930,5 @@ def make_engine(
         requested=requested,
         stats=stats,
         tiles_from=tiles_from,
-        iteration_plan=resolve_iteration_plan(tiles, device),
+        iteration_plan=plan,
     )

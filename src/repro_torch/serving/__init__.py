@@ -1,7 +1,61 @@
-"""Serving-side persistence of the port.  So far only the mid-solve
-snapshot store (:class:`SolveCheckpoint`) that ``checkpoint_dir=`` uses;
-the scheduler and the warm-session store come with the serving layer."""
+"""Eigensolver serving: async scheduler, persistent warm sessions, metrics,
+and the mid-solve snapshot store behind ``checkpoint_dir=``.
 
-from .store import SolveCheckpoint, default_checkpoint_root
+    from repro_torch.serving import EigenScheduler, SchedulerConfig, SessionStore
 
-__all__ = ["SolveCheckpoint", "default_checkpoint_root"]
+    with EigenScheduler(store=SessionStore(root)) as sched:
+        key = sched.add_matrix(csr, config=SolverConfig(device="cuda"))
+        h = sched.submit(key, k=8, num_iters=32)   # future
+        res = h.result()                           # per-query EigenResult
+        print(sched.stats().summary())             # p50/p99, coalesce rate
+
+The reference's legacy LM decode engine (``Engine``, ``ServeConfig``) is not
+ported: it waits for ROADMAP queue A, "LM and Hessian side".
+"""
+
+from .metrics import LatencyHistogram, ServerStats, ServingMetrics
+from .scheduler import (
+    DeadlineExceededError,
+    EigenScheduler,
+    QueryCancelledError,
+    QueryHandle,
+    QueueFullError,
+    SchedulerConfig,
+    SchedulerCrashedError,
+    ServingError,
+    SessionUnhealthyError,
+    UnknownMatrixError,
+)
+from .store import SessionStore, SolveCheckpoint, default_checkpoint_root, default_store_root
+
+__all__ = [
+    "EigenScheduler",
+    "SchedulerConfig",
+    "QueryHandle",
+    "SessionStore",
+    "SolveCheckpoint",
+    "default_store_root",
+    "default_checkpoint_root",
+    "ServingMetrics",
+    "ServerStats",
+    "LatencyHistogram",
+    "ServingError",
+    "QueueFullError",
+    "DeadlineExceededError",
+    "QueryCancelledError",
+    "UnknownMatrixError",
+    "SessionUnhealthyError",
+    "SchedulerCrashedError",
+]
+
+_NOT_PORTED = ("Engine", "ServeConfig")
+
+
+def __getattr__(name: str):
+    if name in _NOT_PORTED:
+        raise ImportError(
+            f"repro_torch.serving.{name} is the reference's LM decode engine, which is not "
+            "ported yet (ROADMAP queue A, 'LM and Hessian side'); the eigensolver serving "
+            "layer is repro_torch.serving.EigenScheduler"
+        )
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,10 +1,22 @@
-"""Mid-solve snapshots: :class:`SolveCheckpoint`, the store behind
-``eigsh(..., checkpoint_dir=...)``.
+"""Serving-side persistence: the warm-session store (:class:`SessionStore`)
+and the mid-solve snapshot store (:class:`SolveCheckpoint`).
 
-The reference's ``repro/serving/store.py`` ``SolveCheckpoint``, with the
-same on-disk layout and schema id.  Tensors are written through NumPy:
-bf16 (which NumPy lacks) is widened to f32, losslessly, with its dtype
-recorded, and narrowed back by torch on load.
+The reference's ``repro/serving/store.py``.  A served matrix's expensive
+state (the converted device layouts, the tuned tiles and iteration plan per
+policy) is a function of the matrix bytes, the layout config and the
+package version.  ``SessionStore`` keeps exactly that, keyed by matrix
+fingerprint + layout fingerprint, so a restarted server warms at once: the
+containers are rebuilt from the saved arrays with the plain constructors
+(``conversion_count()`` does not move) and the saved tiles ride in
+(``tuner_probe_count()`` does not move either).  Stale or foreign entries
+(another package, version or layout) are rejected by
+:meth:`EigenSession.import_plans` with a warning, and the session
+cold-builds.
+
+Both stores write tensors through NumPy: bf16 (which NumPy lacks) is
+widened to f32, losslessly, with its dtype recorded, and narrowed back by
+torch on load.  Their default roots sit under the port's cache directory
+(``build/repro_torch_cache`` of the checkout), beside the tune cache.
 """
 
 from __future__ import annotations
@@ -22,11 +34,27 @@ import torch
 
 from ..configs import env as envcfg
 
-__all__ = ["SolveCheckpoint", "default_checkpoint_root"]
+__all__ = ["SessionStore", "SolveCheckpoint", "default_store_root", "default_checkpoint_root"]
 
 _HEADER = "header.json"
+_PLANS = "plans.npz"
 # Bump on any incompatible change to the snapshot layout.
 _CKPT_SCHEMA = 1
+
+
+def _cache_dir() -> Path:
+    """The port's cache directory: ``build/repro_torch_cache`` of the
+    checkout (src/repro_torch/serving/store.py -> the repository root)."""
+    return Path(__file__).resolve().parents[3] / "build" / "repro_torch_cache"
+
+
+def default_store_root() -> str:
+    """``REPRO_SERVING_STORE`` if set, else a ``serving_store`` directory
+    under the port's cache directory."""
+    env = envcfg.get_str("REPRO_SERVING_STORE")
+    if env:
+        return env
+    return str(_cache_dir() / "serving_store")
 
 
 def default_checkpoint_root() -> str:
@@ -36,9 +64,7 @@ def default_checkpoint_root() -> str:
     env = envcfg.get_str("REPRO_SOLVE_CHECKPOINTS")
     if env:
         return env
-    # src/repro_torch/serving/store.py -> the repository root.
-    root = Path(__file__).resolve().parents[3]
-    return str(root / "build" / "repro_torch_cache" / "solve_checkpoints")
+    return str(_cache_dir() / "solve_checkpoints")
 
 
 def _to_numpy(val):
@@ -65,6 +91,127 @@ def _atomic_write(path: Path, suffix: str, write) -> None:
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+
+
+class SessionStore:
+    """Fingerprint-keyed persistent store of exported session plans.
+
+    Layout on disk (one directory per (matrix, layout) pair)::
+
+        <root>/<matrix_fp>-<layout_fp>/
+            header.json   # schema, package, version, fingerprints, n, plan configs
+            plans.npz     # the device-container arrays, one prefix per plan
+    """
+
+    def __init__(self, root: Optional[str] = None):
+        self.root = Path(root if root is not None else default_store_root())
+        self.root.mkdir(parents=True, exist_ok=True)
+
+    def path_for(self, session) -> Optional[Path]:
+        """Directory this session persists under, or None when it has no
+        matrix fingerprint (a matrix-free input: nothing to key by)."""
+        from ..api.session import _LAYOUT_FIELDS, config_fingerprint
+
+        matrix_fp = session.ensure_fingerprint()
+        if matrix_fp is None:
+            return None
+        return self.root / f"{matrix_fp}-{config_fingerprint(session.cfg, _LAYOUT_FIELDS)}"
+
+    def entries(self) -> list:
+        """Persisted (matrix, layout) keys on disk."""
+        return sorted(p.name for p in self.root.iterdir() if (p / _HEADER).exists())
+
+    def save(self, session) -> Optional[Path]:
+        """Persist the session's built plans; returns the entry path, or
+        None when there is nothing to persist (no fingerprint, or no
+        exportable plan).  A DiskCSR session persists even with no plan: its
+        entry is a header-only pointer to the directory (path + sampled
+        fingerprint), never a copy of the payload.  Each file is written
+        through a temp file and ``os.replace``, so a reader never sees a torn
+        entry."""
+        path = self.path_for(session)
+        if path is None:
+            return None
+        state = session.export_state()
+        if not state["plans"] and not state.get("matrix_ref"):
+            return None
+        arrays, plan_headers = {}, []
+        for i, plan in enumerate(state["plans"]):
+            rec = {k: v for k, v in plan.items() if k != "arrays"}
+            rec["array_names"] = sorted(plan["arrays"])
+            plan_headers.append(rec)
+            for name, a in plan["arrays"].items():
+                arrays[f"p{i}.{name}"] = np.asarray(a)
+        header = {k: v for k, v in state.items() if k != "plans"}
+        header["plans"] = plan_headers
+        path.mkdir(parents=True, exist_ok=True)
+        _atomic_write(path / _PLANS, ".npz.tmp", lambda f: np.savez(f, **arrays))
+        _atomic_write(path / _HEADER, ".json.tmp",
+                      lambda f: f.write(json.dumps(header, indent=1).encode()))
+        return path
+
+    def load_state(self, session) -> Optional[dict]:
+        """This session's persisted state in ``export_state`` form (arrays
+        read back from the npz), or None when absent or corrupt (a corrupt
+        entry warns).  The header is validated by ``import_plans``."""
+        path = self.path_for(session)
+        if path is None or not (path / _HEADER).exists():
+            return None
+        try:
+            with open(path / _HEADER) as f:
+                header = json.load(f)
+            with np.load(path / _PLANS) as z:
+                plans = []
+                for i, rec in enumerate(header.get("plans", [])):
+                    plan = dict(rec)
+                    plan["arrays"] = {name: z[f"p{i}.{name}"] for name in rec.get("array_names", [])}
+                    plans.append(plan)
+            header["plans"] = plans
+            return header
+        except Exception as exc:
+            warnings.warn(
+                f"corrupt serving-store entry {path.name} ignored "
+                f"({type(exc).__name__}: {exc}); the session will cold-build",
+                stacklevel=2,
+            )
+            return None
+
+    def load_into(self, session) -> int:
+        """Warm a session from its entry: the plans imported (0 when absent,
+        stale, foreign or corrupt: the session cold-builds lazily)."""
+        state = self.load_state(session)
+        if state is None:
+            return 0
+        return session.import_plans(state)
+
+    @staticmethod
+    def revive_matrix(state: dict):
+        """Reopen the diskcsr directory an entry's ``matrix_ref`` points at,
+        after checking its sampled fingerprint: a moved, rewritten or deleted
+        directory warns and reads as absent (None), so a revived server never
+        serves plans for bytes that changed under it.  Returns a
+        :class:`~repro_torch.sparse.DiskCSR` or None."""
+        ref = (state or {}).get("matrix_ref")
+        if not ref or ref.get("kind") != "diskcsr":
+            return None
+        from ..sparse.diskcsr import diskcsr_fingerprint, is_diskcsr, open_diskcsr
+
+        path = ref.get("path")
+        if not path or not is_diskcsr(path):
+            warnings.warn(
+                f"persisted matrix_ref points at {path!r}, which is no longer a diskcsr "
+                "directory; the entry reads as absent",
+                stacklevel=2,
+            )
+            return None
+        if diskcsr_fingerprint(path) != ref.get("fingerprint"):
+            warnings.warn(
+                f"on-disk matrix at {path!r} changed since this entry was persisted "
+                "(sampled fingerprint mismatch); refusing to revive",
+                stacklevel=2,
+            )
+            return None
+        return open_diskcsr(path)
 
 
 class SolveCheckpoint:
