@@ -99,13 +99,38 @@ before the last line:
    conversions, 0 probes, the same bits; entry bytes, save and load
    seconds; (d) ``scheduler_crash``: the watchdog fails the stranded
    requests with ``SchedulerCrashedError`` and ``start()`` serves again;
-   (e) ``python -m repro_torch.launch.serve --smoke`` exits 0.
+   (e) ``python -m repro_torch.launch.serve --smoke`` exits 0;
+13. the distributed backend on the card, its ranks spawned by
+   ``repro_torch.launch.ranks.run_ranks`` (each with a timeout; a failed
+   rank fails the phase), the matrices handed over as ``.npy`` files.
+   First, in this process, every kernel of the path against its plain
+   version on the operands a rank gives it: the first and last row shards
+   of (a)-(b)'s matrices (ELL, the hybrid bulk, BSR, times a gathered
+   ``(G * n_pad,)`` vector; ``lanczos_update`` at ``n_pad``) and each
+   rank's share of a chunk of phase 8's matrix, plain and packed bf16.
+   (a) a world of one over NCCL, ``eigsh(road 4.19M, k=8,
+   backend="distributed")`` (ELL, FDF) within rel 1e-9 of
+   ``backend="single", reorth="full"`` with the same ``v0``, ``spmv_ell``
+   and ``lanczos_update`` launched k times, and k ``spmv_ell_alpha`` under
+   ``REPRO_ITER_UPDATE=fused_spmv``; the collective counter (k all-gathers,
+   2k + 1 scalar and k vector reductions); (b) G = 2 and G = 4 ranks over
+   gloo on cuda:0: road at both (within rel 1e-9 of (a), its f64 Ritz
+   values too), the BSR matrix at G = 2 and the web graph (hybrid) at
+   G = 4 (each within rel 1e-9 of ``backend="single"``); every rank's
+   eigenvalues, tridiagonal and eigenvector digest identical; the shards'
+   nnz balance; a warm query's wall, its Lanczos time on the host clock
+   and its collectives' time by CUDA events; (c) at G = 2, ``eigsh(phase 8's directory,
+   backend="chunked", mesh=...)``: f32 staging within rel 1e-9 of phase 8,
+   bf16 within 8e-3, each rank launching its shares of every chunk and one
+   all-gather a matvec; (d) at G = 2, ``spmv_nan@iter=3`` under FFF with
+   ``recovery="auto"``: every rank escalates FFF -> FCF, finite results.
 
 ``repro_torch.eigsh`` keeps a cache of prepared sessions, so every call a
 phase reports as cold (``solve``) clears it first; phase 7 prints its
 state once.
 
-Then one JSON line of kernel records, and as the last line
+Then one JSON line of kernel records (``launches`` from the main path's
+phases, ``launches_distributed`` from phase 13's), and as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result when
 no CUDA device is visible.
 """
@@ -585,11 +610,14 @@ def chunk_ell_record(big, rows_range, chunk, g) -> dict:
     )
     lib = lambda: csr_t @ x  # noqa: E731
     close(lib(), run()[: r1 - r0], RTOL[torch.float32])
+    plain = lambda: ref.spmv_ell_ref(val, col, x, torch.float64)  # noqa: E731
     rec = {"rows": rows, "width": width, "max_abs_err": err, "ms": time_ms(run),
-           "device_ms": device_ms(run, tag="chunk"), "bound_ms": t_b, "bound_by": by,
-           "library_ms": time_ms(lib), "library_device_ms": device_ms(lib, tag="chunk library")}
+           "device_ms": device_ms(run, tag="chunk"), "plain_ms": time_ms(plain), "bound_ms": t_b,
+           "bound_by": by, "library_ms": time_ms(lib),
+           "library_device_ms": device_ms(lib, tag="chunk library")}
     print(f"[kernels] spmv_ell on one chunk {rows} x {width} (f32, f64): max_abs_err {err:.3e}; "
-          f"device {rec['device_ms']:.4f} ms, series {rec['ms']:.4f} ms, bound {t_b:.4f} ms; "
+          f"device {rec['device_ms']:.4f} ms, series {rec['ms']:.4f} ms, bound {t_b:.4f} ms, "
+          f"plain {rec['plain_ms']:.4f} ms; "
           f"cuSPARSE CSR f32 on its {r1 - r0:,} rows: device {rec['library_device_ms']:.4f} ms, "
           f"series {rec['library_ms']:.4f} ms")
     return rec
@@ -621,9 +649,11 @@ def mixed_dot_out_of_l2(n: int, g) -> dict:
         err = float((got.sum() - want.sum()).abs())
         check(err <= RTOL[torch.float64] * terms, f"mixed_dot out of L2: error {err:.3e} vs {terms:.3e}")
         check(float(entry()) == float(got.sum()), "mixed_dot out of L2: ops.mixed_dot != padded kernel")
+        plain = lambda: ref.mixed_dot_ref(a, b, torch.float64, compensated=comp)  # noqa: E731
         rec["compensated" if comp else "uncompensated"] = {
             "max_abs_err": err, "ms": time_ms(run), "device_ms": device_ms(run, tag="kernel"),
-            "entry_ms": time_ms(entry), "entry_device_ms": device_ms(entry, tag="ops.mixed_dot")}
+            "entry_ms": time_ms(entry), "entry_device_ms": device_ms(entry, tag="ops.mixed_dot"),
+            "plain_ms": time_ms(plain)}
     t_b, by = bound(nbytes(an, bn) + 16, 2.0 * n, torch.float64)
     rec.update(bound_ms=t_b, bound_by=by, library_ms=time_ms(lambda: torch.dot(an, bn)),
                library_device_ms=device_ms(lambda: torch.dot(an, bn), tag="torch.dot"))
@@ -631,7 +661,8 @@ def mixed_dot_out_of_l2(n: int, g) -> dict:
     print(f"[kernels] mixed_dot n={n:,} (float32, float64), out of L2: kernel device "
           f"{u['device_ms']:.4f} ms (compensated {c['device_ms']:.4f}); ops.mixed_dot device "
           f"{u['entry_device_ms']:.4f} ms (compensated {c['entry_device_ms']:.4f}); torch.dot "
-          f"{rec['library_device_ms']:.4f} ms; bound {t_b:.4f} ms")
+          f"{rec['library_device_ms']:.4f} ms; bound {t_b:.4f} ms; plain {u['plain_ms']:.4f} ms "
+          f"(compensated {c['plain_ms']:.4f})")
     return rec
 
 
@@ -1488,6 +1519,391 @@ def phase_serving(road, web, block, v_road, v_web, v_block, main_res, bsr_res, s
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ------------------------------------------------------- phase 13: distributed
+
+DIST_TIMEOUT = 600.0  # seconds for one spawn of ranks, start-up included
+
+
+def _digest(t: torch.Tensor) -> str:
+    import hashlib
+
+    return hashlib.blake2b(t.contiguous().cpu().numpy().tobytes(), digest_size=16).hexdigest()
+
+
+def _dist_load(job, name):
+    from repro_torch.sparse import CSR
+
+    arrs = [np.load(os.path.join(job["dir"], f"{name}_{f}.npy"))
+            for f in ("indptr", "indices", "data")]
+    return CSR(indptr=arrs[0], indices=arrs[1], data=arrs[2], shape=(len(arrs[0]) - 1,) * 2)
+
+
+def _warm_query(A, v, **kw):
+    """``(wall seconds, result)`` of one query on the session that an
+    ``eigsh(A, device="cuda", **kw)`` call just cached: no digest of the
+    matrix, no conversion."""
+    from repro_torch.api import SolverConfig, get_session
+
+    sess, hit = get_session(A, SolverConfig(device="cuda", **kw))
+    check(hit, "the warm query found no cached session")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sess.eigsh(K, v0=v)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, res
+
+
+def _dist_solve(A, v, warm: bool = True, **kw) -> dict:
+    """One cold ``eigsh`` (session cache cleared) with its launches and
+    collective calls, and, with ``warm``, a query on its cached session (its
+    wall time and timings)."""
+    import repro_torch
+    from repro_torch.core.distributed import ShardComm
+
+    repro_torch.session_cache_clear()
+    reset_launches()
+    ShardComm.reset_calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = repro_torch.eigsh(A, k=K, v0=v, device="cuda", **kw)
+    torch.cuda.synchronize()
+    out = {
+        "cold_s": time.perf_counter() - t0, "launches": read_launches(),
+        "calls": dict(ShardComm.calls), "backend": res.backend, "spmv_format": res.spmv_format,
+        "partition": res.partition, "eigenvalues": res.eigenvalues.cpu(),
+        "alpha": res.tridiag.alpha.cpu(), "beta": res.tridiag.beta.cpu(),
+        "x_digest": _digest(res.eigenvectors), "x_shape": tuple(res.eigenvectors.shape),
+        "x_finite": bool(torch.isfinite(res.eigenvectors).all()),
+        "recovery_trail": res.recovery_trail, "timings": res.timings,
+    }
+    if warm:
+        wall, again = _warm_query(A, v, **kw)
+        out.update(warm_s=wall, timings=again.timings,
+                   warm_ok=again.session_reuse and torch.equal(again.eigenvalues, res.eigenvalues))
+    return out
+
+
+def dist_rank(rank: int, world: int, job: dict) -> dict:
+    """Phase 13's work on one rank (spawned by ``repro_torch.launch.ranks``):
+    each of ``job["runs"]`` is (tag, kind, matrix, keywords)."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.testing import faults
+
+    out = {}
+    for tag, kind, name, kw in job["runs"]:
+        kw = dict(kw)
+        env = kw.pop("env", {})
+        os.environ.update(env)
+        try:
+            v = np.load(os.path.join(job["dir"], f"{name}_v.npy"))
+            if kind == "chunked":
+                mesh = DeviceMesh("cuda", list(range(world)), mesh_dim_names=("data",))
+                out[tag] = _dist_solve(job["path"], v, warm=False, backend="chunked", mesh=mesh,
+                                       **kw)
+            elif kind == "fault":
+                with faults.inject(kw.pop("fault")):
+                    out[tag] = _dist_solve(_dist_load(job, name), v, warm=False,
+                                           backend="distributed", **kw)
+            else:
+                out[tag] = _dist_solve(_dist_load(job, name), v, backend="distributed", **kw)
+        finally:
+            for key in env:
+                os.environ.pop(key, None)
+    return out
+
+
+def _rel_err(tag, got: torch.Tensor, want: torch.Tensor, rtol: float) -> float:
+    """Max difference of two sorted eigenvalue sets, relative to |lambda|max."""
+    g = np.sort(got.double().cpu().numpy())
+    w = np.sort(want.double().cpu().numpy())
+    check(g.shape == (K,) and np.isfinite(g).all(), f"{tag}: bad eigenvalues {g}")
+    err = float(np.abs(g - w).max() / np.abs(w).max())
+    check(err <= rtol, f"{tag}: eigenvalues differ by {err:.3e} > {rtol:.0e}")
+    return err
+
+
+def _ritz64(r) -> torch.Tensor:
+    """The K Ritz values of a result's f64 tridiagonal."""
+    a, b = r["alpha"].double().numpy(), r["beta"].double().numpy()
+    ev = np.linalg.eigvalsh(np.diag(a) + np.diag(b, 1) + np.diag(b, -1))
+    return torch.from_numpy(ev[np.argsort(-np.abs(ev))][:K].copy())
+
+
+def _rank0(tag, ranks, n) -> dict:
+    """Rank 0's result of ``tag`` after checking that every rank has its bits
+    (eigenvalues, the tridiagonal, the eigenvectors' digest)."""
+    r0 = ranks[0][tag]
+    for r, rk in enumerate(ranks[1:], 1):
+        got = rk[tag]
+        check(torch.equal(got["eigenvalues"], r0["eigenvalues"])
+              and torch.equal(got["alpha"], r0["alpha"]) and torch.equal(got["beta"], r0["beta"])
+              and got["x_digest"] == r0["x_digest"], f"{tag}: rank {r} differs from rank 0")
+    check(r0["x_finite"] and r0["x_shape"] == (n, K), f"{tag}: eigenvectors {r0['x_shape']}")
+    check(r0.get("warm_ok", True), f"{tag}: the warm repeat was not a reuse with the same bits")
+    return r0
+
+
+def _balance(part, A) -> str:
+    s = np.asarray(part["splits"])
+    nnz = np.diff(A.indptr[s])
+    return (f"shard nnz {nnz.tolist()} (max/mean {nnz.max() / nnz.mean():.4f}), rows "
+            f"{np.diff(s).tolist()}, n_pad {part['n_pad']:,}")
+
+
+def _time_line(r, smi) -> str:
+    """A solve's times: the warm repeat's wall; its Lanczos loop on the host
+    clock and, where the distributed backend times them, its collectives
+    by CUDA events around each call (two clocks: the difference is no
+    measured compute time); the Jacobi and projection; the cold call's
+    wall."""
+    t = r["timings"]
+    lz = t["lanczos_s"]
+    warm = f"warm solve {r['warm_s'] * 1e3:.1f} ms: " if "warm_s" in r else ""
+    split = ""
+    if "collective_s" in t:
+        split = f" (collectives, CUDA events around each call: {t['collective_s'] * 1e3:.1f} ms)"
+    return (f"{warm}lanczos {lz * 1e3:.1f} ms host{split}; jacobi {t['jacobi_s'] * 1e3:.1f} ms; "
+            f"project {t['project_s'] * 1e3:.1f} ms; cold call {r['cold_s']:.2f} s; on {smi}")
+
+
+def ell_share(csr, a: int, b: int, rows: int, width: int):
+    """Rows ``[a, b)`` of a host CSR laid out as the sharded chunk path
+    stages a rank's share: ``(rows, width)`` ELL, zeros past each row's
+    entries, values rounded to f32."""
+    ip = csr.indptr
+    lo, hi = int(ip[a]), int(ip[b])
+    starts = np.arange(b - a, dtype=np.int64) * width - (ip[a:b] - lo)
+    flat = np.repeat(starts, np.diff(ip[a : b + 1])) + np.arange(hi - lo)
+    val = np.zeros(rows * width, dtype=np.float32)
+    col = np.zeros(rows * width, dtype=np.int32)
+    val[flat], col[flat] = csr.data[lo:hi], csr.indices[lo:hi]
+    return val.reshape(rows, width), col.reshape(rows, width)
+
+
+def phase_shard_kernels(data) -> None:
+    """Phase 13, before the ranks: each kernel of the distributed path
+    against its plain version on the operands a rank gives it.  The first
+    and last shards of each run of (a)-(b), converted by
+    ``prepare_sharded(..., shards=...)`` as a rank converts its own, times
+    a random all-gathered ``(G * n_pad,)`` vector: road's ELL shards at
+    G = 2 and 4 (``spmv_ell``; ``spmv_ell_alpha`` with an ``(n_pad,)`` v;
+    ``lanczos_update`` at ``n_pad``), the ELL bulk of web's hybrid shards
+    at G = 4, kron's BSR shards at G = 2.  Then each rank's share of the
+    first chunk of phase 8's matrix at G = 2 (rows padded to 8 G, the
+    chunk's width), plain f32 and packed bf16, times the replicated
+    ``(n,)`` vector.  FDF's dtypes, phase 2's ``RTOL``."""
+    from repro_torch.core.distributed import prepare_sharded
+    from repro_torch.core.operators import chunk_row_bounds, chunk_rows_pad
+    from repro_torch.core.precision import FDF
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.engine import TileConfig
+    from repro_torch.kernels.spmv_ell_packed import pack_ell_chunk
+
+    fns = kernel_modules()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    S, A = MAIN_PAIR
+    errs, shapes = {}, {}
+
+    def note(name, err, shape):
+        errs[name] = max(errs.get(name, 0.0), err)
+        shapes.setdefault(name, []).append(shape)
+
+    for name, world, fmt, want in (("road", 2, "auto", "ell"), ("road", 4, "auto", "ell"),
+                                   ("web", 4, "auto", "hybrid"), ("block", 2, "bsr", "bsr")):
+        prep = prepare_sharded(data[name], world, FDF, fmt, shards=(0, world - 1), device="cuda")
+        check(prep.engine.format == want, f"{name} G={world}: format {prep.engine.format}")
+        n_pad = prep.pm.n_pad
+        for shard, mat in zip(prep.pm.shards, prep.mats):
+            x = torch.randn(world * n_pad, generator=g, dtype=torch.float64, device=dev).to(S)
+            tag = f"{name} G={world} shard {shard}"
+            if want == "bsr":
+                check(mat.n_cols == x.shape[0], f"{tag}: n_cols {mat.n_cols}")
+                y = fns["spmv_bsr"](mat.val, mat.bcol, x, accum_dtype=A, n_cols=mat.n_cols)
+                note("spmv_bsr", close(y, ref.spmv_bsr_ref(mat.val, mat.bcol, x, A), RTOL[A]),
+                     f"{tag} {tuple(mat.val.shape)}")
+                continue
+            val, col = (mat.val, mat.col) if want == "ell" else (mat.ell_val, mat.ell_col)
+            note("spmv_ell", close(fns["spmv_ell"](val, col, x, accum_dtype=A),
+                                   ref.spmv_ell_ref(val, col, x, A), RTOL[A]),
+                 f"{tag} {tuple(val.shape)}")
+            if want != "ell":
+                continue
+            v = torch.randn(mat.n_rows, generator=g, dtype=A, device=dev)
+            (w, al), (wr, alr) = (fns["spmv_ell_alpha"](val, col, x, v, accum_dtype=A),
+                                  ref.spmv_ell_alpha_ref(val, col, x, v, A))
+            terms = float((v.double().abs() * wr[: mat.n_rows].double().abs()).sum())
+            err = max(close(w, wr, RTOL[A]),
+                      close(al.reshape(1), alr.reshape(1), RTOL[A], scale=terms))
+            note("spmv_ell_alpha", err, f"{tag} {tuple(val.shape)}")
+            w, vv, vp = (torch.randn(n_pad, generator=g, dtype=A, device=dev) for _ in range(3))
+            a, b = (torch.tensor(c, dtype=A, device=dev) for c in (0.37, 1.21))
+            (u, nr), (ur, nrr) = (fns["lanczos_update"](w, vv, vp, a, b, accum_dtype=A),
+                                  ref.lanczos_update_ref(w, vv, vp, a, b, A))
+            err = max(close(u, ur, RTOL[A]), close(nr.reshape(1), nrr.reshape(1), RTOL[A]))
+            note("lanczos_update", err, f"{tag} ({n_pad},)")
+        del prep
+    big, tiles, world = data["central"], TileConfig(), 2
+    r0, r1 = chunk_row_bounds(big.indptr, big.n, 1 << 20)[0]
+    width = -(-int(big.row_nnz()[r0:r1].max()) // tiles.block_w) * tiles.block_w
+    share = chunk_rows_pad(r1 - r0, tiles.block_r * world) // world
+    x = torch.randn(big.n, generator=g, dtype=torch.float64, device=dev).to(S)
+    for rank in range(world):
+        a = min(r1, r0 + rank * share)
+        val, col = ell_share(big, a, min(r1, a + share), share, width)
+        tag = f"central chunk 0 G={world} rank {rank} ({share} x {width})"
+        vt, ct = torch.from_numpy(val).to(dev), torch.from_numpy(col).to(dev)
+        note("spmv_ell", close(fns["spmv_ell"](vt, ct, x, accum_dtype=A),
+                               ref.spmv_ell_ref(vt, ct, x, A), RTOL[A]), f"{tag} f32")
+        packed = [t.to(dev) for t in pack_ell_chunk(val, col, "bf16")]
+        note("spmv_ell_packed", close(fns["spmv_ell_packed"](*packed, x, accum_dtype=A),
+                                      ref.spmv_ell_packed_ref(*packed, x, A), RTOL[A]),
+             f"{tag} bf16")
+    for name in KERNEL_ORDER:
+        if name in errs:
+            dt = dname(A) if name == "lanczos_update" else f"{dname(S)} storage, {dname(A)}"
+            print(f"[dist] shard shapes, {name} ({dt}) vs its plain "
+                  f"version: max_abs_err {errs[name]:.3e} (<= {RTOL[A]:.0e} of max |y|) ok on "
+                  f"{'; '.join(shapes[name])}")
+    check(set(errs) == set(KERNEL_ORDER) - {"mixed_dot"}, f"shard checks ran {sorted(errs)}")
+
+
+def phase_distributed(data, path, chunk_res, smi) -> dict:
+    """Phase 13: the distributed backend on one card (see the module doc).
+    Returns the launches of one ``eigsh(k=8)`` on the distributed path, per
+    kernel."""
+    import repro_torch
+    from repro_torch.launch.ranks import run_ranks
+
+    mats = {"road": data["road"], "web": data["web"], "block": data["block"]}
+    v = data["v"]
+    singles = {}
+    for name, A in mats.items():
+        singles[name] = solve(A, "cuda", v[name], backend="single", reorth="full")[0]
+        if name == "road":
+            wall, res = _warm_query(A, v[name], backend="single", reorth="full")
+            t = res.timings
+            print(f"[dist] road backend='single', reorth='full', for comparison: warm solve "
+                  f"{wall * 1e3:.1f} ms (lanczos {t['lanczos_s'] * 1e3:.1f} ms, jacobi "
+                  f"{t['jacobi_s'] * 1e3:.1f} ms, project {t['project_s'] * 1e3:.1f} ms) on {smi}")
+    repro_torch.session_cache_clear()
+    phase_shard_kernels(data)
+    torch.cuda.empty_cache()
+    d = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    try:
+        for name, A in mats.items():
+            for f in ("indptr", "indices", "data"):
+                np.save(os.path.join(d, f"{name}_{f}.npy"), getattr(A, f))
+            np.save(os.path.join(d, f"{name}_v.npy"), v[name])
+        np.save(os.path.join(d, "central_v.npy"), v["central"])
+        job = {"dir": d, "path": path}
+        road = mats["road"]
+
+        # (a) a world of one over NCCL
+        t0 = time.perf_counter()
+        (a,) = run_ranks(dist_rank, 1, backend="nccl", device="cuda", timeout=DIST_TIMEOUT, args=(
+            {**job, "runs": [("road", "solve", "road", {}),
+                             ("fused_spmv", "solve", "road",
+                              {"env": {"REPRO_ITER_UPDATE": "fused_spmv"}})]},))
+        ra, rf = _rank0("road", [a], road.n), _rank0("fused_spmv", [a], road.n)
+        la, lf, ca = ra["launches"], rf["launches"], ra["calls"]
+        check(ra["backend"] == "distributed" and ra["spmv_format"] == ("ell",),
+              f"(a) {ra['backend']} {ra['spmv_format']}")
+        check(la["spmv_ell"] == K and la["lanczos_update"] == K and la["spmv_ell_alpha"] == 0,
+              f"(a) launches {la}")
+        check(lf["spmv_ell_alpha"] == K and lf["lanczos_update"] == K and lf["spmv_ell"] == 0,
+              f"(a) fused_spmv launches {lf}")
+        check(ca["all_gather"] == K and ca["reduce_scalar"] == 2 * K + 1
+              and ca["reduce_vector"] == K and ca["gather_x"] == 1, f"(a) collective calls {ca}")
+        err = _rel_err("(a)", ra["eigenvalues"], singles["road"].eigenvalues, 1e-9)
+        errf = _rel_err("(a) fused_spmv", rf["eigenvalues"], singles["road"].eigenvalues, 1e-9)
+        print(f"[dist] (a) world of one over NCCL, eigsh(road n={road.n:,}, k={K}, "
+              f"backend='distributed'): format {ra['spmv_format']}; per eigsh launches {la}, "
+              f"collective calls {ca}; vs backend='single', reorth='full', same v0: max rel err "
+              f"{err:.3e} (<= 1e-9); REPRO_ITER_UPDATE=fused_spmv: launches {lf}, max rel err "
+              f"{errf:.3e}; spawn + runs {time.perf_counter() - t0:.1f} s")
+        print(f"[dist] (a) {_time_line(ra, smi)}")
+
+        # (b), (c), (d): G ranks over gloo, all on cuda:0
+        plans = {
+            2: [("road", "solve", "road", {}), ("block", "solve", "block", {"format": "bsr"}),
+                ("central_f32", "chunked", "central", {"staging": "f32"}),
+                ("central_bf16", "chunked", "central", {"staging": "bf16"}),
+                ("fault", "fault", "road",
+                 {"fault": "spmv_nan@iter=3", "policy": "FFF", "recovery": "auto"})],
+            4: [("road", "solve", "road", {}), ("web", "solve", "web", {})],
+        }
+        want_fmt = {"road": "ell", "web": "hybrid", "block": "bsr"}
+        ritz_a = _ritz64(ra)
+        out = {}
+        for g, runs in plans.items():
+            t0 = time.perf_counter()
+            out[g] = ranks = run_ranks(dist_rank, g, backend="gloo", device="cuda",
+                                       timeout=DIST_TIMEOUT, args=({**job, "runs": runs},))
+            print(f"[dist] G={g} ranks over gloo on cuda:0: spawn + runs "
+                  f"{time.perf_counter() - t0:.1f} s")
+            for tag in (t for t, kind, _, _ in runs if kind == "solve"):
+                A, fmt = mats[tag], want_fmt[tag]
+                r = _rank0(tag, ranks, A.n)
+                kernel = "spmv_bsr" if fmt == "bsr" else "spmv_ell"
+                check(r["spmv_format"] == (fmt,) * g, f"G={g} {tag}: format {r['spmv_format']}")
+                check(r["launches"][kernel] == K and r["launches"]["lanczos_update"] == K,
+                      f"G={g} {tag}: launches {r['launches']}")
+                err = _rel_err(f"G={g} {tag}", r["eigenvalues"], singles[tag].eigenvalues, 1e-9)
+                vs_a = ""
+                if tag == "road":
+                    e_a = _rel_err(f"G={g} road vs (a)", r["eigenvalues"], ra["eigenvalues"], 1e-9)
+                    e_r = _rel_err(f"G={g} road Ritz vs (a)", _ritz64(r), ritz_a, 1e-9)
+                    vs_a = f"; vs (a): {e_a:.3e}, f64 Ritz values {e_r:.3e} (<= 1e-9)"
+                print(f"[dist] G={g} {tag} ({fmt}): ranks bit-identical (eigenvalues, tridiagonal, "
+                      f"X digest); vs backend='single': max rel err {err:.3e} (<= 1e-9){vs_a}; "
+                      f"launches {r['launches']}; collective calls {r['calls']}")
+                print(f"[dist] G={g} {tag}: {_balance(r['partition'], A)}")
+                print(f"[dist] G={g} {tag}: {_time_line(r, smi)}")
+
+        # (c) the sharded chunk path, against phase 8's unsharded solve
+        ranks = out[2]
+        for tag, kernel, tol in (("central_f32", "spmv_ell", 1e-9),
+                                 ("central_bf16", "spmv_ell_packed", 8e-3)):
+            r = _rank0(tag, ranks, chunk_res.n)
+            chunks = r["partition"]["num_chunks"]
+            check(r["backend"] == "chunked" and r["launches"][kernel] == chunks * K,
+                  f"(c) {tag}: launches {r['launches']} over {chunks} chunks")
+            check(r["calls"]["all_gather"] == K, f"(c) {tag}: collective calls {r['calls']}")
+            err = _rel_err(f"(c) {tag}", r["eigenvalues"], chunk_res.eigenvalues, tol)
+            staged = [rk[tag]["partition"]["spmv"]["staging"]["bytes_staged"] for rk in ranks]
+            print(f"[dist] (c) G=2 eigsh(diskcsr road_central, backend='chunked', mesh) {tag}: "
+                  f"{chunks} chunks, {r['launches'][kernel]} {kernel} launches and "
+                  f"{r['calls']['all_gather']} all-gathers per rank, bytes staged per rank "
+                  f"{staged}; vs phase 8 (unsharded): max rel err {err:.3e} (<= {tol:.0e}); "
+                  f"{_time_line(r, smi)}")
+
+        # (d) a fault at G = 2: every rank takes the reference's step
+        for rank, rk in enumerate(ranks):
+            steps = [(t["action"], t.get("from"), t.get("to"))
+                     for t in rk["fault"]["recovery_trail"] or []]
+            check(steps == [("escalate_policy", "FFF", "FCF")], f"(d) rank {rank}: trail {steps}")
+        r = _rank0("fault", ranks, road.n)
+        check(np.isfinite(r["eigenvalues"].numpy()).all(), "(d) non-finite eigenvalues")
+        print(f"[dist] (d) G=2 spmv_nan@iter=3 under FFF, recovery='auto': every rank's trail "
+              f"[escalate_policy FFF -> FCF], finite result, ranks bit-identical")
+        # mixed_dot is on no solver path: every rank of every run launched it 0 times
+        dots = [rk[tag]["launches"]["mixed_dot"]
+                for rk in (a, *out[2], *out[4]) for tag in rk]
+        check(max(dots) == 0, f"mixed_dot launched {max(dots)} times on the distributed path")
+        return {
+            "spmv_ell": la["spmv_ell"],
+            "lanczos_update": la["lanczos_update"],
+            "spmv_ell_alpha": lf["spmv_ell_alpha"],
+            "spmv_bsr": out[2][0]["block"]["launches"]["spmv_bsr"],
+            "spmv_ell_packed": out[2][0]["central_bf16"]["launches"]["spmv_ell_packed"],
+            "mixed_dot": la["mixed_dot"],
+        }
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
 def phase_device() -> str:
     """Phase 1: the card's name and power limit (``nvidia-smi``, returned),
     the versions, and the build of the kernels with each new kernel's
@@ -1689,6 +2105,9 @@ def main() -> int:
 
         # ---- phase 12: the measured autotuner and the serving layer
         phase_serving(road, web, block, v_road, v_web, v_block, main_res, bres, smi)
+
+        # ---- phase 13: the distributed backend (needs phase 8's directory)
+        dist_launches = phase_distributed(data, path, chunk_res, smi)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1706,7 +2125,8 @@ def main() -> int:
         source, replaces = KERNEL_META[name]
         kernels.append(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": launches[name], **records[name]}
+             "launches": launches[name], "launches_distributed": dist_launches[name],
+             **records[name]}
         )
     print(smi)
     print(json.dumps({"kernels": kernels}))

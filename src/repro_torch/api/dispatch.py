@@ -8,8 +8,11 @@ that decision as an explicit, testable function of the input:
      Lanczos cannot promise a residual, thick-restart can, so an explicit
      ``tol`` always wins (use ``backend="distributed"`` explicitly to keep
      the multi-device path; ``tol`` then only defines the converged flags).
-  2. ``"distributed"`` — an explicit sparse matrix and >1 visible device:
-     the paper's nnz-balanced multi-GPU partition (its headline mode).
+  2. ``"distributed"`` — an explicit sparse matrix and >1 device: the
+     paper's nnz-balanced multi-GPU partition (its headline mode).  The
+     port counts the ranks of the mesh, or of the default process group
+     (one process drives one card, so ``torch.cuda.device_count()`` is not
+     the count).
   3. ``"chunked"``     — an explicit sparse matrix too large to keep
      device-resident: the paper's out-of-core unified-memory mode.  Triggered
      above ``CHUNKED_NNZ_THRESHOLD`` non-zeros (~25M nnz ≈ 300 MB of COO
@@ -20,11 +23,8 @@ that decision as an explicit, testable function of the input:
 Explicit ``backend=`` requests skip the policy but are validated (the
 distributed and chunked paths need an explicit sparse matrix).
 
-This is the reference's ``select_backend``, verbatim.  The port runs
-``"single"``, ``"restarted"`` and ``"chunked"``; the session raises
-``NotImplementedError`` for ``"distributed"``, naming the ROADMAP item that
-brings it.  The session passes ``disk_bytes`` for a DiskCSR input, as the
-reference's does.
+This is the reference's ``select_backend``, verbatim.  The session passes
+``disk_bytes`` for a DiskCSR input, as the reference's does.
 """
 
 from __future__ import annotations
@@ -72,9 +72,9 @@ def select_backend(
         mappings count: they can be re-partitioned/chunked from disk).
       nnz: non-zeros of that CSR (0 for matrix-free inputs).
       tol: requested convergence tolerance (None = fixed-iteration mode).
-      device_count: visible (or mesh-provided) device count.
+      device_count: the mesh's size, or the default process group's world size.
       free_bytes: host-memory budget; defaults to the live reading.
-      mesh_given: the caller passed an explicit ``jax.sharding.Mesh`` — under
+      mesh_given: the caller passed an explicit ``DeviceMesh`` — under
         "auto" that is an explicit request for the distributed path and must
         not be silently dropped (e.g. when ``tol`` would pick restarted).
       disk_bytes: on-disk payload size of a disk-backed (DiskCSR) input, or

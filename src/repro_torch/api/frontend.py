@@ -12,9 +12,17 @@ The call coerces the input, picks the backend, builds the SpMV layout on
 of the reference (``repro.api.eigsh``).  The default ``device="cuda"``
 raises when no card is visible: the port never falls back to the host
 silently.  Backends: ``"single"`` (fixed subspace, in core),
-``"restarted"`` (thick restart, selected by any ``tol=``) and the
+``"restarted"`` (thick restart, selected by any ``tol=``), the
 out-of-core ``"chunked"``, which streams an in-RAM CSR or a diskcsr
-directory (a path or a ``DiskCSR``) to the device chunk by chunk.
+directory (a path or a ``DiskCSR``) to the device chunk by chunk, and
+``"distributed"``: the nnz-balanced row partition over the ranks of a
+``torch.distributed`` process group, SPMD (every rank calls ``eigsh`` on
+the same matrix and gets the whole result)::
+
+    # torchrun --nproc-per-node 2 script.py, each rank on its own card
+    dist.init_process_group("nccl", timeout=datetime.timedelta(minutes=5))
+    mesh = init_device_mesh("cuda", (dist.get_world_size(),), mesh_dim_names=("data",))
+    res = repro_torch.eigsh(A, k=8, mesh=mesh)     # backend="distributed"
 
 ``eigsh`` goes through a small fingerprint-keyed cache of prepared
 sessions (``api/session.py``), as the reference's does: a repeat call on a
@@ -77,15 +85,16 @@ def resolve_policy(policy: Union[str, Mapping, PrecisionPolicy]) -> PrecisionPol
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
     """The solver knobs of :func:`eigsh` as one value (the reference's
-    fields that the port runs, plus ``device``).  The fields that change
-    what a session builds (``backend``, ``format``, ``chunk_nnz``,
-    ``stage_depth``, ``staging``, ``device``) key the session cache; the
-    rest are per-query defaults."""
+    fields, plus ``device``).  The fields that change what a session builds
+    (``backend``, ``format``, ``chunk_nnz``, ``stage_depth``, ``axis``,
+    ``staging``, ``device``) key the session cache; the rest are per-query
+    defaults."""
 
     policy: Union[str, PrecisionPolicy] = "FDF"
     backend: str = "auto"
-    # None = the paper's "half" on one device; the restarted backend always
-    # re-orthogonalizes fully.
+    # None = the paper's per-engine default: "half" on one device, "full" on
+    # the distributed backend; the restarted backend always re-orthogonalizes
+    # fully.
     reorth: Optional[str] = None
     tol: Optional[float] = None
     num_iters: Optional[int] = None
@@ -101,6 +110,7 @@ class SolverConfig:
     # spmv_ell_packed kernel; "auto" packs when the storage dtype is narrow.
     staging: str = "f32"
     jacobi: str = "host"  # phase-2 placement: "host" (paper) or "jax" (the device)
+    axis: str = "data"  # the mesh dimension the distributed backend shards over
     # Breakdown handling: "raise" (default: the health probe turns NaN/Inf
     # and beta underflow into a typed NumericalBreakdown), "auto" (probe and
     # escalate: reseed / policy rung up / unfuse / chunked fallback, trail on
@@ -145,6 +155,8 @@ def eigsh(
     stage_depth: int = 1,
     staging: str = "f32",
     jacobi: str = "host",
+    mesh=None,
+    axis: str = "data",
     recovery: Optional[str] = None,
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 8,
@@ -178,7 +190,13 @@ def eigsh(
     compression and the chunked engine every ``checkpoint_every`` steps
     (and every ``REPRO_CHUNK_CKPT_EVERY`` chunks within a step): a solve
     killed mid-run and called again with the same arguments resumes and
-    gives the same bits.
+    gives the same bits.  ``mesh`` is a 1-D
+    ``torch.distributed.device_mesh.DeviceMesh`` whose dimension is named
+    ``axis``: under ``backend="auto"`` it requests the distributed backend,
+    and with ``backend="chunked"`` each rank stages its share of every
+    chunk.  Without one, ``backend="auto"`` picks the distributed backend
+    when the default process group has more than one rank.  The
+    distributed backend re-orthogonalizes fully by default.
     """
     cfg = config or SolverConfig(
         policy=policy,
@@ -194,6 +212,7 @@ def eigsh(
         stage_depth=stage_depth,
         staging=staging,
         jacobi=jacobi,
+        axis=axis,
         recovery=recovery,
         checkpoint_dir=checkpoint_dir,
         checkpoint_every=checkpoint_every,
@@ -201,7 +220,7 @@ def eigsh(
     )
     from .session import EigQuery, get_session  # lazy: session imports this module
 
-    session, _hit = get_session(A, cfg, n=n)
+    session, _hit = get_session(A, cfg, mesh=mesh, n=n)
     # Per-query fields come from THIS call's config: a cached session may
     # have been prepared under other solver defaults.
     q = EigQuery(

@@ -11,9 +11,15 @@ runs queries against it:
     rs = sess.eigsh_many([{"k": 4}, {"k": 8}])    # one shared sweep
 
 Backends: ``"single"`` (the in-core layout on one device), ``"restarted"``
-(thick restart on the same in-core layout, selected by any ``tol=``) and
+(thick restart on the same in-core layout, selected by any ``tol=``),
 ``"chunked"`` (:class:`~repro_torch.core.operators.ChunkedOperator`: the
-matrix stays on the host and streams to the device chunk by chunk).
+matrix stays on the host and streams to the device chunk by chunk; with
+``mesh=`` each rank stages its share of every chunk) and ``"distributed"``
+(``core/distributed.py``: the nnz-balanced row partition over the ranks of
+a ``DeviceMesh`` axis or the default process group, one
+:class:`~repro_torch.core.distributed.PreparedShards` per policy's dtypes).
+The port is SPMD: every rank builds its own session on the same matrix and
+gets the whole result.
 
 ``eigsh_many`` groups queries by (backend, policy, reorth, jacobi,
 recovery); each group runs ONE sweep at its largest subspace per start
@@ -38,12 +44,15 @@ and import (:meth:`EigenSession.import_plans`) as host NumPy arrays plus
 their engine configuration: the serving layer's ``SessionStore`` warms a
 restarted server from them with no conversion and no tuner probe.
 
-This is the reference's ``repro/api/session.py`` without the distributed
-backend (ROADMAP queue A, "Multi-device").
+This is the reference's ``repro/api/session.py``.  Its default mesh (all
+visible devices) becomes the default process group here, and the world
+size stands in for the device count that lets ``backend="auto"`` pick the
+distributed path.
 """
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import hashlib
 import math
@@ -58,6 +67,7 @@ import numpy as np
 import torch
 
 from ..configs import env as envcfg
+from ..core.distributed import PreparedShards, ShardComm, prepare_sharded, solve_sharded
 from ..core.eigensolver import JACOBI_PLACEMENTS, solve_fixed
 from ..core.lanczos import NumericalBreakdown, ops_for_operator, resolve_update_mode
 from ..core.operators import (
@@ -101,15 +111,11 @@ __all__ = [
 
 _UNSET = object()  # "inherit the session default", as distinct from None
 
-# Backends the reference runs that this port does not yet, and the ROADMAP
-# queue A item that brings each.
-_NOT_PORTED = {"distributed": "Multi-device"}
-
 # SolverConfig fields that change what a session builds; the per-query
 # fields (k, policy, tol, num_iters, reorth, seed, subspace, max_restarts,
 # jacobi, recovery) are resolved per query.  ``device`` is the port's own:
 # a session's layouts live on one device.
-_LAYOUT_FIELDS = ("backend", "format", "chunk_nnz", "stage_depth", "staging", "device")
+_LAYOUT_FIELDS = ("backend", "format", "chunk_nnz", "stage_depth", "axis", "staging", "device")
 
 # Largest on-disk payload the auto ladder's f64 residual check will
 # materialize: a bigger DiskCSR stays on disk and the ladder judges the
@@ -307,11 +313,13 @@ def _tensor_bytes(*ts) -> int:
 
 @dataclasses.dataclass
 class _Prepared:
-    """One built execution plan: a device operator and what it cost."""
+    """One built execution plan: a device operator (single, chunked) or this
+    rank's shard set (distributed), and what it cost."""
 
-    operator: LinearOperator
+    operator: Optional[LinearOperator]
     spmv_format: str
     engine: Optional[SpmvEngine]
+    shards: Optional[PreparedShards] = None
     build_s: float = 0.0
     conversions: int = 0
     tuner_probes: int = 0
@@ -332,6 +340,8 @@ class _Prepared:
         """Bytes of the plan's own tensors (the device layout, or a chunked
         operator's staging windows)."""
         op = self.operator
+        if self.shards is not None:
+            return sum(_tensor_bytes(*vars(m).values()) for m in self.shards.mats)
         if isinstance(op, SparseOperator):
             return _tensor_bytes(*vars(op.mat).values())
         if isinstance(op, DenseOperator):
@@ -342,7 +352,8 @@ class _Prepared:
 
 
 class EigenSession:
-    """Prepared solve state for one matrix on one device (see module doc).
+    """Prepared solve state for one matrix on one device (see module doc);
+    ``mesh`` is an optional 1-D ``DeviceMesh`` for the distributed backend.
 
     Queries on one session run one batch at a time (an internal lock: the
     operators and counters are single-stream); distinct sessions run in
@@ -350,8 +361,8 @@ class EigenSession:
     (queries whose plan was already built).
     """
 
-    def __init__(self, A, config: Optional[SolverConfig] = None, *, n: Optional[int] = None,
-                 _coerced: Optional[CoercedInput] = None):
+    def __init__(self, A, config: Optional[SolverConfig] = None, *, mesh=None,
+                 n: Optional[int] = None, _coerced: Optional[CoercedInput] = None):
         cfg = config or SolverConfig()
         if cfg.format not in ("auto",) + FORMATS:
             raise ValueError(
@@ -359,6 +370,10 @@ class EigenSession:
             )
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
+        self.mesh = _check_mesh(mesh)
+        # The counterpart of the reference's visible device count: the
+        # mesh's size, else the default process group's world size.
+        self.device_count = mesh.size() if mesh is not None else ShardComm().size
         t0 = time.perf_counter()
         conv0, probes0 = conversion_count(), tuner_probe_count()
         pol0 = _plan_policy(cfg.policy)
@@ -440,26 +455,20 @@ class EigenSession:
     # ----------------------------------------------------------- planning
 
     def _resolve_backend(self, tol: Optional[float]) -> str:
-        backend = select_backend(
+        return select_backend(
             self.cfg.backend,
             has_matrix=self.csr is not None,
             nnz=self.csr.nnz if self.csr is not None else 0,
             tol=tol,
-            # One device per solve until the distributed backend is ported.
-            device_count=1,
+            device_count=self.device_count,
+            mesh_given=self.mesh is not None,
             disk_bytes=self.csr.nbytes_on_disk() if isinstance(self.csr, DiskCSR) else None,
         )
-        if backend in _NOT_PORTED:
-            raise NotImplementedError(
-                f"backend {backend!r} is not ported to PyTorch yet (ROADMAP queue A, "
-                f"{_NOT_PORTED[backend]!r})"
-            )
-        return backend
 
     def _ensure(self, backend: str, pol: PrecisionPolicy) -> Tuple[_Prepared, bool]:
         """The plan for (placement, policy dtypes): built once, then reused.
         Restarted queries run on the in-core plan of fixed ones."""
-        kind = "chunked" if backend == "chunked" else "single"
+        kind = backend if backend in ("distributed", "chunked") else "single"
         key = (kind, _plan_key(pol))
         if kind == "chunked":  # the staging pin is part of the plan
             key += (envcfg.raw("REPRO_CHUNK_STAGING") or self.cfg.staging,)
@@ -469,7 +478,12 @@ class EigenSession:
                 return hit, False
             t0 = time.perf_counter()
             conv0, probes0 = conversion_count(), tuner_probe_count()
-            prep = self._build_chunked(pol) if kind == "chunked" else self._build_single(pol)
+            if kind == "distributed":
+                prep = self._build_distributed(pol)
+            elif kind == "chunked":
+                prep = self._build_chunked(pol)
+            else:
+                prep = self._build_single(pol)
             prep.build_s = time.perf_counter() - t0
             prep.conversions = conversion_count() - conv0
             prep.tuner_probes = tuner_probe_count() - probes0
@@ -505,7 +519,8 @@ class EigenSession:
         # REPRO_CHUNK_STAGING pins the staged-chunk encoding for A/B runs,
         # over the config (ChunkedOperator validates the value).
         kw = dict(chunk_nnz=cfg.chunk_nnz, dtype=pol.storage, stage_depth=cfg.stage_depth,
-                  staging=envcfg.raw("REPRO_CHUNK_STAGING") or cfg.staging, device=self.device)
+                  staging=envcfg.raw("REPRO_CHUNK_STAGING") or cfg.staging, device=self.device,
+                  mesh=self.mesh, axis=cfg.axis)
         fmt = cfg.format if cfg.format != "auto" else "ell"
         # Per-chunk BSR / hybrid staging does not exist: ELL or COO.
         engine = make_engine(csr, fmt, accum_dtype=acc, allowed=("coo", "ell"),
@@ -525,6 +540,17 @@ class EigenSession:
                                      storage_dtype=pol.storage, device=self.device)
                 op = ChunkedOperator(csr, engine=engine, **kw)
         return _Prepared(op, engine.format, engine)
+
+    def _build_distributed(self, pol: PrecisionPolicy) -> _Prepared:
+        """This rank's shard of the nnz-balanced partition (a DiskCSR is
+        read once: every rank partitions the whole matrix)."""
+        # The mesh's ``axis`` group, else the default process group, else a
+        # world of one (the reference's ``_mesh_for_solve``).
+        comm = ShardComm(self.mesh, self.cfg.axis)
+        csr = self.csr.to_csr() if isinstance(self.csr, DiskCSR) else self.csr
+        shards = prepare_sharded(csr, comm.size, pol, self.cfg.format, device=self.device,
+                                 comm=comm)
+        return _Prepared(None, shards.engine.format, shards.engine, shards=shards)
 
     # ---------------------------------------------------------- execution
 
@@ -883,6 +909,8 @@ class EigenSession:
             starts.setdefault(q.start_key, []).append(q)
         if backend == "restarted":
             return self._run_restarted(starts, prep, built)
+        if backend == "distributed":
+            return self._run_distributed(starts, prep, built)
         return self._run_fixed(starts, prep, built, backend, fused_pin=fused_pin)
 
     def _solve_group_recovering(self, group: List[_NormQuery]):
@@ -928,7 +956,9 @@ class EigenSession:
                     entry["to"] = nxt.name
                     qs = [q._replace(pol=nxt, pkey=policy_key(nxt)) for q in qs]
                 elif action == "unfuse":
-                    if fused_pin is False:
+                    # The distributed loop has no unfused pin (as in the
+                    # reference): a kernel error there re-raises.
+                    if fused_pin is False or qs[0].backend == "distributed":
                         raise self._attach_trail(exc, trail)
                     entry["from"] = "fused"
                     entry["to"] = "unfused"
@@ -956,7 +986,7 @@ class EigenSession:
 
     def _finish(self, q: _NormQuery, prep: _Prepared, built: bool, *, eigenvalues, eigenvectors,
                 residuals, evals_f64, iterations, restarts, timings, partition, tridiag,
-                group_size) -> Tuple[int, EigenResult]:
+                group_size, spmv_format=None) -> Tuple[int, EigenResult]:
         # Flags from the engines' f64 eigenvalues, so they agree with the
         # restarted engine's own stopping decision.
         lam = np.abs(np.asarray(evals_f64, dtype=np.float64))
@@ -1004,10 +1034,10 @@ class EigenSession:
             backend=q.backend,
             policy=q.pol.name,
             tol=q.tol_eff,
-            num_devices=1,
+            num_devices=self.device_count if q.backend == "distributed" else 1,
             partition=part,
             timings=t,
-            spmv_format=prep.spmv_format,
+            spmv_format=spmv_format if spmv_format is not None else prep.spmv_format,
             tridiag=tridiag,
             session_reuse=not built,
         )
@@ -1060,6 +1090,9 @@ class EigenSession:
             staging0 = dict(prep.operator.staging) if chunked else {}
             ckpt = None
             if chunked:  # as in the reference, only the chunked sweep snapshots
+                if self.mesh is not None and qs[0].ckpt_dir is not None:
+                    raise ValueError("checkpoint_dir= is not supported on the sharded chunk "
+                                     "path (mesh= with backend='chunked')")
                 pair = self._solve_checkpoint(qs[0], pol, backend, k_max, m)
                 if pair is not None:
                     # The operator rides along so the loop can save and
@@ -1093,6 +1126,36 @@ class EigenSession:
                     partition=partition,
                     tridiag=sweep.tridiag,
                     group_size=len(qs),
+                ))
+        return out
+
+    def _run_distributed(self, starts, prep: _Prepared, built: bool):
+        """One sharded sweep per start vector on the session's shard set."""
+        out = []
+        for qs in starts.values():
+            q0 = qs[0]
+            k_max = max(q.k for q in qs)
+            m = max(q.m for q in qs)
+            sweep = solve_sharded(
+                self.csr, k_max, self.mesh, policy=q0.pol, reorth=q0.reorth, num_iters=m,
+                seed=q0.seed, axis=self.cfg.axis, v1=q0.v0, prepared=prep.shards,
+                probe=q0.recovery != "none", device=self.device,
+            )
+            self.stats["sweeps"] += 1
+            for q in qs:
+                out.append(self._finish(
+                    q, prep, built,
+                    eigenvalues=sweep.eigenvalues[: q.k],
+                    eigenvectors=sweep.eigenvectors[:, : q.k],
+                    residuals=sweep.residuals[: q.k],
+                    evals_f64=sweep.eigenvalues_f64[: q.k],
+                    iterations=sweep.iterations,
+                    restarts=0,
+                    timings=sweep.timings,
+                    partition=sweep.partition,
+                    tridiag=sweep.tridiag,
+                    group_size=len(qs),
+                    spmv_format=sweep.spmv_format,
                 ))
         return out
 
@@ -1240,6 +1303,7 @@ def prepare(
     *,
     config: Optional[SolverConfig] = None,
     n: Optional[int] = None,
+    mesh=None,
     policy="FDF",
     backend: str = "auto",
     format: str = "auto",
@@ -1253,6 +1317,7 @@ def prepare(
     stage_depth: int = 1,
     staging: str = "f32",
     jacobi: str = "host",
+    axis: str = "data",
     recovery: Optional[str] = None,
     checkpoint_dir: Optional[str] = None,
     checkpoint_every: int = 8,
@@ -1276,21 +1341,22 @@ def prepare(
         stage_depth=stage_depth,
         staging=staging,
         jacobi=jacobi,
+        axis=axis,
         recovery=recovery,
         checkpoint_dir=checkpoint_dir,
         checkpoint_every=checkpoint_every,
         device=device,
     )
-    return EigenSession(A, cfg, n=n).warmup()
+    return EigenSession(A, cfg, mesh=mesh, n=n).warmup()
 
 
 def eigsh_many(A, queries, *, config: Optional[SolverConfig] = None, n: Optional[int] = None,
-               **solver_kwargs) -> List[EigenResult]:
+               mesh=None, **solver_kwargs) -> List[EigenResult]:
     """Module-level batched solve: the cached session (or a fresh one), then
     :meth:`EigenSession.eigsh_many`.  ``solver_kwargs`` are the
     :class:`SolverConfig` fields; queries are dicts, :class:`EigQuery` or ints."""
     cfg = config or SolverConfig(**solver_kwargs)
-    session, _ = get_session(A, cfg, n=n)
+    session, _ = get_session(A, cfg, mesh=mesh, n=n)
     return session.eigsh_many(queries, defaults=cfg)
 
 
@@ -1310,12 +1376,35 @@ def _cache_budget_bytes() -> int:
     return int(envcfg.get_float("REPRO_EIGSH_SESSION_CACHE_MB") * 1e6)
 
 
-def _session_key(matrix_fp: str, cfg: SolverConfig) -> str:
+def _check_mesh(mesh):
+    """``mesh`` if it is None or a ``DeviceMesh``."""
+    if mesh is None:
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh, got {type(mesh).__name__}")
+    return mesh
+
+
+def _mesh_key(mesh) -> str:
+    """The mesh part of a session's identity: its dimension names, the
+    ranks of its group, its device type and backend; without a mesh, the
+    default group's size and backend (what the default mesh would be)."""
+    if mesh is None:
+        comm = ShardComm()
+        return f"mesh:none:world{comm.size}:{comm.backend}"
+    ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
+    backend = torch.distributed.get_backend(mesh.get_group())
+    return f"mesh:{tuple(mesh.mesh_dim_names)}:{ranks}:{mesh.device_type}:{backend}"
+
+
+def _session_key(matrix_fp: str, cfg: SolverConfig, mesh=None) -> str:
     # The staging pin rebuilds the chunked operator, so it is part of the
     # session identity: flipping it between calls must not serve the old plan.
     staging_pin = envcfg.raw("REPRO_CHUNK_STAGING") or ""
     layout = config_fingerprint(cfg, _LAYOUT_FIELDS)
-    return "|".join((matrix_fp, layout, f"staging_pin:{staging_pin}"))
+    return "|".join((matrix_fp, layout, _mesh_key(mesh), f"staging_pin:{staging_pin}"))
 
 
 def _cache_lookup(key: str) -> Optional[EigenSession]:
@@ -1355,7 +1444,7 @@ def _cache_store(key: str, session: EigenSession) -> None:
     _cache_enforce_budget()
 
 
-def get_session(A, config: Optional[SolverConfig] = None, *,
+def get_session(A, config: Optional[SolverConfig] = None, *, mesh=None,
                 n: Optional[int] = None) -> Tuple[EigenSession, bool]:
     """Session for (matrix, layout config): from the LRU when the input has
     hashable bytes (CSR, dense, DiskCSR, scipy), a fresh one otherwise.
@@ -1377,18 +1466,18 @@ def get_session(A, config: Optional[SolverConfig] = None, *,
     ):
         fp = matrix_fingerprint(A)
         if fp is not None:
-            key = _session_key(fp, cfg)
+            key = _session_key(fp, cfg, _check_mesh(mesh))
             hit = _cache_lookup(key)
             if hit is not None:
                 return hit, True
     ci = coerce_input(A, n=n, storage_dtype=_plan_policy(cfg.policy).storage, device=device,
                       fingerprint=fp, want_fingerprint=limit > 0)
     if key is None and limit > 0 and ci.fingerprint is not None:
-        key = _session_key(ci.fingerprint, cfg)
+        key = _session_key(ci.fingerprint, cfg, mesh)
         hit = _cache_lookup(key)
         if hit is not None:
             return hit, True
-    session = EigenSession(A, cfg, n=n, _coerced=ci)
+    session = EigenSession(A, cfg, mesh=mesh, n=n, _coerced=ci)
     if key is not None:
         _cache_store(key, session)
     return session, False
@@ -1400,6 +1489,12 @@ def session_cache_clear() -> None:
         victims = list(_SESSION_CACHE.values())
         _SESSION_CACHE.clear()
     _evict(victims)
+
+
+# Cached sessions may hold a DeviceMesh: drop them while the interpreter is
+# still whole, or a process group that outlived destroy_process_group is
+# destroyed during finalization, which aborts the process.
+atexit.register(session_cache_clear)
 
 
 def session_cache_info() -> dict:

@@ -16,6 +16,7 @@ from .operators import (
     SparseOperator,
     make_operator,
 )
+from .partition import PartitionedMatrix, nnz_balanced_splits, partition_matrix
 from .precision import (
     BCF,
     BFF,

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -139,7 +139,7 @@ class SparseOperator(LinearOperator):
         if self.impl == "bsr_kernel":
             val, bcol, n_rows = self.mat
             acc = accum_dtype or torch.float32
-            return kops.bsr_matvec(val, bcol, x, acc)[:n_rows]
+            return kops.bsr_matvec(val, bcol, x, acc, n_rows)[:n_rows]
         raise ValueError(f"unknown SpMV impl {self.impl!r}")
 
 
@@ -288,8 +288,15 @@ class ChunkedOperator(LinearOperator):
     frees every window before the error leaves, so no later stream (nor the
     allocator, once the operator is dropped) meets a copy still in flight.
 
-    Not ported yet: the reference's ``mesh`` (row-sharded chunks, ROADMAP
-    queue A, "Multi-device").
+    **Sharded chunks.**  With a ``mesh`` (a 1-D ``DeviceMesh`` with the
+    dimension ``axis``; ``core/distributed.py``), every rank runs the
+    chunked Lanczos on the replicated vector, and an ELL chunk's padded
+    rows (a multiple of 8 G) split into G equal shares: each rank builds,
+    stages and multiplies only its share, plain or packed, into a local
+    accumulator of its shares of every chunk, and one all-gather per
+    matvec reassembles ``y``.  A row's product is the one the unsharded
+    operator computes, bit for bit.  COO chunks stream whole on every rank,
+    as in the reference.
     """
 
     STAGING_MODES = ("f32", "bf16", "fp8", "auto")
@@ -304,6 +311,8 @@ class ChunkedOperator(LinearOperator):
         own_data: bool = False,
         staging: str = "f32",
         device=None,
+        mesh=None,
+        axis: str = "data",
     ):
         from ..kernels.spmv_ell_packed import PACKED_VALUE_DTYPES
 
@@ -332,6 +341,11 @@ class ChunkedOperator(LinearOperator):
             staging = "f32"  # packed staging is an ELL-kernel path
         self.staging_mode = staging
         self._packed_dtype = PACKED_VALUE_DTYPES.get(staging)
+        self._comm = None  # set when ELL chunks are row-sharded over a mesh
+        if mesh is not None and self.spmv_format == "ell":
+            from .distributed import ShardComm  # lazy: distributed imports this module
+
+            self._comm = ShardComm(mesh, axis)
         self.disk_backed = isinstance(csr, DiskCSR)
         self.source_path = csr.path if self.disk_backed else None
         self.staging = {
@@ -386,6 +400,7 @@ class ChunkedOperator(LinearOperator):
     def _init_ell_meta(self, csr, chunk_nnz: int, engine: SpmvEngine):
         bounds = chunk_row_bounds(csr.indptr, csr.n, chunk_nnz)
         bw, br = engine.tiles.block_w, engine.tiles.block_r
+        g = self._comm.size if self._comm is not None else 1
         self._bounds, self._widths, self._rows_pads, self._r0s = [], [], [], []
         n_out_pad = 0
         self.padded_slots = 0
@@ -394,7 +409,9 @@ class ChunkedOperator(LinearOperator):
             # Per-chunk width: a hub row pays for its own chunk only.
             width = int(max(1, local_nnz.max() if local_nnz.size else 1))
             width = -(-width // bw) * bw
-            rows_pad = chunk_rows_pad(r1 - r0, br)
+            # Sharded, each rank's share is a whole number of row tiles
+            # (and of the packed chunks' 8-row scale blocks).
+            rows_pad = chunk_rows_pad(r1 - r0, br * g)
             self._bounds.append((r0, r1))
             self._widths.append(width)
             self._rows_pads.append(rows_pad)
@@ -403,8 +420,11 @@ class ChunkedOperator(LinearOperator):
             self.padded_slots += rows_pad * width
         self.num_chunks = len(self._bounds)
         self._n_out_pad = n_out_pad
-        slots = max(rp * w for rp, w in zip(self._rows_pads, self._widths))
-        rows = max(self._rows_pads)
+        self._shares = [rp // g for rp in self._rows_pads]  # rows this process stages
+        self._share_offs = np.concatenate([[0], np.cumsum(self._shares)]).astype(np.int64)
+        self._gather_idx = None
+        slots = max(rp * w for rp, w in zip(self._shares, self._widths))
+        rows = max(self._shares)
         if self._packed_dtype is None:
             item = torch.empty((), dtype=self._dtype).element_size()
             self._sizes = [item * slots, 4 * slots]  # val, col
@@ -466,13 +486,23 @@ class ChunkedOperator(LinearOperator):
         self._fill_values(val, np.arange(cnt), self._csr.values(lo, hi))
         return [row, col, val]
 
+    def _share_rows(self, j: int) -> Tuple[int, int]:
+        """Rows ``[a, b)`` of chunk ``j`` that this process stages: the whole
+        chunk, or this rank's share of its padded rows (empty past the
+        chunk's last row)."""
+        r0, r1 = self._bounds[j]
+        if self._comm is None:
+            return r0, r1
+        a = min(r1, r0 + self._comm.rank * self._shares[j])
+        return a, min(r1, a + self._shares[j])
+
     def _build_ell_chunk(self, j: int, bufs):
         from ..kernels.spmv_ell_packed import pack_ell_chunk
 
-        r0, r1 = self._bounds[j]
+        r0, r1 = self._share_rows(j)
         indptr = self._csr.indptr
         lo, hi = int(indptr[r0]), int(indptr[r1])
-        width, rows_pad = self._widths[j], self._rows_pads[j]
+        width, rows_pad = self._widths[j], self._shares[j]
         # Flat ELL position of every stored entry: row * width + position.
         starts = np.arange(r1 - r0, dtype=np.int64) * width - (np.asarray(indptr[r0:r1]) - lo)
         flat = np.repeat(starts, self._row_nnz[r0:r1]) + np.arange(hi - lo)
@@ -503,10 +533,24 @@ class ChunkedOperator(LinearOperator):
         compression ratio)."""
         item = torch.empty((), dtype=self._dtype).element_size()
         if self.spmv_format == "ell":
-            return self._rows_pads[j] * self._widths[j] * (item + 4)  # val + int32 col
+            return self._shares[j] * self._widths[j] * (item + 4)  # val + int32 col
         return self._coo_chunk_nnz * (8 + item)
 
     # ------------------------------- staging loop -------------------------------
+
+    def _row_index(self) -> torch.Tensor:
+        """``(n,)`` position of every row in the all-gathered ``(G * L,)``
+        accumulators of a sharded operator (rank-major, then each rank's
+        shares in chunk order); built once."""
+        if self._gather_idx is None:
+            length = int(self._share_offs[-1])
+            idx = np.empty(self.n, dtype=np.int64)
+            for j, (r0, r1) in enumerate(self._bounds):
+                q = np.arange(r1 - r0, dtype=np.int64)
+                s = self._shares[j]
+                idx[r0:r1] = (q // s) * length + self._share_offs[j] + q % s
+            self._gather_idx = torch.from_numpy(idx).to(self.device)
+        return self._gather_idx
 
     def _ensure_windows(self) -> None:
         if self._windows is None:
@@ -589,9 +633,11 @@ class ChunkedOperator(LinearOperator):
 
     def resident_bytes(self) -> int:
         """Bytes this operator holds: its staging windows (host and device
-        buffers, once allocated) and, with ``own_data``, its pinned chunks."""
+        buffers, once allocated), with ``own_data`` its pinned chunks, and
+        a sharded operator's row index."""
         ts = [t for w in self._windows or () for t in (*w.host, *w.dev)]
         ts += [t for chunk in self._pinned or () for t in chunk]
+        ts += [t for t in (getattr(self, "_gather_idx", None),) if t is not None]
         return sum(t.numel() * t.element_size() for t in ts)
 
     def staging_stats(self, since: Optional[dict] = None) -> dict:
@@ -635,7 +681,10 @@ class ChunkedOperator(LinearOperator):
         if on_chunk is None:
             on_chunk = self._step_hook
         acc = accum_dtype or self._dtype
-        length = self._n_out_pad if self.spmv_format == "ell" else self.n
+        if self._comm is not None:
+            length = int(self._share_offs[-1])  # this rank's shares of every chunk
+        else:
+            length = self._n_out_pad if self.spmv_format == "ell" else self.n
         if partial_y is not None:
             y = torch.as_tensor(partial_y).to(device=self.device, dtype=acc, copy=True)
         else:
@@ -646,14 +695,18 @@ class ChunkedOperator(LinearOperator):
                 eng = dataclasses.replace(eng, accum_dtype=acc)
             packed = self._packed_dtype is not None
 
+            offs = self._share_offs if self._comm is not None else self._r0s
+
             def consume(i, arrs):
                 yk = eng.packed_ell_matvec(*arrs, x) if packed else eng.ell_matvec(*arrs, x)
-                r0 = self._r0s[i]
+                r0 = int(offs[i])
                 y[r0 : r0 + yk.shape[0]] += yk
                 if on_chunk is not None:
                     on_chunk(i, y.clone())
 
             self._stream(consume, start=start_chunk)
+            if self._comm is not None:
+                return self._comm.all_gather(y).index_select(0, self._row_index())
             return y[: self.n]
 
         def consume(i, arrs):

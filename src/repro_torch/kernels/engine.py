@@ -57,6 +57,7 @@ __all__ = [
     "DEFAULT_TUNE_CACHE",
     "grid_fingerprint",
     "matrix_stats",
+    "shard_stats",
     "choose_format",
     "hybrid_width_cap",
     "select_tiles",
@@ -685,11 +686,16 @@ def _stats_from_triplets(
     cols: Optional[np.ndarray],
     n_rows: int,
     block_size: int,
+    width: Optional[int] = None,
+    hyb_width: Optional[int] = None,
 ) -> SpmvStats:
+    """``rows`` / ``cols`` None skip the block census.  ``width`` charges
+    the ELL overhead at a wider row (a shard pays the global longest row)
+    and ``hyb_width`` pins the hybrid cap (shards share the global one)."""
     nnz = int(row_nnz.sum())
     max_row = int(row_nnz.max()) if row_nnz.size else 0
     mean_row = nnz / max(1, n_rows)
-    overhead = (max_row * n_rows) / max(1, nnz)
+    overhead = (max(max_row, width or 0) * n_rows) / max(1, nnz)
     bs = block_size
     if nnz and rows is not None:
         nbc = -(-int(cols.max() + 1) // bs)
@@ -699,7 +705,7 @@ def _stats_from_triplets(
         n_blocks = 0
     # No census (skipped or empty matrix) reads as "no block structure".
     fill = nnz / (n_blocks * bs * bs) if n_blocks else 0.0
-    cap = hybrid_width_cap(row_nnz)
+    cap = hybrid_width_cap(row_nnz) if hyb_width is None else int(hyb_width)
     tail = int(np.maximum(row_nnz - cap, 0).sum()) if (nnz and cap) else 0
     return SpmvStats(
         n_rows=n_rows,
@@ -725,6 +731,44 @@ def matrix_stats(csr, block_size: int = DEFAULT_BLOCK_SIZE, with_blocks: bool = 
         rows = np.repeat(np.arange(csr.n, dtype=np.int64), row_nnz)
         return _stats_from_triplets(row_nnz, rows, csr.indices, csr.n, block_size)
     return _stats_from_triplets(row_nnz, None, None, csr.n, block_size)
+
+
+def shard_stats(
+    csr,
+    splits: np.ndarray,
+    block_size: int = DEFAULT_BLOCK_SIZE,
+    with_blocks: bool = True,
+) -> Tuple[SpmvStats, ...]:
+    """Per-shard statistics of a row-partitioned CSR (``splits`` from
+    ``core.partition.nnz_balanced_splits``), by the reference's rule: every
+    shard is charged at the uniform shape the distributed layouts build
+    (the largest shard's row count, the global longest row, the global
+    hybrid cap), and block density is counted in the padded-global columns
+    of the distributed BSR layout, so the selector judges the layout it
+    would build."""
+    out = []
+    row_nnz = csr.row_nnz()
+    global_width = int(row_nnz.max()) if row_nnz.size else 0
+    global_cap = hybrid_width_cap(row_nnz)
+    max_rows = int((splits[1:] - splits[:-1]).max()) if len(splits) > 1 else csr.n
+    max_rows = max(1, max_rows)
+    cols_pg = None
+    if with_blocks:
+        n_pad_bsr = -(-max_rows // block_size) * block_size
+        owner = np.searchsorted(splits, csr.indices, side="right") - 1
+        cols_pg = owner * n_pad_bsr + (csr.indices - splits[owner])
+    for s in range(len(splits) - 1):
+        r0, r1 = int(splits[s]), int(splits[s + 1])
+        lo, hi = int(csr.indptr[r0]), int(csr.indptr[r1])
+        local_nnz = row_nnz[r0:r1]
+        if with_blocks:
+            rows = np.repeat(np.arange(r1 - r0, dtype=np.int64), local_nnz)
+            cols = cols_pg[lo:hi]
+        else:
+            rows = cols = None
+        out.append(_stats_from_triplets(local_nnz, rows, cols, max_rows, block_size,
+                                        width=global_width, hyb_width=global_cap))
+    return tuple(out)
 
 
 def choose_format(
@@ -805,9 +849,10 @@ class SpmvEngine:
         in the accum dtype."""
         return kops.packed_ell_matvec(val, scale, base, dcol, x, self.accum_dtype)
 
-    def bsr_matvec(self, val, bcol, x) -> torch.Tensor:
-        """y = BSR(val, bcol) @ x -> (nbr * BS,) in the accum dtype."""
-        return kops.bsr_matvec(val, bcol, x, self.accum_dtype)
+    def bsr_matvec(self, val, bcol, x, n_cols=None) -> torch.Tensor:
+        """y = BSR(val, bcol) @ x -> (nbr * BS,) in the accum dtype; ``x``
+        holds ``n_cols`` columns (default ``nbr * BS``)."""
+        return kops.bsr_matvec(val, bcol, x, self.accum_dtype, n_cols)
 
     def hybrid_matvec(self, mat, x) -> torch.Tensor:
         """Hub-split SpMV on a ``DeviceHybrid``: the ELL kernel over the
@@ -832,7 +877,7 @@ class SpmvEngine:
         if isinstance(mat, DeviceELL):
             return eng.ell_matvec(mat.val, mat.col, x)[: mat.n_rows]
         if isinstance(mat, DeviceBSR):
-            return eng.bsr_matvec(mat.val, mat.bcol, x)[: mat.n_rows]
+            return eng.bsr_matvec(mat.val, mat.bcol, x, mat.n_cols)[: mat.n_rows]
         if isinstance(mat, DeviceHybrid):
             return eng.hybrid_matvec(mat, x)
         raise TypeError(f"SpmvEngine.spmv: unsupported container {type(mat).__name__}")

@@ -15,7 +15,7 @@ from . import ref
 from .lanczos_fused import spmv_ell_alpha_kernel_call
 from .lanczos_update import lanczos_update_kernel_call
 from .mixed_dot import mixed_dot_kernel_call
-from .spmv_bsr import spmv_bsr_kernel_call
+from .spmv_bsr import check_bsr_operands, spmv_bsr_kernel_call
 from .spmv_ell import spmv_ell_kernel_call
 from .spmv_ell_packed import spmv_ell_packed_kernel_call
 
@@ -56,15 +56,19 @@ def packed_ell_matvec(val, scale, base, dcol, x, accum_dtype) -> torch.Tensor:
     return spmv_ell_packed_kernel_call(val, scale, base, dcol, x, accum_dtype=accum_dtype)
 
 
-def bsr_matvec(val, bcol, x, accum_dtype) -> torch.Tensor:
-    """``BSR(val, bcol) @ x`` over the padded rows -> ``(nbr * BS,)``; ``x``
-    is zero-padded up to ``nbr * BS``."""
+def bsr_matvec(val, bcol, x, accum_dtype, n_cols=None) -> torch.Tensor:
+    """``BSR(val, bcol) @ x`` over the padded rows -> ``(nbr * BS,)``.  ``x``
+    holds the ``n_cols`` columns (default ``nbr * BS``: a square matrix),
+    zero-padded here to whole blocks; any other length raises."""
     nbr, _, bs, _ = val.shape
-    if x.shape[0] < nbr * bs:
-        x = torch.nn.functional.pad(x, (0, nbr * bs - x.shape[0]))
+    n_cols = nbr * bs if n_cols is None else int(n_cols)
+    width = -(-n_cols // bs) * bs
+    if x.shape[0] == n_cols < width:
+        x = torch.nn.functional.pad(x, (0, width - n_cols))
     if on_cpu(val):
+        check_bsr_operands(val, bcol, x, n_cols)
         return ref.spmv_bsr_ref(val, bcol, x, accum_dtype)
-    return spmv_bsr_kernel_call(val, bcol, x, accum_dtype=accum_dtype)
+    return spmv_bsr_kernel_call(val, bcol, x, accum_dtype=accum_dtype, n_cols=n_cols)
 
 
 def spmv_ell(mat, x, accum_dtype=None) -> torch.Tensor:
@@ -84,7 +88,7 @@ def spmv_ell_packed(val, scale, base, dcol, x, n_rows: int, accum_dtype=None) ->
 def spmv_bsr(mat, x, accum_dtype=None) -> torch.Tensor:
     """SpMV on a ``DeviceBSR``; ``(n_rows,)`` in the accum dtype."""
     acc = accum_dtype or torch.float32
-    return bsr_matvec(mat.val, mat.bcol, x, acc)[: mat.n_rows]
+    return bsr_matvec(mat.val, mat.bcol, x, acc, mat.n_cols)[: mat.n_rows]
 
 
 def spmv_ell_alpha(mat, x, v, accum_dtype=None):

@@ -7,24 +7,42 @@ by bytes.  The plain version is ``ref.spmv_bsr_ref``.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from . import build as _b
 
-__all__ = ["spmv_bsr_kernel_call", "blocked_ell_from_csr"]
+__all__ = ["spmv_bsr_kernel_call", "check_bsr_operands", "blocked_ell_from_csr"]
+
+
+def check_bsr_operands(val: torch.Tensor, bcol: torch.Tensor, x: torch.Tensor,
+                       n_cols: Optional[int] = None) -> None:
+    """Raise on operands the kernel does not take.  ``x`` holds the
+    matrix's ``n_cols`` columns zero-padded to whole ``BS``-blocks: ``nbr *
+    BS`` for a square matrix (the default), ``G * n_pad`` for a row shard of
+    the distributed layout, whose block columns index the all-gathered
+    vector.  A shorter ``x`` would let the kernel read past its end."""
+    if val.dim() != 4 or bcol.shape != val.shape[:2] or bcol.dtype != torch.int32:
+        raise ValueError(f"spmv_bsr: bad layout val {tuple(val.shape)} bcol {tuple(bcol.shape)}")
+    nbr, _, bs, _ = val.shape
+    n_cols = nbr * bs if n_cols is None else int(n_cols)
+    want = -(-n_cols // bs) * bs
+    if x.dtype != val.dtype or x.dim() != 1 or x.shape[0] != want:
+        raise ValueError(f"spmv_bsr: x must be a {val.dtype} vector of {want} entries ({n_cols} "
+                         f"columns in whole {bs}-blocks), got {x.dtype} {tuple(x.shape)}")
 
 
 def spmv_bsr_kernel_call(
-    val: torch.Tensor, bcol: torch.Tensor, x: torch.Tensor, *, accum_dtype
+    val: torch.Tensor, bcol: torch.Tensor, x: torch.Tensor, *, accum_dtype,
+    n_cols: Optional[int] = None,
 ) -> torch.Tensor:
-    """``y = BSR(val, bcol) @ x`` on the card; ``x`` has ``nbr * BS``
-    entries (zero-padded by the caller).  Returns ``(nbr * BS,)``."""
+    """``y = BSR(val, bcol) @ x`` on the card; ``x`` holds the ``n_cols``
+    columns in whole blocks (see :func:`check_bsr_operands`; the caller
+    zero-pads).  Returns ``(nbr * BS,)``."""
     _b.require_cuda("spmv_bsr", val, bcol, x)
-    if val.dim() != 4 or bcol.shape != val.shape[:2] or bcol.dtype != torch.int32:
-        raise ValueError(f"spmv_bsr: bad layout val {tuple(val.shape)} bcol {tuple(bcol.shape)}")
+    check_bsr_operands(val, bcol, x, n_cols)
     nbr, slots, bs, _ = val.shape
-    if x.dtype != val.dtype or x.shape[0] != nbr * bs:
-        raise ValueError(f"spmv_bsr: x must be {val.dtype} of length {nbr * bs}")
     y = torch.empty(nbr * bs, dtype=accum_dtype, device=val.device)
     rc = _b.load().repro_spmv_bsr(
         _b.dtype_code(val.dtype), _b.dtype_code(accum_dtype),

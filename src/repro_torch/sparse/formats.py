@@ -11,6 +11,12 @@ dataclasses of tensors on an explicit ``device``:
 * ``DeviceBSR``    — blocked ELL ``(n_block_rows, slots, BS, BS)``, the layout
   of the ``spmv_bsr`` kernel.
 
+The ``shard_to_*`` converters row-shard a CSR for the distributed engine
+(``core/distributed.py``): each shard's columns are remapped to the padded-
+global coordinates of :func:`padded_col_map`, so a shard indexes the
+all-gathered vector directly.  ``shards=`` converts only some shards (an
+SPMD rank converts its own).
+
 Padding: rows round up to ``row_tile`` and the ELL width to ``slot_tile``,
 both 8 by default.  The reference pads the ELL width to 128 TPU lanes; on a
 road network (max row 6) that stores 128 slots a row instead of 8, so the
@@ -42,6 +48,12 @@ __all__ = [
     "to_device_hybrid",
     "blocked_ell_from_triplets",
     "segment_sum",
+    "ell_padding_stats",
+    "padded_col_map",
+    "shard_to_ell",
+    "shard_to_blocked_ell",
+    "shard_to_hybrid",
+    "shard_hybrid_container",
     "from_reference",
     "conversion_count",
     "count_conversions",
@@ -403,3 +415,226 @@ def from_reference(container_arrays: Mapping, device="cpu"):
         )
     n = int(a.get("n_rows", t["val"].shape[0]))
     return DeviceELL(val=t["val"], col=t["col"], n_rows=n, n_cols=int(a.get("n_cols", n)))
+
+
+# ----------------------------------------------------- row-sharded layouts
+
+
+def ell_padding_stats(row_nnz: np.ndarray) -> dict:
+    """Padding cost of an ELL layout over rows with the given nnz counts:
+    ``overhead`` = stored slots / nnz (1.0 = perfectly uniform rows)."""
+    nnz = int(row_nnz.sum())
+    width = int(row_nnz.max()) if row_nnz.size else 0
+    return {
+        "width": width,
+        "mean_row_nnz": nnz / max(1, row_nnz.size),
+        "overhead": (width * int(row_nnz.size)) / max(1, nnz),
+    }
+
+
+def padded_col_map(splits: np.ndarray, n_pad: int, n: int) -> np.ndarray:
+    """Global column -> padded-global coordinate ``shard * n_pad + local``.
+
+    The one definition of the distributed coordinate scheme: the COO path
+    (``core.partition.partition_matrix``) and the converters below index
+    the all-gathered vector identically.  The reference's, verbatim.
+    """
+    owner = np.searchsorted(splits, np.arange(n), side="right") - 1
+    return (owner * n_pad + (np.arange(n) - splits[owner])).astype(np.int64)
+
+
+def _shard_list(splits: np.ndarray, shards) -> Tuple[int, ...]:
+    g = len(splits) - 1
+    out = tuple(range(g)) if shards is None else tuple(int(s) for s in shards)
+    if any(s < 0 or s >= g for s in out):
+        raise ValueError(f"shards {out} out of range for {g} shards")
+    return out
+
+
+def _shard_entries(csr: CSR, splits: np.ndarray, s: int):
+    """``(lo, hi, local_row, position)`` of shard ``s``'s stored entries
+    (``[lo, hi)`` of the CSR arrays, each entry's row within the shard and
+    its position within its row)."""
+    r0, r1 = int(splits[s]), int(splits[s + 1])
+    lo, hi = int(csr.indptr[r0]), int(csr.indptr[r1])
+    counts = np.diff(csr.indptr[r0 : r1 + 1])
+    local_r = np.repeat(np.arange(r1 - r0, dtype=np.int64), counts)
+    pos = np.arange(hi - lo, dtype=np.int64) - np.repeat(csr.indptr[r0:r1] - lo, counts)
+    return lo, hi, local_r, pos
+
+
+def shard_to_ell(
+    csr: CSR,
+    splits: np.ndarray,
+    n_pad: int,
+    dtype=torch.float32,
+    row_tile: int = 8,
+    slot_tile: int = 8,
+    shards=None,
+    device="cpu",
+) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """Row-shard a CSR into stacked uniform ELL tensors.
+
+    Returns ``(val, col)`` of shape ``(S, rows_pad, width)`` for the ``S``
+    requested ``shards`` (all by default): every shard pads to the global
+    longest row, rounded up to ``slot_tile``, and ``n_pad`` rows rounded up
+    to ``row_tile``; columns are padded-global.  Plus a stats dict with the
+    padding overhead.  The reference pads the width to 128 TPU lanes; with
+    ``slot_tile=128`` the two give the same bytes.
+    """
+    ids = _shard_list(splits, shards)
+    row_nnz = csr.row_nnz()
+    width = int(max(1, row_nnz.max() if row_nnz.size else 1))
+    width = -(-width // slot_tile) * slot_tile
+    rows_pad = -(-n_pad // row_tile) * row_tile
+    count_conversions(len(ids))
+    col_map = padded_col_map(splits, n_pad, csr.n)
+    val = np.zeros((len(ids), rows_pad, width), dtype=np.float64)
+    col = np.zeros((len(ids), rows_pad, width), dtype=np.int32)
+    for i, s in enumerate(ids):
+        lo, hi, local_r, pos = _shard_entries(csr, splits, s)
+        val[i, local_r, pos] = csr.data[lo:hi]
+        col[i, local_r, pos] = col_map[csr.indices[lo:hi]]
+    stats = ell_padding_stats(row_nnz)
+    stats["rows_pad"] = rows_pad
+    stats["width_padded"] = width
+    return _tensor(val, dtype, device), _tensor(col, torch.int32, device), stats
+
+
+def shard_to_blocked_ell(
+    csr: CSR,
+    splits: np.ndarray,
+    n_pad: int,
+    block_size: int = 8,
+    dtype=torch.float32,
+    shards=None,
+    device="cpu",
+) -> Tuple[torch.Tensor, torch.Tensor, dict]:
+    """Row-shard a CSR into stacked blocked-ELL tensors.
+
+    Returns ``(val, bcol)`` of shapes ``(S, nbr, slots, BS, BS)`` /
+    ``(S, nbr, slots)``: one slot count for every shard (the largest shard
+    decides, counted over all shards so every rank builds the same shape),
+    block columns in the flat padded-global index space of the gathered
+    vector.  Requires ``n_pad % block_size == 0`` (``partition_matrix(...,
+    row_align=BS)``) so local block rows line up with the gathered vector.
+    """
+    if n_pad % block_size:
+        raise ValueError(f"n_pad={n_pad} must be a multiple of block_size={block_size}")
+    g = len(splits) - 1
+    ids = _shard_list(splits, shards)
+    count_conversions(len(ids))
+    col_map = padded_col_map(splits, n_pad, csr.n)
+    nbc = g * n_pad // block_size
+    trips = {}
+    slots = 1
+    for s in range(g):
+        lo, hi, local_r, _ = _shard_entries(csr, splits, s)
+        cols_g = col_map[csr.indices[lo:hi]]
+        if s in ids:
+            trips[s] = (local_r, cols_g, csr.data[lo:hi])
+        if local_r.size:
+            keys = np.unique((local_r // block_size) * nbc + cols_g // block_size)
+            slots = max(slots, int(np.bincount(keys // nbc).max()))
+    vals, bcols = [], []
+    for s in ids:
+        rows_l, cols_g, data = trips[s]
+        bsr = blocked_ell_from_triplets(rows_l, cols_g, data, n_pad, g * n_pad,
+                                        block_size=block_size, slots=slots, dtype=dtype,
+                                        device=device)
+        vals.append(bsr.val)
+        bcols.append(bsr.bcol)
+    stats = {"slots": slots, "block_size": block_size, "n_block_rows": n_pad // block_size}
+    return torch.stack(vals), torch.stack(bcols), stats
+
+
+def shard_to_hybrid(
+    csr: CSR,
+    splits: np.ndarray,
+    n_pad: int,
+    dtype=torch.float32,
+    width_cap: Optional[int] = None,
+    quantile: Optional[float] = None,
+    row_tile: int = 8,
+    slot_tile: int = 8,
+    tail_align: int = 8,
+    shards=None,
+    device="cpu",
+) -> Tuple[Tuple[torch.Tensor, ...], dict]:
+    """Row-shard a CSR into stacked hybrid (capped ELL + COO tail) tensors.
+
+    Returns ``(val, col, tail_row, tail_col, tail_val)`` with shapes
+    ``(S, rows_pad, width)`` / ``(S, tail_pad)``: the width cap is global
+    (the quantile of the whole matrix's row lengths, aligned up to
+    ``slot_tile``) and every shard's tail pads to the largest shard's.
+    Columns are padded-global; tail rows are shard-local output rows, in
+    row order.  Plus a stats dict with the realized split.  The reference's
+    split, element for element.
+    """
+    from ..kernels.engine import hybrid_width_cap  # lazy: sparse sits below kernels
+
+    g = len(splits) - 1
+    ids = _shard_list(splits, shards)
+    count_conversions(len(ids))
+    row_nnz = csr.row_nnz()
+    cap = hybrid_width_cap(row_nnz, quantile) if width_cap is None else int(width_cap)
+    cap = max(1, min(cap, int(row_nnz.max()) if row_nnz.size else 1))
+    width = -(-cap // slot_tile) * slot_tile
+    rows_pad = -(-n_pad // row_tile) * row_tile
+    spill_rows = np.maximum(row_nnz - width, 0)
+    tail_counts = np.array([int(spill_rows[splits[s] : splits[s + 1]].sum()) for s in range(g)])
+    tail_pad = -(-max(int(tail_counts.max()) if g else 0, 1) // tail_align) * tail_align
+
+    col_map = padded_col_map(splits, n_pad, csr.n)
+    val = np.zeros((len(ids), rows_pad, width), dtype=np.float64)
+    col = np.zeros((len(ids), rows_pad, width), dtype=np.int32)
+    trow = np.zeros((len(ids), tail_pad), dtype=np.int32)
+    tcol = np.zeros((len(ids), tail_pad), dtype=np.int32)
+    tval = np.zeros((len(ids), tail_pad), dtype=np.float64)
+    for i, s in enumerate(ids):
+        lo, hi, local_r, pos = _shard_entries(csr, splits, s)
+        keep = pos < width
+        data, cols = csr.data[lo:hi], col_map[csr.indices[lo:hi]]
+        val[i, local_r[keep], pos[keep]] = data[keep]
+        col[i, local_r[keep], pos[keep]] = cols[keep]
+        spill = ~keep
+        t = int(spill.sum())
+        trow[i, :t] = local_r[spill]
+        tcol[i, :t] = cols[spill]
+        tval[i, :t] = data[spill]
+    tail_nnz = int(tail_counts.sum())
+    stats = {
+        "width_cap": width,
+        "rows_pad": rows_pad,
+        "tail_nnz": tail_nnz,
+        "tail_pad": tail_pad,
+        "hybrid_overhead": (g * rows_pad * width + tail_nnz) / max(1, csr.nnz),
+        "tail_frac": tail_nnz / max(1, csr.nnz),
+    }
+    mats = (
+        _tensor(val, dtype, device),
+        _tensor(col, torch.int32, device),
+        _tensor(trow, torch.int32, device),
+        _tensor(tcol, torch.int32, device),
+        _tensor(tval, dtype, device),
+    )
+    return mats, stats
+
+
+def shard_hybrid_container(mats, i: int, tail_nnz: int, n_pad: int, n_cols: int) -> DeviceHybrid:
+    """The :class:`DeviceHybrid` of stacked shard ``i`` of a
+    :func:`shard_to_hybrid` result, whose tail holds ``tail_nnz`` real
+    entries (the rest is padding)."""
+    val, col, trow, tcol, tval = mats
+    rows = trow[i, :tail_nnz].cpu().numpy()
+    return DeviceHybrid(
+        ell_val=val[i],
+        ell_col=col[i],
+        tail_row=trow[i],
+        tail_col=tcol[i],
+        tail_val=tval[i],
+        tail_offsets=_tensor(_offsets(rows, n_pad), torch.int64, val.device),
+        tail_nnz=int(tail_nnz),
+        n_rows=n_pad,
+        n_cols=n_cols,
+    )

@@ -164,10 +164,10 @@ def test_result_round_trips_through_json():
     assert "backend=single" in res.summary() and "spmv=hybrid" in res.summary()
 
 
-@pytest.mark.parametrize("kwargs,match", [
-    ({"backend": "distributed"}, "distributed"),
-])
-def test_unported_paths_raise_not_implemented(kwargs, match):
+def test_distributed_backend_runs_on_the_cpu():
+    """``backend="distributed"`` with no process group: a world of one."""
     csr = repro_torch.sparse.generate("road", 256, 2.1, seed=0)
-    with pytest.raises(NotImplementedError, match=match):
-        repro_torch.eigsh(csr, k=4, device="cpu", **kwargs)
+    res = repro_torch.eigsh(csr, k=4, backend="distributed", device="cpu")
+    assert res.backend == "distributed" and res.num_devices == 1
+    assert res.partition["num_shards"] == 1 and res.spmv_format == ("ell",)
+    assert "backend=distributed" in res.summary()
