@@ -123,14 +123,30 @@ before the last line:
    backend="chunked", mesh=...)``: f32 staging within rel 1e-9 of phase 8,
    bf16 within 8e-3, each rank launching its shares of every chunk and one
    all-gather a matvec; (d) at G = 2, ``spmv_nan@iter=3`` under FFF with
-   ``recovery="auto"``: every rank escalates FFF -> FCF, finite results.
+   ``recovery="auto"``: every rank escalates FFF -> FCF, finite results;
+14. the analysis on the card (``repro_torch.analysis``): (a) on phase 3's
+   road network, k = 8, ``eigsh`` with ``REPRO_PRECISION_MEASURE=1`` under
+   BFF, FFF, FCF, FDF and DDD and each update plan the rung resolves
+   (``unfused``, ``fused``, ``fused_spmv``; FCF only ``unfused``): no P001-
+   P004 finding (the whole solve, and each phase of the same rung and plan
+   at the reference's size), the measured counts beside the model's, the
+   conversions a Lanczos step by (src, dst), each kernel's recorded ops
+   equal to its launches times its per-launch contract, eigenvalues and
+   eigenvectors with the bits of an uncounted solve; (b) the same under FDF
+   for the BSR matrix and a restarted ``tol=1e-6`` solve of
+   ``generate("road", 1 << 20, 2.1)``; (c) ``python -m repro_torch.analysis
+   --check kernels --strict --device cuda`` in a subprocess: no finding,
+   and each instantiation's registers, shared and local bytes and
+   occupancy, which join the ``kernels`` line; (d) its own seconds.
 
 ``repro_torch.eigsh`` keeps a cache of prepared sessions, so every call a
 phase reports as cold (``solve``) clears it first; phase 7 prints its
 state once.
 
 Then one JSON line of kernel records (``launches`` from the main path's
-phases, ``launches_distributed`` from phase 13's), and as the last line
+phases, ``launches_distributed`` from phase 13's, ``launches_analysis`` from
+phase 14's, and the resources of each kernel's main-path instantiation), and
+as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result when
 no CUDA device is visible.
 """
@@ -1904,6 +1920,212 @@ def phase_distributed(data, path, chunk_res, smi) -> dict:
         shutil.rmtree(d, ignore_errors=True)
 
 
+# --------------------------------------------------------- phase 14: analysis
+
+# The instantiation of each kernel the main path (FDF: f32 storage, f64
+# accumulation) runs; its resources join the kernel's record.
+MAIN_INSTANTIATION = {
+    "spmv_ell": "spmv_ell_kernel<float, double>",
+    "lanczos_update": "lanczos_update_kernel<double, double>",
+    "spmv_ell_alpha": "spmv_ell_alpha_kernel<float, double>",
+    "spmv_bsr": "spmv_bsr_kernel<float, double, 8>",
+    "spmv_ell_packed": "spmv_ell_packed_kernel<__nv_bfloat16, int, float, double>",
+    "mixed_dot": "mixed_dot_kernel<float, double>",
+}
+_ATTRS_RE = re.compile(r"\[kernels\] attrs (.+): registers (\d+), shared (\d+) B, local (\d+) B, "
+                       r"occupancy (\d+) blocks/SM")
+
+
+def measured_solve(run, tag):
+    """``run()`` plain, then again with ``REPRO_PRECISION_MEASURE=1`` under
+    an outer op counter: ``(result, counter, launches, (plain s, counted
+    s))``, each wall time on the host clock, synced.  The counter must
+    change no bit of the result."""
+    from repro_torch.analysis import op_count
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain = run()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    reset_launches()
+    os.environ["REPRO_PRECISION_MEASURE"] = "1"
+    try:
+        with op_count.OpCounter() as counter:
+            res = run()
+        torch.cuda.synchronize()
+    finally:
+        del os.environ["REPRO_PRECISION_MEASURE"]
+    walls = (t1 - t0, time.perf_counter() - t1)
+    launches = read_launches()
+    check(torch.equal(res.eigenvalues, plain.eigenvalues)
+          and torch.equal(res.eigenvectors, plain.eigenvectors),
+          f"{tag}: the counted solve's bits differ from the uncounted one's")
+    measured = res.partition["spmv"]["precision"]["ops_by_dtype_measured"]
+    check("error" not in measured and measured == counter.ops_by_dtype(),
+          f"{tag}: session counts {measured} differ from the outer counter's "
+          f"{counter.ops_by_dtype()}")
+    return res, counter, launches, walls
+
+
+def check_kernel_records(tag, counter, launches, contracts) -> None:
+    """Each kernel's recorded calls equal its launches, and its recorded ops
+    and conversions its launches times its per-launch contract."""
+    for name, rec in counter.kernels.items():
+        check(rec["calls"] == launches[name],
+              f"{tag}: {name} recorded {rec['calls']} calls, launched {launches[name]}")
+        ops, convs = contracts[name]
+        want = {dt: n * launches[name] for dt, n in ops.items()}
+        check(rec["ops"] == want and rec["conversions"] == len(convs) * launches[name],
+              f"{tag}: {name} recorded {rec['ops']} ({rec['conversions']} conversions), its "
+              f"contract gives {want} ({len(convs) * launches[name]})")
+    for name, n in launches.items():
+        check(n == 0 or name in counter.kernels, f"{tag}: {name} launched {n} times, recorded none")
+
+
+def conversions_line(counter, steps: int) -> str:
+    """Conversions a Lanczos step by (src, dst), with the elements the
+    materialized casts among them write."""
+    parts = []
+    for (src, dst), n in sorted(counter.conversion_counts().items()):
+        elems = counter.cast_elements.get((src, dst), 0)
+        parts.append(f"{src}->{dst} {n / steps:.2f}/step ({elems / steps:,.0f} elements cast)")
+    return "; ".join(parts)
+
+
+def phase_analysis(data, smi) -> dict:
+    """Phase 14: the analysis on the card (see the module docstring).
+    Returns the main-path instantiation's resources and phase 14's
+    launches for each kernel."""
+    import repro_torch
+    from repro_torch.analysis import precision_flow as pf
+    from repro_torch.analysis.findings import format_findings
+    from repro_torch.core.lanczos import resolve_update_mode
+    from repro_torch.core.precision import POLICIES, phase_op_counts
+    from repro_torch.kernels.lanczos_fused import spmv_ell_alpha_contract
+    from repro_torch.kernels.lanczos_update import lanczos_update_contract
+    from repro_torch.kernels.spmv_bsr import spmv_bsr_contract
+    from repro_torch.kernels.spmv_ell import spmv_ell_contract
+    from repro_torch.sparse import generate
+
+    t0 = time.perf_counter()
+    total = {name: 0 for name in KERNEL_ORDER}
+
+    def meta(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    def ell_contracts(csr, pol, block_r=8, block_w=8):
+        rows = -(-csr.n // block_r) * block_r
+        width = -(-int(csr.row_nnz().max()) // block_w) * block_w
+        sdt, cdt, acc = pol.storage, pol.compute, pol.phase_dtype("spmv")
+        val, x = meta((rows, width), sdt), meta((csr.n,), sdt)
+        return rows * width, {
+            "spmv_ell": spmv_ell_contract(val, x, acc),
+            "spmv_ell_alpha": spmv_ell_alpha_contract(val, x, meta((csr.n,), acc), acc),
+            "lanczos_update": lanczos_update_contract(meta((csr.n,), cdt), cdt),
+        }
+
+    def finish(tag, res, counter, launches, walls, pol, n, nnz, m, steps=None):
+        reorth = "half" if steps is None else "full"  # eigsh's default; restarted: full
+        findings = pf.check_run(pol, counter, n=n, nnz=nnz, m=m, k=K, reorth=reorth,
+                                steps=steps, context=tag)
+        check(findings == [], f"{tag}: {format_findings(findings)}")
+        prec = res.partition["spmv"]["precision"]
+        executed = phase_op_counts(pol, n=n, nnz=nnz, m=m, k=K, reorth=reorth, executed=True)
+        scale = (steps or m) / m
+        print(f"[analysis] {tag}: launches {({k: v for k, v in launches.items() if v})}; "
+              f"measured {prec['ops_by_dtype_measured']}, session model {prec['ops_by_dtype']}, "
+              f"executed model {({dt: int(c * scale) for dt, c in executed.items()})}; "
+              f"0 findings; wall uncounted {walls[0] * 1e3:.1f} ms, counted "
+              f"{walls[1] * 1e3:.1f} ms")
+        print(f"[analysis] {tag}: conversions {conversions_line(counter, steps or m)}")
+        for name, v in launches.items():
+            total[name] += v
+
+    # (a) road 4.19M under every rung and the update plans it resolves.
+    road, v_road = data["road"], data["v"]["road"]
+    repro_torch.session_cache_clear()
+    sess = repro_torch.prepare(road, device="cuda")
+    runs = 0
+    for rung in pf.RUNGS:
+        pol = POLICIES[rung]
+        nnz, contracts = ell_contracts(road, pol)
+        for mode in pf.MODES:
+            os.environ["REPRO_ITER_UPDATE"] = mode
+            try:
+                if resolve_update_mode(pol, device="cuda") != mode:
+                    continue  # the rung does not resolve this plan (FCF: unfused only)
+                tag = f"road/{rung}/{mode}"
+                res, counter, launches, walls = measured_solve(
+                    lambda: sess.eigsh(K, policy=rung, v0=v_road), tag)
+            finally:
+                del os.environ["REPRO_ITER_UPDATE"]
+            check(res.partition["spmv"]["iteration_plan"]["effective"] == mode,
+                  f"{tag}: ran {res.partition['spmv']['iteration_plan']['effective']}")
+            spmv = "spmv_ell_alpha" if mode == "fused_spmv" else "spmv_ell"
+            want = {spmv: K, "lanczos_update": 0 if mode == "unfused" else K}
+            check(all(launches[n] == c for n, c in want.items()), f"{tag}: launches {launches}")
+            check_kernel_records(tag, counter, launches, contracts)
+            small, _ = pf.check_policy(pol, "single", mode=mode, device="cuda")
+            check(small == [], f"{tag} at n = 64, per phase: {format_findings(small)}")
+            finish(tag, res, counter, launches, walls, pol, road.n, nnz, K)
+            runs += 1
+    check(runs == 13, f"phase 14 ran {runs} rung x plan solves, expected 13")
+
+    # (b) FDF: the BSR matrix, and a restarted tol= solve on road 1M.
+    fdf = POLICIES["FDF"]
+    block, v_block = data["block"], data["v"]["block"]
+    repro_torch.session_cache_clear()
+    bsess = repro_torch.prepare(block, device="cuda")
+    res, counter, launches, walls = measured_solve(lambda: bsess.eigsh(K, v0=v_block),
+                                                   "bsr/FDF")
+    check(res.spmv_format == "bsr" and launches["spmv_bsr"] == K, f"bsr: launches {launches}")
+    bs = res.partition["spmv"]["block_size"]
+    nbr = -(-block.n // bs)
+    # Slots a block row: the most distinct block columns of any block row.
+    keys = np.unique(np.repeat(np.arange(block.n, dtype=np.int64), block.row_nnz()) // bs * nbr
+                     + block.indices // bs)
+    slots = int(np.bincount(keys // nbr, minlength=nbr).max())
+    bval = meta((nbr, slots, bs, bs), fdf.storage)
+    check_kernel_records("bsr/FDF", counter, launches, {
+        "spmv_bsr": spmv_bsr_contract(bval, meta((nbr * bs,), fdf.storage), torch.float64),
+        "lanczos_update": lanczos_update_contract(meta((block.n,), fdf.compute), fdf.compute)})
+    finish("bsr/FDF", res, counter, launches, walls, fdf, block.n, bval.numel(), K)
+
+    road1m = generate("road", 1 << 20, 2.1, seed=0)
+    v1m = np.random.default_rng(1).standard_normal(road1m.n)
+    repro_torch.session_cache_clear()
+    rsess = repro_torch.prepare(road1m, device="cuda")
+    res, counter, launches, walls = measured_solve(lambda: rsess.eigsh(K, tol=1e-6, v0=v1m),
+                                                   "restarted/FDF")
+    check(res.backend == "restarted" and launches["spmv_ell"] == res.iterations,
+          f"restarted: backend {res.backend}, launches {launches}, steps {res.iterations}")
+    nnz, contracts = ell_contracts(road1m, fdf)
+    check_kernel_records("restarted/FDF", counter, launches, contracts)
+    finish("restarted/FDF", res, counter, launches, walls, fdf, road1m.n, nnz,
+           max(2 * K, K + 8), steps=res.iterations)
+    repro_torch.session_cache_clear()
+
+    # (c) the kernel check on the card, in its own process.
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--check", "kernels", "--strict",
+         "--device", "cuda"], cwd=ROOT, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": os.path.join(ROOT, "src")})
+    print(out.stdout.rstrip())
+    check(out.returncode == 0 and "[kernels] 0 finding(s)" in out.stdout,
+          f"python -m repro_torch.analysis --check kernels: exit {out.returncode}\n{out.stderr}")
+    attrs = {m.group(1): {"registers": int(m.group(2)), "shared_bytes": int(m.group(3)),
+                          "local_bytes": int(m.group(4)), "occupancy": int(m.group(5))}
+             for m in _ATTRS_RE.finditer(out.stdout)}
+    check(len(attrs) == 60, f"the resource report lists {len(attrs)} instantiations, not 60")
+    records = {}
+    for name, inst in MAIN_INSTANTIATION.items():
+        check(inst in attrs, f"no resources reported for {inst}")
+        records[name] = {"instantiation": inst, **attrs[inst], "launches_analysis": total[name]}
+    print(f"[analysis] phase 14 took {time.perf_counter() - t0:.1f} s on {smi}")
+    return records
+
+
 def phase_device() -> str:
     """Phase 1: the card's name and power limit (``nvidia-smi``, returned),
     the versions, and the build of the kernels with each new kernel's
@@ -2111,6 +2333,9 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
+    # ---- phase 14: the analysis on the card
+    analysis = phase_analysis(data, smi)
+
     launches = {
         "spmv_ell": main_launches["spmv_ell"],
         "lanczos_update": main_launches["lanczos_update"],
@@ -2126,7 +2351,7 @@ def main() -> int:
         kernels.append(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name], "launches_distributed": dist_launches[name],
-             **records[name]}
+             **records[name], **analysis[name]}
         )
     print(smi)
     print(json.dumps({"kernels": kernels}))

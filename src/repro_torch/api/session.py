@@ -361,6 +361,9 @@ class EigenSession:
     (queries whose plan was already built).
     """
 
+    # Lock discipline, verified by repro_torch.analysis (rule C001).
+    _GUARDED_BY = {"_prepared": "_build_lock"}
+
     def __init__(self, A, config: Optional[SolverConfig] = None, *, mesh=None,
                  n: Optional[int] = None, _coerced: Optional[CoercedInput] = None):
         cfg = config or SolverConfig()
@@ -984,9 +987,20 @@ class EigenSession:
             exc.recovery_trail = list(trail)
         return exc
 
+    @staticmethod
+    def _measured(solve, *args, **kwargs):
+        """``(solve(*args, **kwargs), ops per dtype or None)``: with
+        ``REPRO_PRECISION_MEASURE=1`` the solve runs under the op counter,
+        which changes no bit of its result."""
+        if not envcfg.get_bool("REPRO_PRECISION_MEASURE"):
+            return solve(*args, **kwargs), None
+        from ..analysis.precision_flow import measure_session_ops
+
+        return measure_session_ops(solve, *args, **kwargs)
+
     def _finish(self, q: _NormQuery, prep: _Prepared, built: bool, *, eigenvalues, eigenvectors,
                 residuals, evals_f64, iterations, restarts, timings, partition, tridiag,
-                group_size, spmv_format=None) -> Tuple[int, EigenResult]:
+                group_size, spmv_format=None, measured=None) -> Tuple[int, EigenResult]:
         # Flags from the engines' f64 eigenvalues, so they agree with the
         # restarted engine's own stopping decision.
         lam = np.abs(np.asarray(evals_f64, dtype=np.float64))
@@ -1012,7 +1026,10 @@ class EigenSession:
                                                    device=self.device)
             spmv["iteration_plan"] = rec
         # Per-phase precision audit: the phase map this solve ran and a
-        # model count of element ops per dtype.
+        # model count of element ops per dtype; with REPRO_PRECISION_MEASURE
+        # also the counts the op counter saw this solve execute (the
+        # reference traces its operator on the side; here the solve itself
+        # ran under the counter).  A distributed plan has the reference's note.
         spmv["precision"] = {
             "policy": q.pol.name,
             "phase_map": q.pol.phase_map(),
@@ -1021,6 +1038,13 @@ class EigenSession:
             "ops_by_dtype": phase_op_counts(q.pol, n=self.n, nnz=self._nnz_estimate(),
                                             m=int(iterations), k=q.k, reorth=q.reorth),
         }
+        if envcfg.get_bool("REPRO_PRECISION_MEASURE"):
+            spmv["precision"]["ops_by_dtype_measured"] = measured if measured is not None else {
+                "error": "no single-device operator to trace (distributed plan)"}
+            spmv["precision"]["counts"] = {
+                "ops_by_dtype": "model: core.precision.phase_op_counts",
+                "ops_by_dtype_measured": "counted: analysis.op_count over this solve",
+            }
         part["spmv"] = spmv
         res = EigenResult(
             eigenvalues=eigenvalues,
@@ -1098,7 +1122,8 @@ class EigenSession:
                     # The operator rides along so the loop can save and
                     # restore its chunk cursor inside a step.
                     ckpt = (*pair, qs[0].ckpt_every, prep.operator)
-            sweep = solve_fixed(
+            sweep, measured = self._measured(
+                solve_fixed,
                 prep.operator,
                 k_max,
                 policy=pol,
@@ -1126,6 +1151,7 @@ class EigenSession:
                     partition=partition,
                     tridiag=sweep.tridiag,
                     group_size=len(qs),
+                    measured=measured,
                 ))
         return out
 
@@ -1176,7 +1202,8 @@ class EigenSession:
                 m = min(m, budget)
                 extra = max(0, math.floor((budget - m) / max(m - k_max, 1)))
                 max_restarts = min(max_restarts, extra + 1)
-            sweep = solve_restarted(
+            sweep, measured = self._measured(
+                solve_restarted,
                 prep.operator,
                 k_max,
                 policy=q0.pol,
@@ -1202,6 +1229,7 @@ class EigenSession:
                     partition={},
                     tridiag=sweep.tridiag,
                     group_size=len(qs),
+                    measured=measured,
                 ))
         return out
 

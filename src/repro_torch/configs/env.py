@@ -163,6 +163,12 @@ _DECLARED: Iterable[EnvKnob] = (
         None,
         "Fault-injection spec 'kind[@iter=N][,...]' armed for the next solve (CI robustness legs).",
     ),
+    _k(
+        "REPRO_PRECISION_MEASURE",
+        "bool",
+        False,
+        "Attach the op counter's measured op counts (ops_by_dtype_measured) to result partitions.",
+    ),
 )
 
 KNOBS: Dict[str, EnvKnob] = {k.name: k for k in _DECLARED}

@@ -16,6 +16,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..analysis.op_count import host_scope
 from .jacobi import jacobi_eigh, jacobi_eigh_host, tridiag_to_dense
 from .lanczos import LanczosResult, check_tridiag_health, lanczos_tridiag, ops_for_operator
 from .operators import LinearOperator
@@ -80,19 +81,24 @@ def ritz_decompose(lres: LanczosResult, policy: PrecisionPolicy, jacobi: str = "
         raise ValueError(f"jacobi must be one of {JACOBI_PLACEMENTS}, got {jacobi!r}")
     rzdt = policy.phase_dtype("ritz")
     dev = lres.basis.device
+    # The host Jacobi and the f64 host copies are NumPy work in the
+    # reference, outside its traces: hidden from the op counter.
     if jacobi == "host":
-        t_host = tridiag_to_dense(
-            lres.alpha.cpu().to(torch.float64).numpy(), lres.beta.cpu().to(torch.float64).numpy()
-        )
-        evals_f64, w_host = jacobi_eigh_host(t_host)
-        evals = torch.as_tensor(evals_f64).to(device=dev, dtype=rzdt)
-        w = torch.as_tensor(w_host).to(device=dev, dtype=rzdt)
+        with host_scope():
+            t_host = tridiag_to_dense(lres.alpha.cpu().to(torch.float64).numpy(),
+                                      lres.beta.cpu().to(torch.float64).numpy())
+            evals_f64, w_host = jacobi_eigh_host(t_host)
+            evals = torch.as_tensor(evals_f64).to(device=dev, dtype=rzdt)
+            w = torch.as_tensor(w_host).to(device=dev, dtype=rzdt)
     else:
         evals, w = jacobi_eigh(tridiag_to_dense(lres.alpha, lres.beta).to(rzdt))
-        evals_f64 = evals.cpu().to(torch.float64).numpy()
-    # Residual arithmetic sees W as the solver uses it: rounded through rzdt.
-    w_f64 = w.cpu().to(torch.float64).numpy()
-    beta_m = float(lres.beta_last.cpu().to(torch.float64)) if lres.beta_last is not None else 0.0
+        with host_scope():
+            evals_f64 = evals.cpu().to(torch.float64).numpy()
+    with host_scope():
+        # Residual arithmetic sees W as the solver uses it: rounded through rzdt.
+        w_f64 = w.cpu().to(torch.float64).numpy()
+        beta_m = (float(lres.beta_last.cpu().to(torch.float64))
+                  if lres.beta_last is not None else 0.0)
     return evals, w, np.asarray(evals_f64, dtype=np.float64), w_f64, beta_m
 
 

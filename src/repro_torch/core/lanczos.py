@@ -28,6 +28,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..analysis.op_count import host_scope
 from ..configs import env as envcfg
 from ..testing import faults as _faults
 from .precision import PrecisionPolicy, compensated_sum
@@ -73,7 +74,13 @@ class LanczosResult(NamedTuple):
 def check_tridiag_health(result: LanczosResult, policy: PrecisionPolicy) -> None:
     """Post-sweep health probe: raise :class:`NumericalBreakdown` instead of
     letting garbage flow into the Ritz phase (O(m) host work on the
-    tridiagonal scalars; the earliest offending step decides the kind)."""
+    tridiagonal scalars, hidden from the op counter; the earliest offending
+    step decides the kind)."""
+    with host_scope():
+        _check_tridiag_health(result, policy)
+
+
+def _check_tridiag_health(result: LanczosResult, policy: PrecisionPolicy) -> None:
     pol = getattr(policy, "name", None) or str(policy)
     alpha = result.alpha.detach().cpu().to(torch.float64).numpy().reshape(-1)
     beta = result.beta.detach().cpu().to(torch.float64).numpy().reshape(-1)

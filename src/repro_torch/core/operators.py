@@ -18,6 +18,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analysis.op_count import host_scope
 from ..kernels.engine import SpmvEngine
 from ..sparse.diskcsr import DiskCSR
 from ..sparse.formats import (
@@ -578,6 +579,10 @@ class ChunkedOperator(LinearOperator):
         def stage(j):
             if j >= self.num_chunks or j in staged:
                 return
+            with host_scope():  # the chunk build is host work (NumPy in the reference)
+                _stage(j)
+
+        def _stage(j):
             _faults.check_chunk_io(j)
             t0 = time.perf_counter()
             win = wins[j % len(wins)]

@@ -33,6 +33,7 @@ __all__ = [
     "norm2",
     "auto_ladder",
     "phase_op_counts",
+    "assert_phase_count_parity",
 ]
 
 # The four compute phases of one solve, in hot-loop order (see the reference).
@@ -184,6 +185,16 @@ def auto_ladder() -> tuple:
 # Fraction of the stored basis each re-orthogonalization mode touches per
 # pass (the paper's parity scheme halves it; CGS2 runs two full passes).
 _REORTH_PASS_FRAC = {"none": 0.0, "half": 0.5, "half_alt": 0.5, "full": 1.0, "full2": 2.0}
+# What the port's ``project_out`` (``core/lanczos.py``) executes, in the
+# model's ``2 f m^2 n`` units: each pass multiplies the whole (m, n) basis by
+# the mask (the mask zeroes coefficients, not work) and runs two gemvs over
+# it, 3 m n ops, so f = 1.5 per pass whatever the mode; CGS2 runs two.
+_REORTH_EXEC_FRAC = {"none": 0.0, "half": 1.5, "half_alt": 1.5, "full": 1.5, "full2": 3.0}
+
+# Element ops of one cyclic-Jacobi sweep on an m x m matrix: m(m-1)/2
+# rotations, each applying 6 axpy-like updates of length m (two rows, two
+# cols, two eigenvector cols at 3 ops/element) => ~9 m^3 per sweep.
+_JACOBI_SWEEP_OPS = 9.0
 
 
 def phase_op_counts(
@@ -194,16 +205,32 @@ def phase_op_counts(
     m: int,
     k: int,
     reorth: str = "half",
+    jacobi: str = "host",
+    jacobi_sweeps: float = 6.0,
+    executed: bool = False,
 ) -> Dict[str, int]:
-    """Model-based count of element operations per compute dtype for one
-    solve, the audit in ``partition["spmv"]["precision"]["ops_by_dtype"]``:
+    """Model count of element operations per compute dtype for one solve:
     ``m * nnz`` SpMV accumulations, ``2 m n`` alpha/beta reduction elements,
     ``2 f m^2 n`` re-orthogonalization elements (``f``: the mode's basis
     fraction per pass) and ``n m k`` back-projection elements, each under
-    the dtype of the phase that runs it.  An estimate of work by dtype, not
-    a hardware counter.  The reference's model for the host Jacobi; its
-    ``executed=`` and device-Jacobi terms serve the jaxpr audit, which the
-    port does not have yet (ROADMAP queue A, "Analysis")."""
+    the dtype of the phase that runs it.  A model, not a counter: it is
+    what ``partition["spmv"]["precision"]["ops_by_dtype"]`` reports, and
+    ``ops_by_dtype_measured`` (``REPRO_PRECISION_MEASURE=1``) is what the op
+    counter of ``analysis/op_count.py`` saw the solve execute.
+
+    ``jacobi="jax"`` (the reference's ``"device"``) adds the device Jacobi
+    of the m x m projected matrix to the ritz phase, ``~9 m^3`` per sweep x
+    ``jacobi_sweeps``; the host placement runs in NumPy and adds nothing.
+
+    ``executed=True`` is the convention under which the model compares with
+    the measured counts (:func:`assert_phase_count_parity`): the reorth
+    term takes the fractions the port's masked ``project_out`` executes
+    (``_REORTH_EXEC_FRAC``) and ``nnz`` should be the slots the kernels run
+    (ELL padding included).  The reference counts one Jacobi sweep there,
+    since a jaxpr records a ``while`` body once; the port counts a run, so
+    the counter sees every sweep, and the model counts ``jacobi_sweeps`` of
+    them either way.
+    """
     p = policy.effective()
     counts: Dict[str, int] = {}
 
@@ -211,9 +238,61 @@ def phase_op_counts(
         name = dtype_name(p.phase_dtype(phase))
         counts[name] = counts.get(name, 0) + int(ops)
 
-    frac = _REORTH_PASS_FRAC.get(reorth, 1.0)
+    table = _REORTH_EXEC_FRAC if executed else _REORTH_PASS_FRAC
+    frac = table.get(reorth, 1.0)
     add("spmv", m * nnz)
     add("alpha_beta", 2 * m * n)
     add("reorth", 2.0 * frac * m * m * n)
     add("ritz", n * m * k)
+    if jacobi in ("jax", "device"):
+        add("ritz", _JACOBI_SWEEP_OPS * jacobi_sweeps * m**3)
     return counts
+
+
+def assert_phase_count_parity(
+    model: Dict[str, int],
+    measured: Dict[str, int],
+    *,
+    ratio: float = 8.0,
+    min_share: float = 0.02,
+    context: str = "",
+) -> None:
+    """Tripwire pinning the model to the measured counts (the reference's).
+
+    The two count at different granularity, so this demands the same
+    *story*, not equality: every dtype carrying at least ``min_share`` of
+    either side's work appears on the other, and per-dtype totals agree
+    within a factor of ``ratio``.  A wrong phase-dtype attribution moves
+    whole ``m^3`` / ``m^2 n`` terms between dtypes and trips either check
+    long before any constant-factor slack matters.
+    """
+    problems = []
+    total_meas = sum(measured.values()) or 1
+    total_model = sum(model.values()) or 1
+    for dt, cnt in sorted(measured.items()):
+        if cnt / total_meas >= min_share and model.get(dt, 0) == 0:
+            problems.append(
+                f"measured dtype {dt} ({cnt} ops, {cnt / total_meas:.0%} of the run)"
+                " is absent from the model"
+            )
+    for dt, cnt in sorted(model.items()):
+        if cnt / total_model >= min_share and measured.get(dt, 0) == 0:
+            problems.append(
+                f"model dtype {dt} ({cnt} ops, {cnt / total_model:.0%} of model)"
+                " never appears in the run"
+            )
+    for dt in sorted(set(model) & set(measured)):
+        if model[dt] == 0 or measured[dt] == 0:
+            continue
+        r = measured[dt] / model[dt]
+        if not (1.0 / ratio <= r <= ratio):
+            problems.append(
+                f"{dt}: measured/model ratio {r:.3g} outside"
+                f" [{1.0 / ratio:.3g}, {ratio:.3g}]"
+                f" (measured={measured[dt]}, model={model[dt]})"
+            )
+    if problems:
+        where = f" [{context}]" if context else ""
+        raise AssertionError(
+            f"phase_op_counts parity failure{where}:\n  " + "\n  ".join(problems)
+        )

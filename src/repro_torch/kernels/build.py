@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``) for Hopper.
 
-The six sources compile with ``nvcc -gencode arch=compute_90a,code=sm_90a``
-into one shared library with a plain C interface, loaded with ``ctypes``:
+The six kernel sources and the resource report (``attrs.cu``) compile
+with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into one shared library
+with a plain C interface, loaded with ``ctypes``:
 seconds to build, against minutes for an extension that includes PyTorch's
 headers.  The build happens at first use, from the sources in this package
 only, into ``build/repro_torch_kernels/<hash>/`` at the repository root; the
@@ -49,6 +50,7 @@ SOURCES = (
     "spmv_bsr.cu",
     "spmv_ell_packed.cu",
     "mixed_dot.cu",
+    "attrs.cu",
 )
 # --fmad=false: every product is rounded before it is added, as in the plain
 # PyTorch versions, so kernel and plain version differ only in sum order.
@@ -96,6 +98,8 @@ _SIGNATURES = {
     ),
     "repro_mixed_dot": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _I, _P]),
     "repro_update_blocks": (_L, [_L]),
+    "repro_kernel_count": (_I, []),
+    "repro_kernel_attrs": (_I, [_I, ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(_L)]),
     "repro_error_string": (ctypes.c_char_p, [_I]),
 }
 

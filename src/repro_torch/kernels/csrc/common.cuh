@@ -118,3 +118,20 @@ int dispatch_pair(int sdt, int adt, Args... args) {
 inline long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
 
 }  // namespace
+
+// ------------------------------------------------------- kernel tables
+// Every source lists its kernel instantiations, LIST(X) calling X once per
+// instantiation, and REPRO_KERNEL_TABLE(fn, LIST) exports
+//   extern "C" int fn(const char* const** names, const void* const** fns)
+// returning how many there are: their names and host-stub addresses, which
+// attrs.cu hands to cudaFuncGetAttributes for the resource report.
+#define REPRO_KERNEL_NAME(...) #__VA_ARGS__,
+#define REPRO_KERNEL_FN(...) reinterpret_cast<const void*>(&__VA_ARGS__),
+#define REPRO_KERNEL_TABLE(fn, LIST)                                              \
+  extern "C" int fn(const char* const** names, const void* const** fns) {        \
+    static const char* const kNames[] = {LIST(REPRO_KERNEL_NAME)};                \
+    static const void* const kFns[] = {LIST(REPRO_KERNEL_FN)};                    \
+    *names = kNames;                                                              \
+    *fns = kFns;                                                                  \
+    return static_cast<int>(sizeof(kFns) / sizeof(kFns[0]));                      \
+  }

@@ -93,3 +93,9 @@ extern "C" int repro_spmv_ell_alpha(int sdt, int adt, const void* val, const voi
                                      rows, width, lanes, path, sms,
                                      static_cast<cudaStream_t>(stream));
 }
+
+#define SPMV_ELL_ALPHA_KERNELS(X)                                                        \
+  X(spmv_ell_alpha_kernel<float, float>) X(spmv_ell_alpha_kernel<float, double>)          \
+  X(spmv_ell_alpha_kernel<double, double>) X(spmv_ell_alpha_kernel<__nv_bfloat16, float>) \
+  X(spmv_ell_alpha_kernel<__half, float>)
+REPRO_KERNEL_TABLE(repro_kernels_spmv_ell_alpha, SPMV_ELL_ALPHA_KERNELS)

@@ -74,3 +74,10 @@ extern "C" int repro_lanczos_update(int tdt, int adt, const void* w, const void*
 }
 
 extern "C" long long repro_update_blocks(long long n) { return update_blocks(n); }
+
+#define LANCZOS_UPDATE_KERNELS(X)                                                        \
+  X(lanczos_update_kernel<float, float>) X(lanczos_update_kernel<float, double>)          \
+  X(lanczos_update_kernel<double, double>) X(lanczos_update_kernel<__nv_bfloat16, float>) \
+  X(lanczos_update_kernel<__half, float>) X(reduce_partials_kernel<float>)                \
+  X(reduce_partials_kernel<double>)
+REPRO_KERNEL_TABLE(repro_kernels_lanczos_update, LANCZOS_UPDATE_KERNELS)

@@ -292,3 +292,14 @@ extern "C" int repro_mixed_dot(int sdt, int adt, const void* a, const void* b, v
     return by_storage<double>(sdt, a, b, out, partials, n, block, compensated, s);
   return ERR_UNSUPPORTED_DTYPES;
 }
+
+#define MIXED_DOT_KERNELS(X)                 \
+  X(mixed_dot_kernel<float, float>)          \
+  X(mixed_dot_kernel<float, double>)         \
+  X(mixed_dot_kernel<double, float>)         \
+  X(mixed_dot_kernel<double, double>)        \
+  X(mixed_dot_kernel<__half, float>)         \
+  X(mixed_dot_kernel<__half, double>)        \
+  X(mixed_dot_kernel<__nv_bfloat16, float>)  \
+  X(mixed_dot_kernel<__nv_bfloat16, double>)
+REPRO_KERNEL_TABLE(repro_kernels_mixed_dot, MIXED_DOT_KERNELS)

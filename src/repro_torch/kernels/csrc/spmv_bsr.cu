@@ -68,3 +68,21 @@ extern "C" int repro_spmv_bsr(int sdt, int adt, const void* val, const void* bco
   return dispatch_pair<SpmvBsr>(sdt, adt, val, bcol, x, y, nbr, slots, bs,
                                 static_cast<cudaStream_t>(stream));
 }
+
+#define SPMV_BSR_KERNELS(X)                    \
+  X(spmv_bsr_kernel<float, float, 4>)          \
+  X(spmv_bsr_kernel<float, float, 8>)          \
+  X(spmv_bsr_kernel<float, float, 16>)         \
+  X(spmv_bsr_kernel<float, double, 4>)         \
+  X(spmv_bsr_kernel<float, double, 8>)         \
+  X(spmv_bsr_kernel<float, double, 16>)        \
+  X(spmv_bsr_kernel<double, double, 4>)        \
+  X(spmv_bsr_kernel<double, double, 8>)        \
+  X(spmv_bsr_kernel<double, double, 16>)       \
+  X(spmv_bsr_kernel<__nv_bfloat16, float, 4>)  \
+  X(spmv_bsr_kernel<__nv_bfloat16, float, 8>)  \
+  X(spmv_bsr_kernel<__nv_bfloat16, float, 16>) \
+  X(spmv_bsr_kernel<__half, float, 4>)         \
+  X(spmv_bsr_kernel<__half, float, 8>)         \
+  X(spmv_bsr_kernel<__half, float, 16>)       
+REPRO_KERNEL_TABLE(repro_kernels_spmv_bsr, SPMV_BSR_KERNELS)

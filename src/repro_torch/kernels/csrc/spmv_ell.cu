@@ -68,6 +68,12 @@ extern "C" int repro_spmv_ell(int sdt, int adt, const void* val, const void* col
                                 static_cast<cudaStream_t>(stream));
 }
 
+#define SPMV_ELL_KERNELS(X)                                                  \
+  X(spmv_ell_kernel<float, float>) X(spmv_ell_kernel<float, double>)          \
+  X(spmv_ell_kernel<double, double>) X(spmv_ell_kernel<__nv_bfloat16, float>) \
+  X(spmv_ell_kernel<__half, float>)
+REPRO_KERNEL_TABLE(repro_kernels_spmv_ell, SPMV_ELL_KERNELS)
+
 extern "C" const char* repro_error_string(int code) {
   if (code == ERR_UNSUPPORTED_DTYPES) return "unsupported (storage, accum) dtype pair";
   if (code == -2) return "unsupported BSR block size";

@@ -283,3 +283,26 @@ extern "C" int repro_spmv_ell_packed(int vdt, int idt, int sdt, int adt, const v
                                        path, sms, s);
   return ERR_UNSUPPORTED_DTYPES;
 }
+
+#define SPMV_ELL_PACKED_KERNELS(X)                                      \
+  X(spmv_ell_packed_kernel<__nv_bfloat16, short, float, float>)         \
+  X(spmv_ell_packed_kernel<__nv_bfloat16, short, float, double>)        \
+  X(spmv_ell_packed_kernel<__nv_bfloat16, short, double, double>)       \
+  X(spmv_ell_packed_kernel<__nv_bfloat16, short, __nv_bfloat16, float>) \
+  X(spmv_ell_packed_kernel<__nv_bfloat16, short, __half, float>)        \
+  X(spmv_ell_packed_kernel<__nv_bfloat16, int, float, float>)           \
+  X(spmv_ell_packed_kernel<__nv_bfloat16, int, float, double>)          \
+  X(spmv_ell_packed_kernel<__nv_bfloat16, int, double, double>)         \
+  X(spmv_ell_packed_kernel<__nv_bfloat16, int, __nv_bfloat16, float>)   \
+  X(spmv_ell_packed_kernel<__nv_bfloat16, int, __half, float>)          \
+  X(spmv_ell_packed_kernel<__nv_fp8_e4m3, short, float, float>)         \
+  X(spmv_ell_packed_kernel<__nv_fp8_e4m3, short, float, double>)        \
+  X(spmv_ell_packed_kernel<__nv_fp8_e4m3, short, double, double>)       \
+  X(spmv_ell_packed_kernel<__nv_fp8_e4m3, short, __nv_bfloat16, float>) \
+  X(spmv_ell_packed_kernel<__nv_fp8_e4m3, short, __half, float>)        \
+  X(spmv_ell_packed_kernel<__nv_fp8_e4m3, int, float, float>)           \
+  X(spmv_ell_packed_kernel<__nv_fp8_e4m3, int, float, double>)          \
+  X(spmv_ell_packed_kernel<__nv_fp8_e4m3, int, double, double>)         \
+  X(spmv_ell_packed_kernel<__nv_fp8_e4m3, int, __nv_bfloat16, float>)   \
+  X(spmv_ell_packed_kernel<__nv_fp8_e4m3, int, __half, float>)         
+REPRO_KERNEL_TABLE(repro_kernels_spmv_ell_packed, SPMV_ELL_PACKED_KERNELS)

@@ -5,7 +5,8 @@ Two passes, both deterministic: ``spmv_ell``'s row code (the same launch
 plan, so ``w`` has ``spmv_ell``'s bits) writes ``w`` and one partial of
 ``<v, w>`` per block of a grid of SMs times occupancy; one block then sums
 the partials in a fixed order.  Bound on the card by bytes.  The plain
-version is ``ref.spmv_ell_alpha_ref``.
+version is ``ref.spmv_ell_alpha_ref``; :func:`spmv_ell_alpha_contract`
+declares what a launch executes.
 """
 
 from __future__ import annotations
@@ -13,9 +14,16 @@ from __future__ import annotations
 import torch
 
 from . import build as _b
-from .spmv_ell import ELL_PATHS, ell_launch_plan, ell_max_blocks, sm_count
+from .spmv_ell import ELL_PATHS, ell_launch_plan, ell_max_blocks, sm_count, spmv_ell_contract
 
-__all__ = ["spmv_ell_alpha_kernel_call"]
+__all__ = ["spmv_ell_alpha_kernel_call", "spmv_ell_alpha_contract"]
+
+
+def spmv_ell_alpha_contract(val: torch.Tensor, x: torch.Tensor, v: torch.Tensor, accum_dtype):
+    """``spmv_ell``'s contract for ``w`` plus, for alpha, a multiply and an
+    add in ``accum_dtype`` per element of ``v``."""
+    ops, convs = spmv_ell_contract(val, x, accum_dtype)
+    return {dt: n + 2 * v.numel() for dt, n in ops.items()}, convs
 
 
 def spmv_ell_alpha_kernel_call(

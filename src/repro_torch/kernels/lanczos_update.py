@@ -4,16 +4,27 @@ Replaces ``src/repro/kernels/lanczos_update.py:lanczos_update_kernel_call``:
 ``u = w - alpha v - beta v_prev`` and ``||u||^2`` in one pass, the norm
 reduced in a fixed order (per-block partials, then one block).  ``alpha``
 and ``beta`` stay on the card.  Bound by bytes.  The plain version is
-``ref.lanczos_update_ref``.
+``ref.lanczos_update_ref``; :func:`lanczos_update_contract` declares what
+a launch executes.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..analysis.op_count import dtype_name, widened
 from . import build as _b
 
-__all__ = ["lanczos_update_kernel_call"]
+__all__ = ["lanczos_update_kernel_call", "lanczos_update_contract"]
+
+
+def lanczos_update_contract(w: torch.Tensor, accum_dtype):
+    """The ops one launch executes over ``n`` elements, all in
+    ``accum_dtype``: two multiplies and two subtractions for ``u``, a
+    multiply and an add for ``||u||^2``; ``w``, ``v`` and ``v_prev`` widened
+    in registers and ``u`` rounded back to ``w.dtype`` where they differ."""
+    return ({dtype_name(accum_dtype): 6 * w.numel()},
+            widened(accum_dtype, w.dtype, w.dtype, w.dtype) + widened(w.dtype, accum_dtype))
 
 
 def _scalar(s, dtype, device) -> torch.Tensor:

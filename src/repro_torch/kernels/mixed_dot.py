@@ -7,7 +7,8 @@ block per tile reads 16-byte vectors; the last tile may be ragged (its
 lanes past the end read zeros, so the result equals a zero-padded call's bit
 for bit).  One more block walks the tile totals in order as they finish,
 through shared memory, so the bits are the same on every run.  Bound on the
-card by bytes.  The plain version is ``ref.mixed_dot_ref``.
+card by bytes.  The plain version is ``ref.mixed_dot_ref``; :func:`mixed_dot_contract`
+declares what a launch executes.
 """
 
 from __future__ import annotations
@@ -16,9 +17,23 @@ import ctypes
 
 import torch
 
+from ..analysis.op_count import dtype_name, widened
 from . import build as _b
 
-__all__ = ["mixed_dot_kernel_call"]
+__all__ = ["mixed_dot_kernel_call", "mixed_dot_contract"]
+
+
+def mixed_dot_contract(a: torch.Tensor, accum_dtype, block: int, compensated: bool):
+    """The ops one launch executes in ``accum_dtype``: a multiply and an add
+    per element, then per tile the running sum's add, or with Neumaier
+    compensation its six ops (add, two magnitudes, two corrections, the
+    compensation's add); ``a`` and ``b`` widened in registers where they
+    differ."""
+    n = a.numel()
+    tiles = -(-n // block)
+    return ({dtype_name(accum_dtype): 2 * n + tiles * (6 if compensated else 1)},
+            widened(accum_dtype, a.dtype, a.dtype))
+
 
 def mixed_dot_kernel_call(
     a: torch.Tensor,

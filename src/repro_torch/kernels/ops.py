@@ -5,19 +5,25 @@ the plain PyTorch version (``ref``), a CUDA tensor launches the Hopper
 kernel, which raises if it cannot run.  There is no fallback between the
 two.  The wrappers also own the launch shape: they pad what a kernel needs
 padded and slice the result back to the logical length.
+
+Each kernel call (or its plain version) runs inside
+``analysis.op_count.kernel_scope``: under an active op counter its aten ops
+are hidden and the kernel's declared contract is recorded instead, the same
+on both devices.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..analysis.op_count import kernel_scope
 from . import ref
-from .lanczos_fused import spmv_ell_alpha_kernel_call
-from .lanczos_update import lanczos_update_kernel_call
-from .mixed_dot import mixed_dot_kernel_call
-from .spmv_bsr import check_bsr_operands, spmv_bsr_kernel_call
-from .spmv_ell import spmv_ell_kernel_call
-from .spmv_ell_packed import spmv_ell_packed_kernel_call
+from .lanczos_fused import spmv_ell_alpha_contract, spmv_ell_alpha_kernel_call
+from .lanczos_update import lanczos_update_contract, lanczos_update_kernel_call
+from .mixed_dot import mixed_dot_contract, mixed_dot_kernel_call
+from .spmv_bsr import check_bsr_operands, spmv_bsr_contract, spmv_bsr_kernel_call
+from .spmv_ell import spmv_ell_contract, spmv_ell_kernel_call
+from .spmv_ell_packed import spmv_ell_packed_contract, spmv_ell_packed_kernel_call
 
 __all__ = [
     "on_cpu",
@@ -44,16 +50,19 @@ def on_cpu(t: torch.Tensor) -> bool:
 
 def ell_matvec(val, col, x, accum_dtype) -> torch.Tensor:
     """``ELL(val, col) @ x`` over the padded rows -> ``(rows_pad,)``."""
-    if on_cpu(val):
-        return ref.spmv_ell_ref(val, col, x, accum_dtype)
-    return spmv_ell_kernel_call(val, col, x, accum_dtype=accum_dtype)
+    with kernel_scope("spmv_ell", lambda: spmv_ell_contract(val, x, accum_dtype)):
+        if on_cpu(val):
+            return ref.spmv_ell_ref(val, col, x, accum_dtype)
+        return spmv_ell_kernel_call(val, col, x, accum_dtype=accum_dtype)
 
 
 def packed_ell_matvec(val, scale, base, dcol, x, accum_dtype) -> torch.Tensor:
     """SpMV of a packed ELL chunk (``spmv_ell_packed``) -> ``(rows,)``."""
-    if on_cpu(val):
-        return ref.spmv_ell_packed_ref(val, scale, base, dcol, x, accum_dtype)
-    return spmv_ell_packed_kernel_call(val, scale, base, dcol, x, accum_dtype=accum_dtype)
+    with kernel_scope("spmv_ell_packed",
+                      lambda: spmv_ell_packed_contract(val, scale, x, accum_dtype)):
+        if on_cpu(val):
+            return ref.spmv_ell_packed_ref(val, scale, base, dcol, x, accum_dtype)
+        return spmv_ell_packed_kernel_call(val, scale, base, dcol, x, accum_dtype=accum_dtype)
 
 
 def bsr_matvec(val, bcol, x, accum_dtype, n_cols=None) -> torch.Tensor:
@@ -65,10 +74,11 @@ def bsr_matvec(val, bcol, x, accum_dtype, n_cols=None) -> torch.Tensor:
     width = -(-n_cols // bs) * bs
     if x.shape[0] == n_cols < width:
         x = torch.nn.functional.pad(x, (0, width - n_cols))
-    if on_cpu(val):
-        check_bsr_operands(val, bcol, x, n_cols)
-        return ref.spmv_bsr_ref(val, bcol, x, accum_dtype)
-    return spmv_bsr_kernel_call(val, bcol, x, accum_dtype=accum_dtype, n_cols=n_cols)
+    with kernel_scope("spmv_bsr", lambda: spmv_bsr_contract(val, x, accum_dtype)):
+        if on_cpu(val):
+            check_bsr_operands(val, bcol, x, n_cols)
+            return ref.spmv_bsr_ref(val, bcol, x, accum_dtype)
+        return spmv_bsr_kernel_call(val, bcol, x, accum_dtype=accum_dtype, n_cols=n_cols)
 
 
 def spmv_ell(mat, x, accum_dtype=None) -> torch.Tensor:
@@ -100,10 +110,11 @@ def spmv_ell_alpha(mat, x, v, accum_dtype=None):
     """
     acc = accum_dtype or torch.float32
     v = v.to(acc)
-    if on_cpu(mat.val):
-        w, alpha = ref.spmv_ell_alpha_ref(mat.val, mat.col, x, v, acc)
-    else:
-        w, alpha = spmv_ell_alpha_kernel_call(mat.val, mat.col, x, v, accum_dtype=acc)
+    with kernel_scope("spmv_ell_alpha", lambda: spmv_ell_alpha_contract(mat.val, x, v, acc)):
+        if on_cpu(mat.val):
+            w, alpha = ref.spmv_ell_alpha_ref(mat.val, mat.col, x, v, acc)
+        else:
+            w, alpha = spmv_ell_alpha_kernel_call(mat.val, mat.col, x, v, accum_dtype=acc)
     return w[: mat.n_rows], alpha
 
 
@@ -111,9 +122,10 @@ def lanczos_update(w, v, v_prev, alpha, beta, accum_dtype=None):
     """Fused ``u = w - alpha v - beta v_prev`` and ``||u||^2`` (one pass).
     Any length: the kernel masks its ragged edge itself."""
     acc = accum_dtype or torch.float32
-    if on_cpu(w):
-        return ref.lanczos_update_ref(w, v, v_prev, alpha, beta, acc)
-    return lanczos_update_kernel_call(w, v, v_prev, alpha, beta, accum_dtype=acc)
+    with kernel_scope("lanczos_update", lambda: lanczos_update_contract(w, acc)):
+        if on_cpu(w):
+            return ref.lanczos_update_ref(w, v, v_prev, alpha, beta, acc)
+        return lanczos_update_kernel_call(w, v, v_prev, alpha, beta, accum_dtype=acc)
 
 
 def mixed_dot(a, b, accum_dtype=None, compensated: bool = False, block: int = 4096):
@@ -130,11 +142,13 @@ def mixed_dot(a, b, accum_dtype=None, compensated: bool = False, block: int = 40
     if n == 0:
         raise ValueError("mixed_dot: empty operands")
     block = min(block, n)
-    if on_cpu(a):
-        pad = (-n) % block
-        if pad:
-            a, b = torch.nn.functional.pad(a, (0, pad)), torch.nn.functional.pad(b, (0, pad))
-        out = ref.mixed_dot_ref(a, b, acc, block=block, compensated=compensated)
-    else:
-        out = mixed_dot_kernel_call(a, b, block=block, accum_dtype=acc, compensated=compensated)
+    with kernel_scope("mixed_dot", lambda a=a: mixed_dot_contract(a, acc, block, compensated)):
+        if on_cpu(a):
+            pad = (-n) % block
+            if pad:
+                a, b = torch.nn.functional.pad(a, (0, pad)), torch.nn.functional.pad(b, (0, pad))
+            out = ref.mixed_dot_ref(a, b, acc, block=block, compensated=compensated)
+        else:
+            out = mixed_dot_kernel_call(a, b, block=block, accum_dtype=acc,
+                                        compensated=compensated)
     return out.sum()

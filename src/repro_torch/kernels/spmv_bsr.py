@@ -2,7 +2,8 @@
 
 Replaces ``src/repro/kernels/spmv_bsr.py:spmv_bsr_kernel_call``: one thread
 per output row of a block-row, plain multiply-adds over the slots.  Bound
-by bytes.  The plain version is ``ref.spmv_bsr_ref``.
+by bytes.  The plain version is ``ref.spmv_bsr_ref``; :func:`spmv_bsr_contract`
+declares what a launch executes.
 """
 
 from __future__ import annotations
@@ -11,9 +12,21 @@ from typing import Optional
 
 import torch
 
+from ..analysis.op_count import dtype_name, widened
 from . import build as _b
 
-__all__ = ["spmv_bsr_kernel_call", "check_bsr_operands", "blocked_ell_from_csr"]
+__all__ = ["spmv_bsr_kernel_call", "spmv_bsr_contract", "check_bsr_operands",
+           "blocked_ell_from_csr"]
+
+
+def spmv_bsr_contract(val: torch.Tensor, x: torch.Tensor, accum_dtype):
+    """The ops one launch executes: a multiply and an add in ``accum_dtype``
+    per stored block value (``nbr * slots * BS * BS``, padding slots
+    included), ``val`` and ``x`` widened in registers where they differ.
+    (The plain version contracts through ``einsum``, a batched matmul that
+    counts one op a multiply-accumulate: half this count.)"""
+    return ({dtype_name(accum_dtype): 2 * val.numel()},
+            widened(accum_dtype, val.dtype, x.dtype))
 
 
 def check_bsr_operands(val: torch.Tensor, bcol: torch.Tensor, x: torch.Tensor,

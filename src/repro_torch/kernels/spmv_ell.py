@@ -5,17 +5,20 @@ card by bytes: each lane reads 16 B of ``val`` and the matching columns with
 evict-first loads, several rows per thread in flight, and gathers ``x``
 through L2.  :func:`ell_launch_plan` picks the kernel's path from the shapes;
 the row code (``csrc/ell_row.cuh``) is shared with ``spmv_ell_alpha``.  The
-plain version is ``ref.spmv_ell_ref``.
+plain version is ``ref.spmv_ell_ref``; :func:`spmv_ell_contract` declares
+what a launch executes, for the op counter (``analysis/op_count.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..analysis.op_count import dtype_name, widened
 from . import build as _b
 
 __all__ = [
     "spmv_ell_kernel_call",
+    "spmv_ell_contract",
     "ell_group",
     "ell_launch_plan",
     "lane_plan",
@@ -79,6 +82,15 @@ def ell_max_blocks(rows: int, lanes: int, path: str, sms: int) -> int:
     step = THREADS // (32 if path == "wide" else lanes)
     per_block = step * ROWS_IN_FLIGHT if path == "vector" else step
     return min(-(-rows // per_block), sms * MAX_BLOCKS_PER_SM)
+
+
+def spmv_ell_contract(val: torch.Tensor, x: torch.Tensor, accum_dtype):
+    """The ops one launch executes: a multiply and an add in ``accum_dtype``
+    for each of the ``rows_pad x width`` slots (padding included), with
+    ``val`` and ``x`` widened from the storage dtype in registers when it
+    is not the accum dtype.  Returns ``(ops_by_dtype, conversions)``."""
+    return ({dtype_name(accum_dtype): 2 * val.numel()},
+            widened(accum_dtype, val.dtype, x.dtype))
 
 
 def sm_count(device: torch.device) -> int:

@@ -20,7 +20,8 @@ f64 -> bf16 / fp8 e4m3 rounding gives the bytes ``ml_dtypes`` gives for
 every value the per-block scale can produce (|v| <= 448).  The kernel
 reads a row's slots as vectors of :data:`PACKED_SLOTS` in as many lanes as
 :func:`packed_launch_plan` gives it (see the source).  The plain version of
-the kernel is ``ref.spmv_ell_packed_ref``.
+the kernel is ``ref.spmv_ell_packed_ref``; :func:`spmv_ell_packed_contract`
+declares what a launch executes.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..analysis.op_count import dtype_name, widened
 from . import build as _b
 from .spmv_ell import ELL_PATHS, lane_plan, sm_count
 
@@ -38,6 +40,7 @@ __all__ = [
     "pack_ell_chunk",
     "packed_launch_plan",
     "spmv_ell_packed_kernel_call",
+    "spmv_ell_packed_contract",
 ]
 
 # staging-mode name -> narrow dtype of the packed values
@@ -101,6 +104,17 @@ def packed_launch_plan(width: int, delta_size: int, aligned: bool) -> tuple:
     if delta_size not in (2, 4):
         raise ValueError(f"spmv_ell_packed: no kernel for {delta_size}-byte deltas")
     return lane_plan(width, PACKED_SLOTS, aligned)
+
+
+def spmv_ell_packed_contract(val: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
+                             accum_dtype):
+    """The ops one launch executes, per slot, in ``accum_dtype``: the
+    dequantizing multiply by the row's scale, the multiply by ``x`` and the
+    add; the packed values, the f32 scale and ``x`` widened in registers
+    where they differ from the accum dtype.  (The column decode is integer
+    work.)"""
+    return ({dtype_name(accum_dtype): 3 * val.numel()},
+            widened(accum_dtype, val.dtype, scale.dtype, x.dtype))
 
 
 def spmv_ell_packed_kernel_call(

@@ -524,7 +524,7 @@ class EigenScheduler:
             return True
         return False
 
-    def _take_compatible(self, seed: QueryHandle, room: int) -> List[QueryHandle]:
+    def _take_compatible(self, seed: QueryHandle, room: int) -> List[QueryHandle]:  # repro: holds[_cv]
         """Pull every queued request coalescible with ``seed`` (same matrix,
         same non-None group key), resolving dead ones along the way.  Caller
         holds the lock."""
