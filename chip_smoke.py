@@ -137,7 +137,21 @@ before the last line:
    ``generate("road", 1 << 20, 2.1)``; (c) ``python -m repro_torch.analysis
    --check kernels --strict --device cuda`` in a subprocess: no finding,
    and each instantiation's registers, shared and local bytes and
-   occupancy, which join the ``kernels`` line; (d) its own seconds.
+   occupancy, which join the ``kernels`` line; (d) its own seconds;
+15. the LM training path and its Hessian monitor at full width
+   (qwen3-0.6b, n = 596,049,920 parameters, bf16 compute): (b)
+   ``lanczos_update`` at that n against its plain version, (f32, f32) and
+   (f32, f64), with its bound; (c) the HVP on the card against the host's
+   at the smoke config (f32, rel 1e-5 of max |Hv|); (a) ``python -m
+   repro_torch.launch.train``'s code path in process: 6 AdamW steps at
+   batch 8 x seq 256, a Hessian probe every 3 (each launching
+   ``lanczos_update`` 8 times and no SpMV kernel, eigenvalues finite and
+   ordered by |lambda|), then the last probe again with its parts timed and
+   its true residuals (4 more HVPs) against its Ritz bounds; (d) a train
+   step's, an HVP's and a probe's wall time, the probe's split into HVPs,
+   ``lanczos_update``, ``project_out`` and the Ritz step, each part's peak
+   memory, and its own seconds.  The checkpoints go to a temporary
+   directory that is deleted.
 
 ``repro_torch.eigsh`` keeps a cache of prepared sessions, so every call a
 phase reports as cold (``solve``) clears it first; phase 7 prints its
@@ -145,7 +159,8 @@ state once.
 
 Then one JSON line of kernel records (``launches`` from the main path's
 phases, ``launches_distributed`` from phase 13's, ``launches_analysis`` from
-phase 14's, and the resources of each kernel's main-path instantiation), and
+phase 14's, ``launches_hessian`` from phase 15's training run, and the
+resources of each kernel's main-path instantiation), and
 as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result when
 no CUDA device is visible.
@@ -153,6 +168,7 @@ no CUDA device is visible.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -2126,6 +2142,336 @@ def phase_analysis(data, smi) -> dict:
     return records
 
 
+# ------------------------------------------------- phase 15: LM training path
+
+LM_ARCH = "qwen3-0.6b"
+LM_PARAMS = 596_049_920  # qwen3-0.6b's parameter count: the Hessian's n
+LM_STEPS, LM_EVERY, LM_BATCH, LM_SEQ, LM_K = 6, 3, 8, 256, 4
+LM_ITERS = max(2 * LM_K, 8)  # hessian_spectrum's default num_iters
+# Residual check of a probe: |true - bound| against this share of |lambda|max.
+# The HVP computes in bf16 (unit roundoff 2**-9), so a second HVP of a Ritz
+# vector is not the product the Lanczos basis saw; 2**-4 allows for the
+# rounding's growth through 28 layers and a double backward.
+LM_RESID_TOL = 2.0 ** -4
+
+
+def _peak(dev) -> int:
+    return torch.cuda.max_memory_allocated() if dev == "cuda" else 0
+
+
+def _reset_peak(dev) -> None:
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _gb(b: int) -> str:
+    return f"{b / 1e9:.2f} GB"
+
+
+class _Part:
+    """Wall time (synchronized) and peak device memory of each call of one
+    part of a solve; ``wrap`` returns the timed callable."""
+
+    def __init__(self, dev):
+        self.dev, self.ms, self.peak = dev, [], 0
+
+    def wrap(self, fn):
+        def timed_fn(*a, **kw):
+            sync(self.dev)
+            _reset_peak(self.dev)
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            sync(self.dev)
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            self.peak = max(self.peak, _peak(self.dev))
+            return out
+
+        return timed_fn
+
+
+def busy(fn, tag: str, smi: str) -> None:
+    """One ``fn()`` under ``torch.profiler`` (after a warm-up): its wall time,
+    the card's busy time (the device activities' durations summed: one
+    stream, so they do not overlap) and the five device activities that
+    take the most of it."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in device_events(prof):
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    dev_ms = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[lm] (d) {tag} under the profiler: wall {wall:.1f} ms, card busy {dev_ms:.1f} ms "
+          f"({dev_ms / wall:.1%}; idle {1 - dev_ms / wall:.1%}) in {sum(1 for _ in device_events(prof))} "
+          f"device activities on {smi}; top: "
+          + "; ".join(f"{name[:60]} {ms:.1f} ms" for name, ms in top))
+
+
+def lm_kernel_shape(n: int, dev="cuda") -> dict:
+    """(b) ``lanczos_update`` at the Hessian's vector length against its plain
+    version, (f32, f32) (FFF, the probe's policy) and (f32, f64); returns the
+    records, each with its bound."""
+    from repro_torch.kernels import ref
+
+    fn = kernel_modules()["lanczos_update"]
+    g = torch.Generator(device=dev).manual_seed(15)
+    w, v, vp = (torch.randn(n, generator=g, dtype=torch.float32, device=dev) for _ in range(3))
+    recs = {}
+    for A in (torch.float32, torch.float64):
+        a = torch.tensor(0.37, dtype=A, device=dev)
+        b = torch.tensor(1.21, dtype=A, device=dev)
+        run = lambda: fn(w, v, vp, a, b, accum_dtype=A)  # noqa: E731
+        plain = lambda: ref.lanczos_update_ref(w, v, vp, a, b, A)  # noqa: E731
+        (u, nr), (ur, nrr) = run(), plain()
+        err = close(u, ur, max(RTOL[A], float(torch.finfo(torch.float32).eps)))
+        nerr = close(nr.reshape(1), nrr.reshape(1), RTOL[A])
+        rel = nerr / float(nrr.double().abs())
+        del u, ur
+        t_b, by = bound(nbytes(w, v, vp) + n * 4 + 4 * A.itemsize, 6.0 * n, A)
+        rec = timed(run, plain, None, err, t_b, by)
+        rec.update(norm_rel_err=rel, n=n)
+        recs[dname(A)] = rec
+        print(f"[lm] (b) lanczos_update (float32, {dname(A)}) at n={n:,}: max_abs_err u {err:.3e}, "
+              f"||u||^2 rel err {rel:.3e} (<= {RTOL[A]:.0e}); device {rec['device_ms']:.4f} ms, "
+              f"series {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+              f"{t_b:.4f} ms ({by}: 4 f32 vectors over 3.35 TB/s)")
+    return recs
+
+
+def lm_hvp_card_vs_host(dev="cuda") -> float:
+    """(c) The HVP on the card against the host's at the qwen3 smoke config
+    (f32), the same params, batch and three NumPy vectors."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import tree
+    from repro_torch.core.operators import HvpOperator
+    from repro_torch.models.common import split_tree
+    from repro_torch.models.model import init_model, loss_fn
+    from repro_torch.training.data import DataConfig, synthetic_batch
+
+    cfg = get_config(LM_ARCH, smoke=True)
+    p_host = split_tree(init_model(torch.Generator().manual_seed(1), cfg))[0]
+    b_host = synthetic_batch(cfg, DataConfig(batch=2, seq_len=16, seed=5), 0)
+    ops = {}
+    for where in ("cpu", dev):
+        p = tree.tree_map(lambda t: t.to(where), p_host)
+        b = {k: t.to(where) for k, t in b_host.items()}
+        ops[where] = HvpOperator(lambda q, b=b: loss_fn(q, cfg, b)[0], p)
+    rng = np.random.default_rng(15)
+    worst = 0.0
+    for _ in range(3):
+        x = torch.from_numpy(rng.standard_normal(ops["cpu"].n).astype(np.float32))
+        hc = ops["cpu"].matvec(x)
+        hg = ops[dev].matvec(x.to(dev)).cpu()
+        err = float((hg - hc).abs().max() / hc.abs().max())
+        check(err <= 1e-5, f"(c) HVP on the card vs the host: rel err {err:.3e} > 1e-5")
+        worst = max(worst, err)
+    print(f"[lm] (c) HVP at {LM_ARCH} smoke (n={ops['cpu'].n:,}, f32) card vs host, 3 vectors: "
+          f"max rel err {worst:.3e} of max|Hv| (<= 1e-5)")
+    return worst
+
+
+def lm_train_and_probe(ckpt_dir: str, dev="cuda", smoke=False) -> dict:
+    """(a) ``python -m repro_torch.launch.train``'s code path, in process:
+    6 AdamW steps and a Hessian probe every 3, each step and probe timed
+    and its launches counted (the counts are 0 just before the run and read
+    just after); returns the trainer, the per-step and per-probe records
+    and the run's launches."""
+    from repro_torch.launch import train as launch_train
+    from repro_torch.training import spectral, train_loop
+
+    steps, probes = [], []
+    orig_make, orig_topk = train_loop.make_train_step, spectral.hessian_topk
+
+    def timed_make(cfg, tc):
+        step = orig_make(cfg, tc)
+
+        def timed_step(p, o, b):
+            sync(dev)
+            _reset_peak(dev)
+            t0 = time.perf_counter()
+            out = step(p, o, b)
+            loss = float(out[2]["loss"])
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3, "peak": _peak(dev), "loss": loss})
+            return out
+
+        return timed_step
+
+    def counted_topk(params, cfg, batch, k=4, **kw):
+        before = read_launches()
+        sync(dev)
+        _reset_peak(dev)
+        t0 = time.perf_counter()
+        ev = orig_topk(params, cfg, batch, k=k, **kw)
+        sync(dev)
+        after = read_launches()
+        probes.append({"ms": (time.perf_counter() - t0) * 1e3, "peak": _peak(dev), "evals": ev,
+                       "launches": {n: after[n] - before[n] for n in after},
+                       "params": params, "batch": batch, "cfg": cfg})
+        for old in probes[:-1]:  # keep only the last probe's params alive
+            old.pop("params", None)
+        return ev
+
+    argv = ["--arch", LM_ARCH, "--steps", str(LM_STEPS), "--spectral-every", str(LM_EVERY),
+            "--batch", str(LM_BATCH), "--seq", str(LM_SEQ), "--ckpt-dir", ckpt_dir,
+            "--device", dev] + (["--smoke"] if smoke else [])
+    train_loop.make_train_step, spectral.hessian_topk = timed_make, counted_topk
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        trainer = launch_train.main(argv)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+    finally:
+        train_loop.make_train_step, spectral.hessian_topk = orig_make, orig_topk
+    return {"trainer": trainer, "steps": steps, "probes": probes, "launches": launches,
+            "wall": wall}
+
+
+def lm_split_probe(probe: dict, dev="cuda"):
+    """(a, d) The last probe again, with its parts timed: the HVPs, the
+    ``lanczos_update`` launches, ``project_out`` and the Ritz step (host
+    Jacobi, back-projection).  Returns the result, the parts and the
+    operator."""
+    import dataclasses as dc
+
+    from repro_torch.core import eigensolver, lanczos
+    from repro_torch.core.operators import HvpOperator
+    from repro_torch.models.model import loss_fn
+    from repro_torch.training import spectral
+
+    parts = {name: _Part(dev) for name in ("hvp", "lanczos_update", "project_out", "ritz")}
+    orig_ops, orig_ritz = lanczos.make_local_ops, eigensolver.ritz_extract
+
+    def timed_ops(*a, **kw):
+        ops = orig_ops(*a, **kw)
+        check(ops.fused_update is not None and ops.fused_iteration is None,
+              "the probe's update mode is not 'fused': no lanczos_update on the path")
+        return dc.replace(ops, matvec=parts["hvp"].wrap(ops.matvec),
+                          project_out=parts["project_out"].wrap(ops.project_out),
+                          fused_update=parts["lanczos_update"].wrap(ops.fused_update))
+
+    lanczos.make_local_ops, eigensolver.ritz_extract = timed_ops, parts["ritz"].wrap(orig_ritz)
+    try:
+        sync(dev)
+        t0 = time.perf_counter()
+        res = spectral.hessian_spectrum(probe["params"], probe["cfg"], probe["batch"], k=LM_K)
+        sync(dev)
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        lanczos.make_local_ops, eigensolver.ritz_extract = orig_ops, orig_ritz
+    cfg, batch = probe["cfg"], probe["batch"]
+    op = HvpOperator(lambda q: loss_fn(q, cfg, batch)[0], probe["params"])
+    return res, parts, op, wall
+
+
+def phase_lm(smi, dev="cuda", smoke=False) -> dict:
+    """Phase 15: the LM training path and its Hessian monitor at full width.
+    Returns each kernel's launches in the training run (``launches_hessian``)
+    and the kernel records of (b)."""
+    from repro_torch.core import tree
+    from repro_torch.models.common import param_count
+
+    t_phase = time.perf_counter()
+    if dev == "cuda":
+        import repro_torch
+
+        repro_torch.session_cache_clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    n = LM_PARAMS
+    if smoke:
+        from repro_torch.configs import get_config
+        from repro_torch.models.common import split_tree
+        from repro_torch.models.model import init_model
+
+        n = param_count(split_tree(init_model(torch.Generator(), get_config(LM_ARCH, True)))[0])
+
+    # (b) first, while the card holds nothing else
+    kern = lm_kernel_shape(n, dev)
+    # (c)
+    hvp_err = lm_hvp_card_vs_host(dev)
+
+    # (a) training and probes
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+    try:
+        run = lm_train_and_probe(os.path.join(tmp, "ckpt"), dev, smoke)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    trainer, steps, probes = run["trainer"], run["steps"], run["probes"]
+    check(param_count(trainer.params) == n, f"{param_count(trainer.params):,} params, expected {n:,}")
+    losses = [s["loss"] for s in steps]
+    check(len(losses) == LM_STEPS and all(np.isfinite(losses)) and trainer.rollbacks == 0,
+          f"train losses {losses}, rollbacks {trainer.rollbacks}")
+    check(len(probes) == LM_STEPS // LM_EVERY and sorted(trainer.spectra) == [3, 6],
+          f"{len(probes)} probes at steps {sorted(trainer.spectra)}, expected 2 at 3 and 6")
+    for i, pr in enumerate(probes):
+        want = {name: (LM_ITERS if name == "lanczos_update" else 0) for name in KERNEL_ORDER}
+        check(pr["launches"] == want, f"probe {i}: launches {pr['launches']}, expected {want}")
+        ev = np.asarray(pr["evals"])
+        check(ev.shape == (LM_K,) and np.isfinite(ev).all(), f"probe {i}: eigenvalues {ev}")
+        check(bool(np.all(np.diff(np.abs(ev)) <= 0)), f"probe {i}: not ordered by |lambda|: {ev}")
+    print(f"[lm] (a) {LM_ARCH}: {n:,} params, compute {dname(trainer.cfg.compute_dtype)}; "
+          f"{LM_STEPS} AdamW steps at batch {LM_BATCH} x seq {LM_SEQ}, losses "
+          f"{[round(x, 4) for x in losses]}; probes at steps {sorted(trainer.spectra)}: "
+          f"lanczos_update {LM_ITERS} launches each, no SpMV; top-|lambda| "
+          + "; ".join(f"@{s}: {np.round(e, 4).tolist()}" for s, e in trainer.spectra.items()))
+
+    # (a, d) the last probe again, its parts timed, then its true residuals
+    last = probes[-1]
+    res, parts, op, split_wall = lm_split_probe(last, dev)
+    lam = res.eigenvalues.double()
+    X = res.eigenvectors
+    hv = _Part(dev)
+    true = np.array([float(torch.linalg.norm(hv.wrap(op.matvec)(X[:, i]).double()
+                                             - lam[i] * X[:, i].double()))
+                     for i in range(LM_K)])
+    lam = lam.cpu().numpy()
+    gap = np.abs(true - res.residuals)
+    check(bool(np.all(gap <= LM_RESID_TOL * np.abs(lam).max())),
+          f"(a) true residuals {true} vs bounds {res.residuals} (|lambda|max {np.abs(lam).max():.4g})")
+    re_err = float(np.abs(lam - last["evals"]).max() / np.abs(last["evals"]).max())
+    same = bool(np.array_equal(res.eigenvalues.cpu().double().numpy(), last["evals"]))
+    print(f"[lm] (a) last probe again: eigenvalues {np.round(lam, 4).tolist()} (vs the trainer's "
+          f"probe: max rel diff {re_err:.3e}, bits {'equal' if same else 'differ'}); "
+          f"true residuals {np.round(true, 4).tolist()} vs bounds "
+          f"{np.round(res.residuals, 4).tolist()}: max gap {gap.max():.4g} "
+          f"= {gap.max() / np.abs(lam).max():.3e} of |lambda|max (<= 2^-4)")
+
+    # (d) times and memory; the card's busy share of one step and one HVP
+    med = lambda xs: float(np.median(xs))  # noqa: E731
+    if dev == "cuda":
+        from repro_torch.training import train_loop
+
+        step_fn = train_loop.make_train_step(trainer.cfg, trainer.tc)
+        args = (trainer.params, trainer.opt_state, last["batch"])
+        busy(lambda: step_fn(*args), "train step", smi)
+        busy(lambda: op.matvec(X[:, 0]), "HVP", smi)
+        del step_fn, args
+    hvp_ms = parts["hvp"].ms + hv.ms
+    print(f"[lm] (d) train step: median {med([s['ms'] for s in steps]):.1f} ms wall "
+          f"({[round(s['ms'], 1) for s in steps]}), peak {_gb(max(s['peak'] for s in steps))}; "
+          f"training run {run['wall']:.1f} s (init, step-0 checkpoint and probes included) on {smi}")
+    print(f"[lm] (d) HVP: median {med(hvp_ms):.1f} ms wall over {len(hvp_ms)}, peak "
+          f"{_gb(max(parts['hvp'].peak, hv.peak))}; probe: "
+          f"{[round(p['ms'], 1) for p in probes]} ms wall, peak {_gb(max(p['peak'] for p in probes))}")
+    split = {name: sum(p.ms) for name, p in parts.items()}
+    print(f"[lm] (d) probe split (synchronized, {split_wall:.1f} ms): "
+          + ", ".join(f"{name} {ms:.1f} ms in {len(parts[name].ms)} calls, peak "
+                      f"{_gb(parts[name].peak)}" for name, ms in split.items())
+          + f"; rest {split_wall - sum(split.values()):.1f} ms")
+    print(f"[lm] phase 15 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+    launches = run["launches"]
+    del trainer, res, X, op, run, probes, last
+    return {"launches": launches, "kernel": kern, "hvp_err": hvp_err}
+
+
 def phase_device() -> str:
     """Phase 1: the card's name and power limit (``nvidia-smi``, returned),
     the versions, and the build of the kernels with each new kernel's
@@ -2336,6 +2682,11 @@ def main() -> int:
     # ---- phase 14: the analysis on the card
     analysis = phase_analysis(data, smi)
 
+    # ---- phase 15: the LM training path and its Hessian monitor, full width
+    # (what the earlier phases keep on the card goes first: a probe needs ~70 GB)
+    del data, road, web, block, central, main_res, hyb, hyb2, fus, bres, chunk_res, sess, r
+    lm = phase_lm(smi)
+
     launches = {
         "spmv_ell": main_launches["spmv_ell"],
         "lanczos_update": main_launches["lanczos_update"],
@@ -2351,7 +2702,7 @@ def main() -> int:
         kernels.append(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name], "launches_distributed": dist_launches[name],
-             **records[name], **analysis[name]}
+             "launches_hessian": lm["launches"][name], **records[name], **analysis[name]}
         )
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -12,6 +12,7 @@ from .operators import (
     CallableOperator,
     ChunkedOperator,
     DenseOperator,
+    HvpOperator,
     LinearOperator,
     SparseOperator,
     make_operator,

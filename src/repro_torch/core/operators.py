@@ -31,6 +31,7 @@ from ..sparse.formats import (
     to_device_hybrid,
 )
 from ..testing import faults as _faults
+from . import tree as _tree
 from .precision import PrecisionPolicy
 
 __all__ = [
@@ -39,6 +40,7 @@ __all__ = [
     "SparseOperator",
     "CallableOperator",
     "ChunkedOperator",
+    "HvpOperator",
     "chunk_row_bounds",
     "chunk_rows_pad",
     "make_operator",
@@ -171,6 +173,49 @@ class CallableOperator(LinearOperator):
             )
         y = y.to(device=x.device)
         return y.to(accum_dtype) if accum_dtype is not None else y
+
+
+class HvpOperator(LinearOperator):
+    """Matrix-free Hessian-vector product of ``loss_fn(params)`` (the
+    framework integration of the paper's solver; see
+    ``training/spectral.py``).
+
+    ``params`` is a tree of tensors (dicts, lists); the operator's vector is
+    the tree flattened in ``jax.flatten_util.ravel_pytree``'s order (dict
+    keys sorted, lists by index: :mod:`repro_torch.core.tree`), so a NumPy
+    start vector and the eigenvectors map element for element onto the
+    reference's.  ``matvec`` is reverse over reverse, as the reference's:
+    ``H x = d/dp <grad loss(p), x>``, the gradient taken with
+    ``create_graph=True``, so every op on the loss path must be twice
+    differentiable.  It runs on the params' device in their dtype.
+    """
+
+    def __init__(self, loss_fn: Callable, params):
+        self._loss = loss_fn
+        self._params = params
+        self._leaves = _tree.leaves(params)
+        self.n = sum(t.numel() for t in self._leaves)
+        self.device = self._leaves[0].device
+        dt = self._leaves[0].dtype
+        for t in self._leaves[1:]:
+            dt = torch.promote_types(dt, t.dtype)
+        self.dtype = dt
+
+    def matvec(self, x, accum_dtype=None):
+        x = x.to(device=self.device, dtype=self.dtype)
+        ps = [p.detach().requires_grad_(True) for p in self._leaves]
+        with torch.enable_grad():
+            loss = self._loss(_tree.unflatten(self._params, ps))
+            gs = torch.autograd.grad(loss, ps, create_graph=True)
+            gv = torch.zeros((), dtype=self.dtype, device=self.device)
+            off = 0
+            for g in gs:
+                k = g.numel()
+                gv = gv + torch.dot(g.reshape(-1).to(self.dtype), x[off:off + k])
+                off += k
+            hv = torch.autograd.grad(gv, ps)
+        y = torch.cat([h.reshape(-1).to(self.dtype) for h in hv])
+        return y.to(accum_dtype) if accum_dtype else y
 
 
 _IMPLS = ("coo", "ell", "ell_kernel", "bsr_kernel", "chunked")
