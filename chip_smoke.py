@@ -152,6 +152,25 @@ before the last line:
    ``lanczos_update``, ``project_out`` and the Ritz step, each part's peak
    memory, and its own seconds.  The checkpoints go to a temporary
    directory that is deleted.
+16. the LM decode path and the MoE, RG-LRU and SSD families at full width
+   (bf16 compute, f32 weights from seeded ``torch.Generator``s on the
+   card), each part on a card that holds nothing else: (a) qwen3-0.6b,
+   ``serving.lm.Engine`` greedy over 4 prompts of 128 tokens, 32 new each,
+   with the bf16 and then the int8 KV cache (prefill, each decode step and
+   peak memory timed; cache bytes; the two caches' logits compared); (b)
+   recurrentgemma-2b (26 layers), a 2,080-token prompt past its 2,048
+   window and 8 decode steps, every ``attn_local`` ring holding exactly the
+   last 2,048 positions after prefill and each step; (c) mixtral-8x7b at
+   full width with 2 of its 32 layers, its decode (dropless MoE) and the
+   capacity drops of ``moe`` at factor 1.25 against the dropless mode on
+   8 x 256 tokens, counted against a plain routing count; (d) mamba2-130m,
+   then a Hessian probe at batch 8 x 256 (k 4, 8 Lanczos steps, FFF:
+   ``lanczos_update`` 8 launches, every other kernel 0), its true residuals
+   against its Ritz bounds, and ``lanczos_update`` at the probe's n =
+   129,001,920 against its plain version with its bound.  In (a)-(d)
+   prefill + one ``decode_step`` is held to ``forward`` on one more token
+   (``DEC_TOL`` of max |logit|, argmax equal where the top-2 gap is
+   clear), and the decode paths of (a)-(c) launch none of the six kernels.
 
 ``repro_torch.eigsh`` keeps a cache of prepared sessions, so every call a
 phase reports as cold (``solve``) clears it first; phase 7 prints its
@@ -159,8 +178,9 @@ state once.
 
 Then one JSON line of kernel records (``launches`` from the main path's
 phases, ``launches_distributed`` from phase 13's, ``launches_analysis`` from
-phase 14's, ``launches_hessian`` from phase 15's training run, and the
-resources of each kernel's main-path instantiation), and
+phase 14's, ``launches_hessian`` from phase 15's training run,
+``launches_lm_families`` from phase 16's probe, and the resources of each
+kernel's main-path instantiation), and
 as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result when
 no CUDA device is visible.
@@ -2189,7 +2209,7 @@ class _Part:
         return timed_fn
 
 
-def busy(fn, tag: str, smi: str) -> None:
+def busy(fn, tag: str, smi: str, prefix: str = "[lm] (d)") -> None:
     """One ``fn()`` under ``torch.profiler`` (after a warm-up): its wall time,
     the card's busy time (the device activities' durations summed: one
     stream, so they do not overlap) and the five device activities that
@@ -2207,23 +2227,25 @@ def busy(fn, tag: str, smi: str) -> None:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     dev_ms = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    print(f"[lm] (d) {tag} under the profiler: wall {wall:.1f} ms, card busy {dev_ms:.1f} ms "
+    print(f"{prefix} {tag} under the profiler: wall {wall:.1f} ms, card busy {dev_ms:.1f} ms "
           f"({dev_ms / wall:.1%}; idle {1 - dev_ms / wall:.1%}) in {sum(1 for _ in device_events(prof))} "
           f"device activities on {smi}; top: "
           + "; ".join(f"{name[:60]} {ms:.1f} ms" for name, ms in top))
 
 
-def lm_kernel_shape(n: int, dev="cuda") -> dict:
-    """(b) ``lanczos_update`` at the Hessian's vector length against its plain
-    version, (f32, f32) (FFF, the probe's policy) and (f32, f64); returns the
-    records, each with its bound."""
+def lm_kernel_shape(n: int, dev="cuda", accums=(torch.float32, torch.float64),
+                    tag: str = "[lm] (b)") -> dict:
+    """``lanczos_update`` at the Hessian's vector length against its plain
+    version, for each accumulation dtype of ``accums`` with f32 vectors
+    ((f32, f32) is FFF, the probe's policy); returns the records, each with
+    its bound."""
     from repro_torch.kernels import ref
 
     fn = kernel_modules()["lanczos_update"]
     g = torch.Generator(device=dev).manual_seed(15)
     w, v, vp = (torch.randn(n, generator=g, dtype=torch.float32, device=dev) for _ in range(3))
     recs = {}
-    for A in (torch.float32, torch.float64):
+    for A in accums:
         a = torch.tensor(0.37, dtype=A, device=dev)
         b = torch.tensor(1.21, dtype=A, device=dev)
         run = lambda: fn(w, v, vp, a, b, accum_dtype=A)  # noqa: E731
@@ -2232,12 +2254,14 @@ def lm_kernel_shape(n: int, dev="cuda") -> dict:
         err = close(u, ur, max(RTOL[A], float(torch.finfo(torch.float32).eps)))
         nerr = close(nr.reshape(1), nrr.reshape(1), RTOL[A])
         rel = nerr / float(nrr.double().abs())
+        same = bool(torch.equal(u, ur))
         del u, ur
         t_b, by = bound(nbytes(w, v, vp) + n * 4 + 4 * A.itemsize, 6.0 * n, A)
         rec = timed(run, plain, None, err, t_b, by)
-        rec.update(norm_rel_err=rel, n=n)
+        rec.update(norm_rel_err=rel, n=n, u_bits_equal=same)
         recs[dname(A)] = rec
-        print(f"[lm] (b) lanczos_update (float32, {dname(A)}) at n={n:,}: max_abs_err u {err:.3e}, "
+        print(f"{tag} lanczos_update (float32, {dname(A)}) at n={n:,}: max_abs_err u {err:.3e} "
+              f"(bits {'equal' if same else 'differ'}), "
               f"||u||^2 rel err {rel:.3e} (<= {RTOL[A]:.0e}); device {rec['device_ms']:.4f} ms, "
               f"series {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
               f"{t_b:.4f} ms ({by}: 4 f32 vectors over 3.35 TB/s)")
@@ -2472,6 +2496,386 @@ def phase_lm(smi, dev="cuda", smoke=False) -> dict:
     return {"launches": launches, "kernel": kern, "hvp_err": hvp_err}
 
 
+# ------------------------------------ phase 16: LM decode and the new families
+
+DEC_PROMPTS, DEC_PROMPT_LEN, DEC_NEW = 4, 128, 32  # (a): 4 prompts of 128, 32 new tokens
+DEC_RING_STEPS = 8  # (b): decode steps after a prompt one window + 32 long
+MOE_LAYERS = 2  # (c): mixtral-8x7b at full width, 2 of its 32 layers
+MOE_DROP_BATCH = (8, 256)  # (c): tokens of the capacity check
+MAMBA_PARAMS = 129_001_920  # mamba2-130m's parameter count: the probe's n
+# Decode against forward at full width in bf16 (max |diff| over max |logit|):
+# prefill's and forward's activations come from matmuls of other shapes
+# (M = B*S against B*(S+1) rows), so their bf16 roundings (unit 2**-8) land
+# apart and grow through 24-28 layers and the final norm.  Measured 1.2e-2
+# to 3.0e-2 (3-8 bf16 units) on the H100; 2**-4 leaves twice that.  The
+# same check in f32 compute (TF32 off) must hold to DEC_TOL_F32: there only
+# the order of f32 sums differs.
+DEC_TOL = 2.0 ** -4
+DEC_TOL_F32 = 1e-4
+
+
+def _lm_setup(arch: str, dev: str, smoke: bool, seed: int, **overrides):
+    """(cfg, params) of ``arch`` at full width (bf16 compute, f32 params) or
+    at its smoke config, random weights from a seeded ``torch.Generator`` on
+    ``dev``."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import split_tree
+    from repro_torch.models.model import init_model
+
+    cfg = dc.replace(get_config(arch, smoke=smoke), **overrides)
+    params = split_tree(init_model(torch.Generator(device=dev).manual_seed(seed), cfg))[0]
+    return cfg, params
+
+
+def _tokens(cfg, shape, seed, dev) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, cfg.vocab, shape).astype(np.int32)).to(dev)
+
+
+def decode_vs_forward(tag, params, cfg, toks, nxt, max_len, dev, state=None, tol=None):
+    """prefill(S) (or ``state``, a prefill of ``toks``) and one ``decode_step``
+    of ``nxt`` against ``forward``(S+1)'s last position (the MoE forward
+    dropless: ``capacity_factor=100``, as the reference's test): max |diff|
+    over max |logit| within ``tol`` (``DEC_TOL``), and the argmax equal in
+    every row whose top-2 gap exceeds that bound.  Returns (err, decode
+    logits, the state after the step)."""
+    import dataclasses as dc
+
+    from repro_torch.models.model import decode_step, forward, prefill
+
+    tol = DEC_TOL if tol is None else tol
+    if state is None:
+        state, _ = prefill(params, cfg, {"tokens": toks}, max_len=max_len)
+    got, state = decode_step(params, cfg, state, nxt)
+    ref_cfg = dc.replace(cfg, capacity_factor=100.0) if cfg.n_experts else cfg
+    with torch.no_grad():
+        full, _ = forward(params, ref_cfg, {"tokens": torch.cat([toks, nxt], 1)})
+    want = full[:, -1, :cfg.vocab].float()
+    del full
+    got_v = got[:, :cfg.vocab]
+    scale = float(want.abs().max())
+    err = float((got_v - want).abs().max()) / scale
+    check(bool(torch.isfinite(got_v).all()), f"{tag}: non-finite decode logits")
+    check(err <= tol, f"{tag}: decode vs forward max |diff| {err:.3e} of max |logit| > {tol:.3e}")
+    top2 = want.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > tol * scale
+    same = got_v.argmax(-1) == want.argmax(-1)
+    check(bool(same[clear].all()), f"{tag}: argmax differs in a row whose top-2 gap exceeds {tol:.3e}")
+    print(f"[decode] {tag}: prefill({toks.shape[1]}) + decode_step vs forward({toks.shape[1] + 1}):"
+          f" max |diff| {err:.3e} of max |logit| {scale:.3f} (<= {tol:.3e}); argmax equal in "
+          f"{int(same.sum())}/{len(same)} rows ({int(clear.sum())} with a clear top-2 gap)")
+    return err, got, state
+
+
+def decode_vs_forward_f32(tag, params, cfg, toks, nxt, max_len, dev) -> float:
+    """:func:`decode_vs_forward` with the config computing in f32: the bf16
+    run's differences must then shrink to f32 sum order (``DEC_TOL_F32``),
+    which shows that they are rounding, not a fault of the decode path."""
+    import dataclasses as dc
+
+    err, _, _ = decode_vs_forward(f"{tag}, f32 compute", params,
+                                  dc.replace(cfg, compute_dtype=torch.float32), toks, nxt,
+                                  max_len, dev, tol=DEC_TOL_F32)
+    return err
+
+
+def _cache_bytes(state) -> int:
+    """Bytes of the K/V caches of a decode state (values and int8 scales)."""
+    from repro_torch.core import tree
+    from repro_torch.models.attention import AttnCache
+
+    total = 0
+    for st in list(state.layers.values()) + list(state.rem):
+        if isinstance(st, AttnCache):
+            total += sum(t.numel() * t.element_size() for t in tree.leaves(st._replace(slot_pos=None)))
+    return total
+
+
+def decode_engine(smi, dev, smoke) -> dict:
+    """(a) qwen3-0.6b: ``serving.lm.Engine`` greedy with the bf16 and the
+    int8 cache, each timed (prefill, each decode step, peak memory), and
+    decode against forward for both."""
+    import dataclasses as dc
+
+    from repro_torch.models.common import param_count
+    from repro_torch.serving import lm
+
+    cfg, params = _lm_setup(LM_ARCH, dev, smoke, seed=21)
+    n = param_count(params)
+    if not smoke:
+        check(n == LM_PARAMS, f"(a) {n:,} params, expected {LM_PARAMS:,}")
+    toks = _tokens(cfg, (DEC_PROMPTS, DEC_PROMPT_LEN), 16, dev)
+    nxt = _tokens(cfg, (DEC_PROMPTS, 1), 17, dev)
+    max_len = DEC_PROMPT_LEN + DEC_NEW
+    out = {}
+    for cache in ("bf16", "int8"):
+        c = dc.replace(cfg, kv_cache_dtype=cache)
+        err, logits, _ = decode_vs_forward(f"(a) {cfg.name} {cache} cache", params, c, toks, nxt,
+                                           max_len, dev)
+        eng = lm.Engine(c, params, lm.ServeConfig(max_len=max_len))
+        pre, step = _Part(dev), _Part(dev)
+        orig = lm.prefill
+        lm.prefill, eng._decode = pre.wrap(orig), step.wrap(eng._decode)
+        try:
+            reset_launches()
+            sync(dev)
+            _reset_peak(dev)
+            t0 = time.perf_counter()
+            tokens, info = eng.generate({"tokens": toks}, DEC_NEW)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            lm.prefill = orig
+        check(all(v == 0 for v in launches.values()), f"(a) {cache}: kernel launches {launches}")
+        check(tuple(tokens.shape) == (DEC_PROMPTS, DEC_NEW) and int(tokens.min()) >= 0
+              and int(tokens.max()) < cfg.vocab, f"(a) {cache}: tokens {tuple(tokens.shape)}")
+        check(bool(torch.isfinite(info["token_logprobs"]).all()), f"(a) {cache}: logprobs")
+        state = info["final_state"]
+        check(state.step == DEC_PROMPT_LEN + DEC_NEW, f"(a) {cache}: state step {state.step}")
+        out[cache] = {"logits": logits, "tokens": tokens.cpu(), "bytes": _cache_bytes(state),
+                      "err": err}
+        med = float(np.median(step.ms))
+        print(f"[decode] (a) {cfg.name} ({n:,} params) Engine greedy, {cache} cache: "
+              f"{DEC_PROMPTS} prompts x {DEC_PROMPT_LEN} tokens, {DEC_NEW} new each; prefill "
+              f"{pre.ms[0]:.1f} ms; decode step median {med:.2f} ms (min {min(step.ms):.2f}, max "
+              f"{max(step.ms):.2f}) over {len(step.ms)}; {DEC_PROMPTS * DEC_NEW / (sum(step.ms) / 1e3):.1f} "
+              f"tokens/s in the decode steps, {DEC_PROMPTS * DEC_NEW / wall:.1f} tokens/s over "
+              f"generate ({wall * 1e3:.1f} ms); peak {_gb(_peak(dev))}; cache {out[cache]['bytes']:,} "
+              f"bytes; kernel launches 0 on {smi}")
+        if dev == "cuda" and cache == "bf16":  # the card's busy share of one decode step
+            from repro_torch.models.model import decode_step, prefill
+
+            st, _ = prefill(params, c, {"tokens": toks}, max_len=max_len)
+            busy(lambda: decode_step(params, c, st, nxt), "decode step (bf16 cache)", smi,
+                 prefix="[decode] (a)")
+            del st
+        del eng, info, state, tokens
+    decode_vs_forward_f32(f"(a) {cfg.name}", params, cfg, toks, nxt, max_len, dev)
+    b16, i8 = out["bf16"], out["int8"]
+    diff = float((i8["logits"] - b16["logits"])[:, :cfg.vocab].abs().max())
+    scale = float(b16["logits"][:, :cfg.vocab].abs().max())
+    ratio = i8["bytes"] / b16["bytes"]
+    esize = torch.empty((), dtype=cfg.compute_dtype).element_size()  # the unquantized cache's
+    want = (cfg.hd + 4) / (esize * cfg.hd)
+    check(abs(ratio - want) < 1e-9, f"(a) int8 cache bytes {ratio:.4f} of bf16's, expected {want:.4f}")
+    agree = float((i8["tokens"] == b16["tokens"]).float().mean())
+    print(f"[decode] (a) int8 vs bf16 cache: decode logits max |diff| {diff:.4f} "
+          f"({diff / scale:.3e} of max |logit|); cache bytes {i8['bytes']:,} vs {b16['bytes']:,} "
+          f"= {ratio:.4f} (int8 + f32 scales: (hd + 4) / ({esize} hd) = {want:.4f}); greedy tokens "
+          f"equal {agree:.1%}")
+    return {"err": max(b16["err"], i8["err"])}
+
+
+def decode_ring(smi, dev, smoke) -> dict:
+    """(b) recurrentgemma-2b: a prompt one window + 32 tokens long, then
+    ``DEC_RING_STEPS`` decode steps; every ``attn_local`` cache is sized to
+    the window and holds exactly its last positions after prefill and after
+    each step; decode against forward after the first step."""
+    from repro_torch.models.attention import AttnCache
+    from repro_torch.models.common import param_count
+    from repro_torch.models.model import decode_step, prefill
+
+    cfg, params = _lm_setup("recurrentgemma-2b", dev, smoke, seed=22)
+    n = param_count(params)
+    if not smoke:
+        check(n == 3_549_934_080, f"(b) {n:,} params, expected 3,549,934,080")
+    w = cfg.window
+    s = w + 32
+    toks = _tokens(cfg, (1, s), 18, dev)
+    max_len = s + DEC_RING_STEPS
+
+    def ring(state, tag):
+        caches = [st for st in list(state.layers.values()) + list(state.rem)
+                  if isinstance(st, AttnCache)]
+        check(len(caches) > 0, f"(b) {tag}: no attention cache")
+        for c in caches:
+            check(c.k.shape[-3] == w, f"(b) {tag}: cache of {c.k.shape[-3]} slots, window {w}")
+            got = c.slot_pos.reshape(-1, w).sort(dim=-1).values
+            want = torch.arange(state.step - w, state.step, dtype=got.dtype, device=got.device)
+            check(bool((got == want).all()), f"(b) {tag}: slot positions are not the last {w}")
+        return sum(c.k.shape[0] if c.k.ndim == 5 else 1 for c in caches)
+
+    reset_launches()
+    pre = _Part(dev)
+    state, logits = pre.wrap(prefill)(params, cfg, {"tokens": toks}, max_len)
+    layers = ring(state, "after prefill")
+    nxt = logits[:, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
+    step = _Part(dev)
+    err, logits, state = decode_vs_forward(f"(b) {cfg.name} window {w}", params, cfg, toks, nxt,
+                                           max_len, dev, state=state)
+    ring(state, "after step 1")
+    for i in range(1, DEC_RING_STEPS):
+        nxt = logits[:, :cfg.vocab].argmax(-1, keepdim=True).to(torch.int32)
+        logits, state = step.wrap(decode_step)(params, cfg, state, nxt)
+        ring(state, f"after step {i + 1}")
+    launches = read_launches()
+    check(all(v == 0 for v in launches.values()), f"(b): kernel launches {launches}")
+    check(bool(torch.isfinite(logits).all()), "(b): non-finite logits")
+    del state, logits
+    decode_vs_forward_f32(f"(b) {cfg.name} window {w}", params, cfg, toks, nxt, max_len, dev)
+    print(f"[decode] (b) {cfg.name} ({n:,} params): prompt {s} > window {w}; {layers} attn_local "
+          f"caches of {w} slots hold exactly the last {w} positions after prefill and each of "
+          f"{DEC_RING_STEPS} steps; prefill {pre.ms[0]:.1f} ms, decode step median "
+          f"{float(np.median(step.ms)):.2f} ms over {len(step.ms)} (the first, with the forward "
+          f"check, untimed); kernel launches 0 on {smi}")
+    return {"err": err}
+
+
+def decode_moe(smi, dev, smoke) -> dict:
+    """(c) mixtral-8x7b at full width, ``MOE_LAYERS`` of its layers: decode
+    (dropless) against forward, and the capacity drops of ``moe`` at the
+    config's factor against its dropless serving mode."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import tree
+    from repro_torch.models import mlp
+    from repro_torch.models.common import param_count, rms_norm
+    from repro_torch.training.data import DataConfig, synthetic_batch
+
+    cfg, params = _lm_setup("mixtral-8x7b", dev, smoke, seed=23, n_layers=MOE_LAYERS)
+    n = param_count(params)
+    if not smoke:
+        check(n == 3_164_688_384, f"(c) {n:,} params, expected 3,164,688,384")
+    # 2 x 127 prompt tokens: prefill's 254 and forward's 256 each fill one MoE group
+    s = min(cfg.moe_group_size, 256) // 2 - 1
+    toks = _tokens(cfg, (2, s), 19, dev)
+    nxt = _tokens(cfg, (2, 1), 20, dev)
+    reset_launches()
+    err, _, _ = decode_vs_forward(f"(c) {cfg.name}, {MOE_LAYERS} layers", params, cfg, toks, nxt,
+                                  s + 1, dev)
+    launches = read_launches()
+    check(all(v == 0 for v in launches.values()), f"(c): kernel launches {launches}")
+    decode_vs_forward_f32(f"(c) {cfg.name}, {MOE_LAYERS} layers", params, cfg, toks, nxt, s + 1,
+                          dev)
+
+    # capacity drops: layer 0's MoE on the normalized embeddings of a zipf
+    # token batch (repeated tokens route alike, as in text; isotropic random
+    # inputs spread evenly and stay under capacity)
+    p0 = tree.tree_map(lambda t: t[0], params["blocks"]["moe_0"]["moe"])
+    batch = synthetic_batch(cfg, DataConfig(batch=MOE_DROP_BATCH[0], seq_len=MOE_DROP_BATCH[1],
+                                            seed=4), 0, device=dev)
+    x = rms_norm(F.embedding(batch["tokens"].long(), params["embed"]).to(cfg.compute_dtype),
+                 torch.zeros((), device=dev), cfg.rms_eps)
+    with torch.no_grad():
+        y_train, _ = mlp.moe(p0, cfg, x, dropless=False)
+        y_serve, _ = mlp.moe(p0, cfg, x, dropless=True)
+    # the plain count: top-k experts, each token's place in its expert's queue
+    e, k = cfg.n_experts, cfg.moe_top_k
+    gs = min(cfg.moe_group_size, x.shape[0] * x.shape[1])
+    xt = x.reshape(-1, gs, cfg.d_model).float()
+    probs = torch.softmax(xt @ p0["router"].float(), dim=-1)
+    chosen = torch.zeros_like(probs).scatter_(-1, probs.topk(k, dim=-1).indices, 1.0)
+    place = torch.cumsum(chosen, dim=1) - 1
+    counts = {}
+    for tag, cap in (("train", min(gs, int(gs * k / e * cfg.capacity_factor) + 1)),
+                     ("serve", gs if gs <= 2 * e else min(gs, int(gs * k / e * 4.0) + 1))):
+        dropped = (chosen > 0) & (place >= cap)
+        counts[tag] = (cap, int(dropped.sum()), int((dropped.sum(-1) == k).sum()))
+    zero_rows = int((y_train.reshape(-1, cfg.d_model).abs().amax(-1) == 0).sum())
+    check(counts["train"][1] > 0, f"(c) no assignment dropped at capacity factor {cfg.capacity_factor}")
+    check(counts["serve"][1] == 0, f"(c) dropless capacity dropped {counts['serve'][1]} assignments")
+    check(zero_rows == counts["train"][2], f"(c) {zero_rows} tokens got no expert at cf "
+          f"{cfg.capacity_factor}, the plain count says {counts['train'][2]}")
+    check(bool((y_serve.reshape(-1, cfg.d_model).abs().amax(-1) > 0).all()),
+          "(c) dropless: a token got no expert")
+    total = x.shape[0] * x.shape[1] * k
+    print(f"[decode] (c) {cfg.name} ({n:,} params, {MOE_LAYERS} of 32 layers): decode launches "
+          f"0 kernels; moe on {MOE_DROP_BATCH[0]} x {MOE_DROP_BATCH[1]} zipf tokens' embeddings in "
+          f"groups of {gs}: "
+          f"capacity factor {cfg.capacity_factor} (cap {counts['train'][0]}) drops "
+          f"{counts['train'][1]} of {total} assignments ({counts['train'][2]} tokens get no "
+          f"expert, as many zero rows); dropless (cap {counts['serve'][0]}) drops 0, every row "
+          f"nonzero, on {smi}")
+    return {"err": err}
+
+
+def decode_ssd_and_probe(smi, dev, smoke) -> dict:
+    """(d) mamba2-130m: decode against forward, then one Hessian probe
+    through ``repro_torch.training.spectral`` at batch 8 x 256 (k 4, FFF),
+    its launches counted (0 just before, read just after), its true
+    residuals against its Ritz bounds, and ``lanczos_update`` at its n
+    against the plain version."""
+    from repro_torch.core.operators import HvpOperator
+    from repro_torch.models.common import param_count
+    from repro_torch.models.model import loss_fn
+    from repro_torch.training import spectral
+    from repro_torch.training.data import DataConfig, synthetic_batch
+
+    cfg, params = _lm_setup("mamba2-130m", dev, smoke, seed=25)
+    n = param_count(params)
+    if not smoke:
+        check(n == MAMBA_PARAMS, f"(d) {n:,} params, expected {MAMBA_PARAMS:,}")
+    toks = _tokens(cfg, (4, 255), 21, dev)
+    nxt = _tokens(cfg, (4, 1), 22, dev)
+    reset_launches()
+    err, _, _ = decode_vs_forward(f"(d) {cfg.name}", params, cfg, toks, nxt, 256, dev)
+    launches = read_launches()
+    check(all(v == 0 for v in launches.values()), f"(d) decode: kernel launches {launches}")
+    decode_vs_forward_f32(f"(d) {cfg.name}", params, cfg, toks, nxt, 256, dev)
+
+    batch = synthetic_batch(cfg, DataConfig(batch=LM_BATCH, seq_len=LM_SEQ, seed=3), 0, device=dev)
+    sync(dev)
+    _reset_peak(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = spectral.hessian_spectrum(params, cfg, batch, k=LM_K)
+    sync(dev)
+    probe_ms = (time.perf_counter() - t0) * 1e3
+    probe_launches = read_launches()
+    peak = _peak(dev)
+    want = {name: (LM_ITERS if name == "lanczos_update" else 0) for name in KERNEL_ORDER}
+    check(probe_launches == want, f"(d) probe launches {probe_launches}, expected {want}")
+    lam = res.eigenvalues.double()
+    ev = lam.cpu().numpy()
+    check(ev.shape == (LM_K,) and np.isfinite(ev).all(), f"(d) eigenvalues {ev}")
+    check(bool(np.all(np.diff(np.abs(ev)) <= 0)), f"(d) not ordered by |lambda|: {ev}")
+    op = HvpOperator(lambda q: loss_fn(q, cfg, batch)[0], params)
+    X = res.eigenvectors
+    true = np.array([float(torch.linalg.norm(op.matvec(X[:, i]).double() - lam[i] * X[:, i].double()))
+                     for i in range(LM_K)])
+    gap = np.abs(true - res.residuals)
+    check(bool(np.all(gap <= LM_RESID_TOL * np.abs(ev).max())),
+          f"(d) true residuals {true} vs bounds {res.residuals} (|lambda|max {np.abs(ev).max():.4g})")
+    print(f"[decode] (d) {cfg.name} ({n:,} params): Hessian probe at batch {LM_BATCH} x {LM_SEQ} "
+          f"(k {LM_K}, {LM_ITERS} Lanczos steps, FFF) in {probe_ms:.1f} ms, peak {_gb(peak)}; "
+          f"launches {probe_launches}; eigenvalues by |lambda| {np.round(ev, 4).tolist()}; true "
+          f"residuals {np.round(true, 4).tolist()} vs Ritz bounds "
+          f"{np.round(res.residuals, 4).tolist()}: max gap {gap.max() / np.abs(ev).max():.3e} of "
+          f"|lambda|max (<= 2^-4) on {smi}")
+    if dev == "cuda":  # the card's busy share of one HVP
+        busy(lambda: op.matvec(X[:, 0]), f"HVP ({cfg.name})", smi, prefix="[decode] (d)")
+    del op, X, res, batch, params
+    kern = lm_kernel_shape(n, dev, accums=(torch.float32,), tag="[decode] (d)")["float32"]
+    check(kern["u_bits_equal"], "(d) lanczos_update's u differs from the plain version's bits")
+    return {"err": err, "launches": probe_launches, "kernel": kern}
+
+
+def phase_decode(smi, dev="cuda", smoke=False) -> dict:
+    """Phase 16: the LM decode path and the MoE, RG-LRU and SSD families at
+    full width, each part on a card that holds nothing else.  Returns the
+    launches of (d)'s probe (``launches_lm_families``) and its kernel row."""
+    t_phase = time.perf_counter()
+    times, out = {}, {}
+    for tag, part in (("a", decode_engine), ("b", decode_ring), ("c", decode_moe),
+                      ("d", decode_ssd_and_probe)):
+        if dev == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[tag] = part(smi, dev, smoke)
+        times[tag] = time.perf_counter() - t0
+    print(f"[decode] arctic-480b runs on the CPU at SMOKE only (one layer at full width is "
+          f"14,069,945,344 params, 56.3 GB in f32)")
+    print(f"[decode] the decode paths of (a)-(c) launched none of the six kernels; (d)'s probe "
+          f"launched {out['d']['launches']}")
+    print(f"[decode] phase 16 took {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in times.items()) + f") on {smi}")
+    return {"launches": out["d"]["launches"], "kernel": out["d"]["kernel"]}
+
+
 def phase_device() -> str:
     """Phase 1: the card's name and power limit (``nvidia-smi``, returned),
     the versions, and the build of the kernels with each new kernel's
@@ -2687,6 +3091,9 @@ def main() -> int:
     del data, road, web, block, central, main_res, hyb, hyb2, fus, bres, chunk_res, sess, r
     lm = phase_lm(smi)
 
+    # ---- phase 16: the LM decode path and the MoE, RG-LRU and SSD families
+    dec = phase_decode(smi)
+
     launches = {
         "spmv_ell": main_launches["spmv_ell"],
         "lanczos_update": main_launches["lanczos_update"],
@@ -2702,7 +3109,8 @@ def main() -> int:
         kernels.append(
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name], "launches_distributed": dist_launches[name],
-             "launches_hessian": lm["launches"][name], **records[name], **analysis[name]}
+             "launches_hessian": lm["launches"][name],
+             "launches_lm_families": dec["launches"][name], **records[name], **analysis[name]}
         )
     print(smi)
     print(json.dumps({"kernels": kernels}))

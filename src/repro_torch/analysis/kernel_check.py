@@ -42,7 +42,19 @@ from typing import Callable, Dict, Iterable, List, Optional, Sequence
 
 from .findings import Finding, Findings
 
+# The six kernels, by the names of the reference's kernel modules
+# (``kernels/<name>.py``; ``lanczos_fused`` holds ``spmv_ell_alpha``).
+KERNELS = (
+    "spmv_ell",
+    "spmv_ell_packed",
+    "spmv_bsr",
+    "lanczos_update",
+    "lanczos_fused",
+    "mixed_dot",
+)
+
 __all__ = [
+    "KERNELS",
     "CSRC",
     "CROSS_BLOCK",
     "Layout",

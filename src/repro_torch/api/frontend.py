@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from collections.abc import Mapping
 from typing import Optional, Union
 
@@ -135,6 +136,16 @@ def _default_tol(policy: PrecisionPolicy) -> float:
     return float(math.sqrt(float(torch.finfo(policy.compute).eps)))
 
 
+# Legacy ``impl=`` spellings -> the ``format=`` knob that replaced them (the
+# reference's table).
+_IMPL_TO_FORMAT = {
+    "coo": "coo",
+    "ell": "ell",
+    "ell_kernel": "ell",
+    "bsr_kernel": "bsr",
+}
+
+
 def eigsh(
     A,
     k: int = 6,
@@ -151,6 +162,7 @@ def eigsh(
     subspace: Optional[int] = None,
     max_restarts: int = 30,
     format: str = "auto",
+    impl: Optional[str] = None,
     chunk_nnz: int = 1 << 20,
     stage_depth: int = 1,
     staging: str = "f32",
@@ -196,8 +208,25 @@ def eigsh(
     and with ``backend="chunked"`` each rank stages its share of every
     chunk.  Without one, ``backend="auto"`` picks the distributed backend
     when the default process group has more than one rank.  The
-    distributed backend re-orthogonalizes fully by default.
+    distributed backend re-orthogonalizes fully by default.  ``impl`` is
+    deprecated: the legacy SpMV knob maps onto ``format=`` ("ell" /
+    "ell_kernel" -> "ell", "bsr_kernel" -> "bsr", "coo" -> "coo") with a
+    ``DeprecationWarning``; an explicit ``format=`` wins.
     """
+    if impl is not None:
+        warnings.warn(
+            "impl= is deprecated and now maps onto format= (impl='ell'/'ell_kernel' -> "
+            "format='ell', 'bsr_kernel' -> format='bsr', 'coo' -> format='coo'); pass "
+            "format= directly",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        mapped = _IMPL_TO_FORMAT.get(impl)
+        if mapped is None:
+            raise ValueError(
+                f"unknown legacy impl {impl!r}; expected one of {sorted(_IMPL_TO_FORMAT)}")
+        if format == "auto":
+            format = mapped
     cfg = config or SolverConfig(
         policy=policy,
         backend=backend,

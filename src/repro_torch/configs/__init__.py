@@ -5,24 +5,24 @@ Arch modules import the model substrate, while low layers (``core``,
 ``kernels``) import ``env``; so the arch modules load lazily (PEP 562) and
 ``from ..configs import env`` never drags the model stack in.
 
-``ARCHS`` lists the archs whose family the port runs (the dense decoders);
-any other of the reference's archs raises a ``KeyError`` that names the
-ROADMAP item still to come.
+``ARCHS`` lists the archs whose family the port runs (dense, MoE, RG-LRU
+hybrid and SSD); the reference's encoder-decoder and VLM archs raise a
+``KeyError`` that names the ROADMAP item still to come.
 """
 
 _ARCH_MODULES = {
+    "recurrentgemma-2b": "recurrentgemma_2b",
     "qwen3-0.6b": "qwen3_0_6b",
     "phi3-medium-14b": "phi3_medium_14b",
     "codeqwen1.5-7b": "codeqwen1_5_7b",
     "qwen1.5-32b": "qwen1_5_32b",
+    "arctic-480b": "arctic_480b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "mamba2-130m": "mamba2_130m",
 }
 
 # The reference's other archs and the ROADMAP queue A item that ports each.
 _PENDING_ARCHS = {
-    "recurrentgemma-2b": "the MoE, RG-LRU and SSD families",
-    "arctic-480b": "the MoE, RG-LRU and SSD families",
-    "mixtral-8x7b": "the MoE, RG-LRU and SSD families",
-    "mamba2-130m": "the MoE, RG-LRU and SSD families",
     "seamless-m4t-medium": "encdec/vlm",
     "qwen2-vl-72b": "encdec/vlm",
 }

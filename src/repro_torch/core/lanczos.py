@@ -377,9 +377,13 @@ def lanczos_tridiag(
     policy: PrecisionPolicy,
     reorth: str = "half",
     ops: Optional[Ops] = None,
+    jit: bool = True,
     checkpoint=None,
 ) -> LanczosResult:
     """Run ``num_iters`` Lanczos steps from ``v1`` (see the module docstring).
+
+    ``jit`` is the reference's switch between its compiled and its eager
+    loop; the port's loop is always eager, so it is accepted and ignored.
 
     ``checkpoint`` is ``(store, token, every[, chunked_operator])`` (see
     :class:`~repro_torch.serving.store.SolveCheckpoint`): the loop carry is

@@ -188,9 +188,11 @@ class HvpOperator(LinearOperator):
     ``H x = d/dp <grad loss(p), x>``, the gradient taken with
     ``create_graph=True``, so every op on the loss path must be twice
     differentiable.  It runs on the params' device in their dtype.
+    ``ggn`` is accepted and ignored, as in the reference: the product is
+    always the full Hessian's.
     """
 
-    def __init__(self, loss_fn: Callable, params):
+    def __init__(self, loss_fn: Callable, params, ggn: bool = False):
         self._loss = loss_fn
         self._params = params
         self._leaves = _tree.leaves(params)

@@ -5,12 +5,13 @@
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b --smoke \
         --steps 20 --device cpu                      # reduced config, on the host
 
-It initializes the model from a seeded ``torch.Generator`` on ``--device``
-(``cuda`` unless asked), trains with the port's ``Trainer`` on synthetic
-data and, every ``--spectral-every`` steps, probes the top-K Hessian
-eigenvalues, listed at the end (``training/spectral.py``: ``eigsh`` on the
-matrix-free HVP operator, its Lanczos update in the ``lanczos_update``
-kernel on the card).  The full
+``--arch`` is any arch of ``repro_torch.configs.ARCHS``: the dense, MoE,
+RG-LRU hybrid and SSD families.  It initializes the model from a seeded
+``torch.Generator`` on ``--device`` (``cuda`` unless asked), trains with
+the port's ``Trainer`` on synthetic data and, every ``--spectral-every``
+steps, probes the top-K Hessian eigenvalues, listed at the end
+(``training/spectral.py``: ``eigsh`` on the matrix-free HVP operator, its
+Lanczos update in the ``lanczos_update`` kernel on the card).  The full
 config computes in bf16, as the reference's launcher does.  A mesh
 (``--mesh-model`` above 1) waits for the sharding slice.
 """

@@ -9,9 +9,12 @@ and the mid-solve snapshot store behind ``checkpoint_dir=``.
         res = h.result()                           # per-query EigenResult
         print(sched.stats().summary())             # p50/p99, coalesce rate
 
-The reference's legacy LM decode engine (``Engine``, ``ServeConfig``) is not
-ported: it waits for ROADMAP queue A, "LM and Hessian side".
+The legacy LM decode engine moved to ``repro_torch.serving.lm``; importing
+``Engine`` / ``ServeConfig`` from here still works with a
+``DeprecationWarning``, as in the reference.
 """
+
+import warnings
 
 from .metrics import LatencyHistogram, ServerStats, ServingMetrics
 from .scheduler import (
@@ -48,14 +51,19 @@ __all__ = [
     "SchedulerCrashedError",
 ]
 
-_NOT_PORTED = ("Engine", "ServeConfig")
+_LEGACY = ("Engine", "ServeConfig")
 
 
 def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise ImportError(
-            f"repro_torch.serving.{name} is the reference's LM decode engine, which is not "
-            "ported yet (ROADMAP queue A, 'LM and Hessian side'); the eigensolver serving "
-            "layer is repro_torch.serving.EigenScheduler"
+    if name in _LEGACY:
+        warnings.warn(
+            f"repro_torch.serving.{name} is the legacy LM decode engine; import it from "
+            "repro_torch.serving.lm (the eigensolver serving layer is "
+            "repro_torch.serving.EigenScheduler)",
+            DeprecationWarning,
+            stacklevel=2,
         )
+        from . import lm
+
+        return getattr(lm, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,14 +1,15 @@
 """Eigensolver serving surface: the scheduler, store and metrics
 re-exported, as the reference's ``repro/serving/engine.py`` does.
 
-The reference's module also reaches its legacy LM decode engine
-(``Engine``, ``ServeConfig``); the port has none yet (ROADMAP queue A, "LM
-and Hessian side"), so importing either raises ``ImportError``.
+Historically this module held the LM decode ``Engine``; that code lives in
+``repro_torch.serving.lm``, and ``Engine`` / ``ServeConfig`` stay
+importable from here through a ``DeprecationWarning`` shim.
 """
 
 from __future__ import annotations
 
-from . import __getattr__  # noqa: F401  (Engine / ServeConfig raise ImportError)
+import warnings
+
 from .metrics import LatencyHistogram, ServerStats, ServingMetrics
 from .scheduler import (
     DeadlineExceededError,
@@ -37,3 +38,20 @@ __all__ = [
     "QueryCancelledError",
     "UnknownMatrixError",
 ]
+
+_LEGACY = ("Engine", "ServeConfig")
+
+
+def __getattr__(name: str):
+    if name in _LEGACY:
+        warnings.warn(
+            f"repro_torch.serving.engine.{name} is the legacy LM decode engine; import it "
+            "from repro_torch.serving.lm (the eigensolver serving layer is "
+            "repro_torch.serving.EigenScheduler)",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        from . import lm
+
+        return getattr(lm, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

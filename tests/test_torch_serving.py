@@ -553,12 +553,14 @@ def test_store_persists_header_only_pointer(jcsr, tmp_path):
 
 
 def test_serving_surface_matches_reference():
-    """The port exports the reference's serving names; the LM engine it
-    does not have raises ImportError naming the queue item."""
+    """The port exports the reference's serving names; the legacy LM engine
+    comes through the reference's ``DeprecationWarning`` shim."""
     assert set(serving.__all__) == set(jserving.__all__)
     from repro_torch.serving import engine as serving_engine
+    from repro_torch.serving import lm
 
     for mod in (serving, serving_engine):
-        with pytest.raises(ImportError, match="LM and Hessian side"):
-            getattr(mod, "Engine")
+        for name in ("Engine", "ServeConfig"):
+            with pytest.warns(DeprecationWarning, match="serving.lm"):
+                assert getattr(mod, name) is getattr(lm, name)
     assert serving.default_store_root().endswith("serving_store")
