@@ -171,6 +171,30 @@ before the last line:
    prefill + one ``decode_step`` is held to ``forward`` on one more token
    (``DEC_TOL`` of max |logit|, argmax equal where the top-2 gap is
    clear), and the decode paths of (a)-(c) launch none of the six kernels.
+17. the encoder-decoder and VLM families at full width (bf16 compute, f32
+   weights from seeded ``torch.Generator``s on the card, each part on a
+   card that holds nothing else) and the batched multi-start sweep: (a)
+   seamless-m4t-medium, ``Engine`` greedy over 4 prompts of 256 encoder
+   frames (d 1,024) and 64 tokens, 32 new each (prefill, each step and peak
+   memory timed; the cross K/V bytes); (b) ``launch/train.py``'s code path:
+   3 AdamW steps at batch 8 x 256 on its full config, then a Hessian probe
+   at full width with 2 encoder + 2 decoder layers at batch 4 x 256 (k 4,
+   8 Lanczos steps, FFF: ``lanczos_update`` 8 launches, every other kernel
+   0; true residuals against the Ritz bounds) and ``lanczos_update`` at the
+   probe's n against its plain version; (c) qwen2-vl-72b at full width
+   with 2 of its 80 layers, prefill of 4 prompts of 64 patch embeddings +
+   128 tokens (M-RoPE), 16 decode steps past the patches; (d)
+   ``eigsh_many`` over 8 start vectors (k 8, FDF) on phase 3's road with
+   ``format="coo"`` and on a dense 16,384 x 16,384 f32 matrix: one sweep,
+   one batched ``lanczos_update_multi`` launch a step and no other kernel,
+   each start within rel 1e-9 of a lone ``eigsh(v0=...)``; the sweep's own
+   operands of one batched launch against 8 solo launches (bits) and the
+   plain version, its device time against its bound; the walls of the
+   sweep and of the 8 lone calls.  In (a) and (c) prefill + one
+   ``decode_step`` is held to ``forward`` on one more token (``DEC_TOL``,
+   and ``DEC_TOL_F32`` in f32 compute), and their decode paths launch no
+   kernel.  Phase 2 also holds the batched launch at (8, road's n) against
+   its plain version and, row by row, solo launches, for every pair.
 
 ``repro_torch.eigsh`` keeps a cache of prepared sessions, so every call a
 phase reports as cold (``solve``) clears it first; phase 7 prints its
@@ -179,8 +203,11 @@ state once.
 Then one JSON line of kernel records (``launches`` from the main path's
 phases, ``launches_distributed`` from phase 13's, ``launches_analysis`` from
 phase 14's, ``launches_hessian`` from phase 15's training run,
-``launches_lm_families`` from phase 16's probe, and the resources of each
-kernel's main-path instantiation), and
+``launches_lm_families`` from phase 16's probe, ``launches_encdec_vlm``
+from phase 17(b)'s probe and ``launches_multistart`` from phase 17(d)'s
+road sweep, the only path that launches the batched
+``lanczos_update_multi``, so its ``launches`` on the main path are 0; and
+the resources of each kernel's main-path instantiation), and
 as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result when
 no CUDA device is visible.
@@ -200,7 +227,15 @@ import time
 
 import numpy as np
 import scipy.sparse as sp
-import torch
+
+# Phases 15-17 put a Hessian probe's (m, n) basis and project_out's masked
+# copy of it (17.8 GB each at qwen3-0.6b's n) beside the HVP's activations,
+# which free and re-allocate every step; with fixed-size segments the
+# layout that phases 1-14 leave decides whether one such block is still
+# found.  Expandable segments map physical pages as needed instead.
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import torch  # noqa: E402  (after the allocator setting)
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 K = 8
@@ -335,6 +370,7 @@ def kernel_modules():
     return {
         "spmv_ell": spmv_ell.spmv_ell_kernel_call,
         "lanczos_update": lanczos_update.lanczos_update_kernel_call,
+        "lanczos_update_multi": lanczos_update.lanczos_update_multi_kernel_call,
         "spmv_ell_alpha": lanczos_fused.spmv_ell_alpha_kernel_call,
         "spmv_bsr": spmv_bsr.spmv_bsr_kernel_call,
         "spmv_ell_packed": spmv_ell_packed.spmv_ell_packed_kernel_call,
@@ -345,6 +381,12 @@ def kernel_modules():
 KERNEL_META = {
     "spmv_ell": ("src/repro_torch/kernels/csrc/spmv_ell.cu", "src/repro/kernels/spmv_ell.py:54"),
     "lanczos_update": (
+        "src/repro_torch/kernels/csrc/lanczos_update.cu",
+        "src/repro/kernels/lanczos_update.py:50",
+    ),
+    # the batched launch of the multi-start sweep (the reference vmaps the
+    # TPU kernel's loop there)
+    "lanczos_update_multi": (
         "src/repro_torch/kernels/csrc/lanczos_update.cu",
         "src/repro/kernels/lanczos_update.py:50",
     ),
@@ -464,6 +506,7 @@ def phase_kernels(road, block_csr) -> dict:
             t_b, by = bound(nbytes(w, v, vp, u) + 4 * A.itemsize, 6.0 * n, A)
             rec = timed(run, plain, None, err, t_b, by)
     out["lanczos_update"] = rec
+    out["lanczos_update_multi"] = multi_update_record(n, g)
 
     bsr = to_device_bsr(block_csr, block_size=8, dtype=torch.float64, device=dev)
     nbr, slots, bs, _ = bsr.val.shape
@@ -481,6 +524,46 @@ def phase_kernels(road, block_csr) -> dict:
             rec = timed(run, plain, library_bsr(block_csr, S, x), err, t_b, by)
     out["spmv_bsr"] = rec
     return out
+
+
+MULTI_STARTS = 8  # start vectors of the multi-start sweep (phase 17(d)) and its batched launch
+
+
+def multi_update_record(n: int, g, dev="cuda", tag="[kernels]") -> dict:
+    """The batched ``lanczos_update`` on (``MULTI_STARTS``, n) rows against
+    its plain version for every pair and, row by row, against solo launches
+    (the same bits, u and norm); the record at FDF's ``<double, double>``
+    (the multi-start sweep carries f64 vectors), with its bound: 4 vectors
+    of B x n f64 over 3.35 TB/s."""
+    from repro_torch.kernels import ref
+
+    fns = kernel_modules()
+    multi, solo = fns["lanczos_update_multi"], fns["lanczos_update"]
+    b = MULTI_STARTS
+    base = [torch.randn((b, n), generator=g, dtype=torch.float64, device=dev) for _ in range(3)]
+    rec = None
+    for S, A in PAIRS:
+        w, v, vp = (t.to(S) for t in base)
+        al = torch.randn(b, generator=g, dtype=torch.float64, device=dev).to(A)
+        be = torch.rand(b, generator=g, dtype=torch.float64, device=dev).to(A)
+        run = lambda: multi(w, v, vp, al, be, accum_dtype=A)  # noqa: E731
+        plain = lambda: ref.lanczos_update_multi_ref(w, v, vp, al, be, A)  # noqa: E731
+        (u, nr), (ur, nrr) = run(), plain()
+        err = close(u, ur, max(RTOL[A], float(torch.finfo(S).eps)))
+        close(nr, nrr, RTOL[A])
+        for s in range(b):
+            us, ns = solo(w[s], v[s], vp[s], al[s], be[s], accum_dtype=A)
+            check(torch.equal(u[s], us) and torch.equal(nr[s], ns),
+                  f"lanczos_update_multi ({dname(S)}, {dname(A)}): row {s} differs from a solo "
+                  "launch's bits")
+        print(f"{tag} lanczos_update_multi ({dname(S)}, {dname(A)}) B={b} x n={n:,}: max_abs_err "
+              f"{err:.3e} ok; each row equals a solo launch bit for bit (u and ||u||^2)")
+        if (S, A) == (torch.float64, torch.float64):
+            t_b, by = bound(nbytes(w, v, vp, u) + 3 * b * A.itemsize, 6.0 * b * n, A)
+            rec = timed(run, plain, None, err, t_b, by)
+            rec.update(rows=b, n=n)
+        del u, ur
+    return rec
 
 
 def timed(run, plain, lib, err, t_b, by) -> dict:
@@ -1818,7 +1901,8 @@ def phase_shard_kernels(data) -> None:
             print(f"[dist] shard shapes, {name} ({dt}) vs its plain "
                   f"version: max_abs_err {errs[name]:.3e} (<= {RTOL[A]:.0e} of max |y|) ok on "
                   f"{'; '.join(shapes[name])}")
-    check(set(errs) == set(KERNEL_ORDER) - {"mixed_dot"}, f"shard checks ran {sorted(errs)}")
+    check(set(errs) == set(KERNEL_ORDER) - {"mixed_dot", "lanczos_update_multi"},
+          f"shard checks ran {sorted(errs)}")
 
 
 def phase_distributed(data, path, chunk_res, smi) -> dict:
@@ -1940,13 +2024,15 @@ def phase_distributed(data, path, chunk_res, smi) -> dict:
         check(np.isfinite(r["eigenvalues"].numpy()).all(), "(d) non-finite eigenvalues")
         print(f"[dist] (d) G=2 spmv_nan@iter=3 under FFF, recovery='auto': every rank's trail "
               f"[escalate_policy FFF -> FCF], finite result, ranks bit-identical")
-        # mixed_dot is on no solver path: every rank of every run launched it 0 times
-        dots = [rk[tag]["launches"]["mixed_dot"]
-                for rk in (a, *out[2], *out[4]) for tag in rk]
-        check(max(dots) == 0, f"mixed_dot launched {max(dots)} times on the distributed path")
+        # mixed_dot is on no solver path, and the batched update only on the
+        # multi-start sweep: every rank of every run launched them 0 times
+        for name in ("mixed_dot", "lanczos_update_multi"):
+            most = max(rk[tag]["launches"][name] for rk in (a, *out[2], *out[4]) for tag in rk)
+            check(most == 0, f"{name} launched {most} times on the distributed path")
         return {
             "spmv_ell": la["spmv_ell"],
             "lanczos_update": la["lanczos_update"],
+            "lanczos_update_multi": la["lanczos_update_multi"],
             "spmv_ell_alpha": lf["spmv_ell_alpha"],
             "spmv_bsr": out[2][0]["block"]["launches"]["spmv_bsr"],
             "spmv_ell_packed": out[2][0]["central_bf16"]["launches"]["spmv_ell_packed"],
@@ -1963,6 +2049,7 @@ def phase_distributed(data, path, chunk_res, smi) -> dict:
 MAIN_INSTANTIATION = {
     "spmv_ell": "spmv_ell_kernel<float, double>",
     "lanczos_update": "lanczos_update_kernel<double, double>",
+    "lanczos_update_multi": "lanczos_update_kernel<double, double>",  # the same kernel, B rows
     "spmv_ell_alpha": "spmv_ell_alpha_kernel<float, double>",
     "spmv_bsr": "spmv_bsr_kernel<float, double, 8>",
     "spmv_ell_packed": "spmv_ell_packed_kernel<__nv_bfloat16, int, float, double>",
@@ -2300,12 +2387,14 @@ def lm_hvp_card_vs_host(dev="cuda") -> float:
     return worst
 
 
-def lm_train_and_probe(ckpt_dir: str, dev="cuda", smoke=False) -> dict:
+def lm_train_and_probe(ckpt_dir: str, dev="cuda", smoke=False, arch=LM_ARCH, steps_n=LM_STEPS,
+                       every=LM_EVERY, batch=LM_BATCH) -> dict:
     """(a) ``python -m repro_torch.launch.train``'s code path, in process:
-    6 AdamW steps and a Hessian probe every 3, each step and probe timed
-    and its launches counted (the counts are 0 just before the run and read
-    just after); returns the trainer, the per-step and per-probe records
-    and the run's launches."""
+    ``steps_n`` AdamW steps of ``arch`` at batch ``batch`` x ``LM_SEQ`` and a
+    Hessian probe every ``every`` (6 and 3 for phase 15's qwen3; 0: none),
+    each step and probe timed and its launches counted (the counts are 0
+    just before the run and read just after); returns the trainer, the
+    per-step and per-probe records and the run's launches."""
     from repro_torch.launch import train as launch_train
     from repro_torch.training import spectral, train_loop
 
@@ -2341,8 +2430,8 @@ def lm_train_and_probe(ckpt_dir: str, dev="cuda", smoke=False) -> dict:
             old.pop("params", None)
         return ev
 
-    argv = ["--arch", LM_ARCH, "--steps", str(LM_STEPS), "--spectral-every", str(LM_EVERY),
-            "--batch", str(LM_BATCH), "--seq", str(LM_SEQ), "--ckpt-dir", ckpt_dir,
+    argv = ["--arch", arch, "--steps", str(steps_n), "--spectral-every", str(every),
+            "--batch", str(batch), "--seq", str(LM_SEQ), "--ckpt-dir", ckpt_dir,
             "--device", dev] + (["--smoke"] if smoke else [])
     train_loop.make_train_step, spectral.hessian_topk = timed_make, counted_topk
     try:
@@ -2409,6 +2498,9 @@ def phase_lm(smi, dev="cuda", smoke=False) -> dict:
         repro_torch.session_cache_clear()
         gc.collect()
         torch.cuda.empty_cache()
+        print(f"[lm] card memory at the start of phase 15: {torch.cuda.memory_allocated():,} bytes "
+              f"allocated, {torch.cuda.memory_reserved():,} reserved "
+              f"(PYTORCH_CUDA_ALLOC_CONF={os.environ.get('PYTORCH_CUDA_ALLOC_CONF')})")
     n = LM_PARAMS
     if smoke:
         from repro_torch.configs import get_config
@@ -2534,24 +2626,27 @@ def _tokens(cfg, shape, seed, dev) -> torch.Tensor:
     return torch.from_numpy(rng.integers(0, cfg.vocab, shape).astype(np.int32)).to(dev)
 
 
-def decode_vs_forward(tag, params, cfg, toks, nxt, max_len, dev, state=None, tol=None):
+def decode_vs_forward(tag, params, cfg, toks, nxt, max_len, dev, state=None, tol=None,
+                      extra=None):
     """prefill(S) (or ``state``, a prefill of ``toks``) and one ``decode_step``
     of ``nxt`` against ``forward``(S+1)'s last position (the MoE forward
     dropless: ``capacity_factor=100``, as the reference's test): max |diff|
     over max |logit| within ``tol`` (``DEC_TOL``), and the argmax equal in
-    every row whose top-2 gap exceeds that bound.  Returns (err, decode
-    logits, the state after the step)."""
+    every row whose top-2 gap exceeds that bound.  ``extra`` joins both
+    batches (the ``frames`` of the encoder-decoder and VLM families).
+    Returns (err, decode logits, the state after the step)."""
     import dataclasses as dc
 
     from repro_torch.models.model import decode_step, forward, prefill
 
     tol = DEC_TOL if tol is None else tol
+    extra = extra or {}
     if state is None:
-        state, _ = prefill(params, cfg, {"tokens": toks}, max_len=max_len)
+        state, _ = prefill(params, cfg, {"tokens": toks, **extra}, max_len=max_len)
     got, state = decode_step(params, cfg, state, nxt)
     ref_cfg = dc.replace(cfg, capacity_factor=100.0) if cfg.n_experts else cfg
     with torch.no_grad():
-        full, _ = forward(params, ref_cfg, {"tokens": torch.cat([toks, nxt], 1)})
+        full, _ = forward(params, ref_cfg, {"tokens": torch.cat([toks, nxt], 1), **extra})
     want = full[:, -1, :cfg.vocab].float()
     del full
     got_v = got[:, :cfg.vocab]
@@ -2563,13 +2658,14 @@ def decode_vs_forward(tag, params, cfg, toks, nxt, max_len, dev, state=None, tol
     clear = (top2[:, 0] - top2[:, 1]) > tol * scale
     same = got_v.argmax(-1) == want.argmax(-1)
     check(bool(same[clear].all()), f"{tag}: argmax differs in a row whose top-2 gap exceeds {tol:.3e}")
-    print(f"[decode] {tag}: prefill({toks.shape[1]}) + decode_step vs forward({toks.shape[1] + 1}):"
+    s_in = toks.shape[1] + (extra["frames"].shape[1] if cfg.family == "vlm" and extra else 0)
+    print(f"[decode] {tag}: prefill({s_in}) + decode_step vs forward({s_in + 1}):"
           f" max |diff| {err:.3e} of max |logit| {scale:.3f} (<= {tol:.3e}); argmax equal in "
           f"{int(same.sum())}/{len(same)} rows ({int(clear.sum())} with a clear top-2 gap)")
     return err, got, state
 
 
-def decode_vs_forward_f32(tag, params, cfg, toks, nxt, max_len, dev) -> float:
+def decode_vs_forward_f32(tag, params, cfg, toks, nxt, max_len, dev, extra=None) -> float:
     """:func:`decode_vs_forward` with the config computing in f32: the bf16
     run's differences must then shrink to f32 sum order (``DEC_TOL_F32``),
     which shows that they are rounding, not a fault of the decode path."""
@@ -2577,7 +2673,7 @@ def decode_vs_forward_f32(tag, params, cfg, toks, nxt, max_len, dev) -> float:
 
     err, _, _ = decode_vs_forward(f"{tag}, f32 compute", params,
                                   dc.replace(cfg, compute_dtype=torch.float32), toks, nxt,
-                                  max_len, dev, tol=DEC_TOL_F32)
+                                  max_len, dev, tol=DEC_TOL_F32, extra=extra)
     return err
 
 
@@ -2593,6 +2689,37 @@ def _cache_bytes(state) -> int:
     return total
 
 
+def _serve(tag, cfg, params, batch, new, max_len, dev):
+    """``serving.lm.Engine`` greedy on ``batch`` for ``new`` tokens, prefill
+    and each decode step timed, launches counted (none allowed); returns
+    (tokens on the host, final state, prefill part, step part, wall s, peak
+    bytes)."""
+    from repro_torch.serving import lm
+
+    eng = lm.Engine(cfg, params, lm.ServeConfig(max_len=max_len))
+    pre, step = _Part(dev), _Part(dev)
+    orig = lm.prefill
+    lm.prefill, eng._decode = pre.wrap(orig), step.wrap(eng._decode)
+    try:
+        reset_launches()
+        sync(dev)
+        _reset_peak(dev)
+        t0 = time.perf_counter()
+        tokens, info = eng.generate(batch, new)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        peak = _peak(dev)
+        launches = read_launches()
+    finally:
+        lm.prefill = orig
+    b = batch["tokens"].shape[0]
+    check(all(v == 0 for v in launches.values()), f"{tag}: kernel launches {launches}")
+    check(tuple(tokens.shape) == (b, new) and int(tokens.min()) >= 0
+          and int(tokens.max()) < cfg.vocab, f"{tag}: tokens {tuple(tokens.shape)}")
+    check(bool(torch.isfinite(info["token_logprobs"]).all()), f"{tag}: logprobs")
+    return tokens.cpu(), info["final_state"], pre, step, wall, peak
+
+
 def decode_engine(smi, dev, smoke) -> dict:
     """(a) qwen3-0.6b: ``serving.lm.Engine`` greedy with the bf16 and the
     int8 cache, each timed (prefill, each decode step, peak memory), and
@@ -2600,7 +2727,6 @@ def decode_engine(smi, dev, smoke) -> dict:
     import dataclasses as dc
 
     from repro_torch.models.common import param_count
-    from repro_torch.serving import lm
 
     cfg, params = _lm_setup(LM_ARCH, dev, smoke, seed=21)
     n = param_count(params)
@@ -2614,26 +2740,8 @@ def decode_engine(smi, dev, smoke) -> dict:
         c = dc.replace(cfg, kv_cache_dtype=cache)
         err, logits, _ = decode_vs_forward(f"(a) {cfg.name} {cache} cache", params, c, toks, nxt,
                                            max_len, dev)
-        eng = lm.Engine(c, params, lm.ServeConfig(max_len=max_len))
-        pre, step = _Part(dev), _Part(dev)
-        orig = lm.prefill
-        lm.prefill, eng._decode = pre.wrap(orig), step.wrap(eng._decode)
-        try:
-            reset_launches()
-            sync(dev)
-            _reset_peak(dev)
-            t0 = time.perf_counter()
-            tokens, info = eng.generate({"tokens": toks}, DEC_NEW)
-            sync(dev)
-            wall = time.perf_counter() - t0
-            launches = read_launches()
-        finally:
-            lm.prefill = orig
-        check(all(v == 0 for v in launches.values()), f"(a) {cache}: kernel launches {launches}")
-        check(tuple(tokens.shape) == (DEC_PROMPTS, DEC_NEW) and int(tokens.min()) >= 0
-              and int(tokens.max()) < cfg.vocab, f"(a) {cache}: tokens {tuple(tokens.shape)}")
-        check(bool(torch.isfinite(info["token_logprobs"]).all()), f"(a) {cache}: logprobs")
-        state = info["final_state"]
+        tokens, state, pre, step, wall, peak = _serve(f"(a) {cache}", c, params, {"tokens": toks},
+                                                      DEC_NEW, max_len, dev)
         check(state.step == DEC_PROMPT_LEN + DEC_NEW, f"(a) {cache}: state step {state.step}")
         out[cache] = {"logits": logits, "tokens": tokens.cpu(), "bytes": _cache_bytes(state),
                       "err": err}
@@ -2643,7 +2751,7 @@ def decode_engine(smi, dev, smoke) -> dict:
               f"{pre.ms[0]:.1f} ms; decode step median {med:.2f} ms (min {min(step.ms):.2f}, max "
               f"{max(step.ms):.2f}) over {len(step.ms)}; {DEC_PROMPTS * DEC_NEW / (sum(step.ms) / 1e3):.1f} "
               f"tokens/s in the decode steps, {DEC_PROMPTS * DEC_NEW / wall:.1f} tokens/s over "
-              f"generate ({wall * 1e3:.1f} ms); peak {_gb(_peak(dev))}; cache {out[cache]['bytes']:,} "
+              f"generate ({wall * 1e3:.1f} ms); peak {_gb(peak)}; cache {out[cache]['bytes']:,} "
               f"bytes; kernel launches 0 on {smi}")
         if dev == "cuda" and cache == "bf16":  # the card's busy share of one decode step
             from repro_torch.models.model import decode_step, prefill
@@ -2652,7 +2760,7 @@ def decode_engine(smi, dev, smoke) -> dict:
             busy(lambda: decode_step(params, c, st, nxt), "decode step (bf16 cache)", smi,
                  prefix="[decode] (a)")
             del st
-        del eng, info, state, tokens
+        del state, tokens
     decode_vs_forward_f32(f"(a) {cfg.name}", params, cfg, toks, nxt, max_len, dev)
     b16, i8 = out["bf16"], out["int8"]
     diff = float((i8["logits"] - b16["logits"])[:, :cfg.vocab].abs().max())
@@ -2798,10 +2906,7 @@ def decode_ssd_and_probe(smi, dev, smoke) -> dict:
     its launches counted (0 just before, read just after), its true
     residuals against its Ritz bounds, and ``lanczos_update`` at its n
     against the plain version."""
-    from repro_torch.core.operators import HvpOperator
     from repro_torch.models.common import param_count
-    from repro_torch.models.model import loss_fn
-    from repro_torch.training import spectral
     from repro_torch.training.data import DataConfig, synthetic_batch
 
     cfg, params = _lm_setup("mamba2-130m", dev, smoke, seed=25)
@@ -2817,6 +2922,26 @@ def decode_ssd_and_probe(smi, dev, smoke) -> dict:
     decode_vs_forward_f32(f"(d) {cfg.name}", params, cfg, toks, nxt, 256, dev)
 
     batch = synthetic_batch(cfg, DataConfig(batch=LM_BATCH, seq_len=LM_SEQ, seed=3), 0, device=dev)
+    probe_launches = hessian_probe("(d)", "[decode] (d)", params, cfg, batch, dev, smi)
+    del batch, params
+    kern = lm_kernel_shape(n, dev, accums=(torch.float32,), tag="[decode] (d)")["float32"]
+    check(kern["u_bits_equal"], "(d) lanczos_update's u differs from the plain version's bits")
+    return {"err": err, "launches": probe_launches, "kernel": kern}
+
+
+def hessian_probe(tag, prefix, params, cfg, batch, dev, smi) -> dict:
+    """One Hessian probe through ``repro_torch.training.spectral`` (k
+    ``LM_K``, FFF), its launches counted (0 just before, read just after:
+    ``lanczos_update`` ``LM_ITERS`` times, every other kernel 0), its
+    eigenvalues finite and ordered by |lambda|, its true residuals (``LM_K``
+    more HVPs) against its Ritz bounds, and the card's busy share of one
+    HVP.  Returns the launches."""
+    from repro_torch.core.operators import HvpOperator
+    from repro_torch.models.common import param_count
+    from repro_torch.models.model import loss_fn
+    from repro_torch.training import spectral
+
+    b, s = batch["tokens"].shape
     sync(dev)
     _reset_peak(dev)
     reset_launches()
@@ -2827,30 +2952,28 @@ def decode_ssd_and_probe(smi, dev, smoke) -> dict:
     probe_launches = read_launches()
     peak = _peak(dev)
     want = {name: (LM_ITERS if name == "lanczos_update" else 0) for name in KERNEL_ORDER}
-    check(probe_launches == want, f"(d) probe launches {probe_launches}, expected {want}")
+    check(probe_launches == want, f"{tag} probe launches {probe_launches}, expected {want}")
     lam = res.eigenvalues.double()
     ev = lam.cpu().numpy()
-    check(ev.shape == (LM_K,) and np.isfinite(ev).all(), f"(d) eigenvalues {ev}")
-    check(bool(np.all(np.diff(np.abs(ev)) <= 0)), f"(d) not ordered by |lambda|: {ev}")
+    check(ev.shape == (LM_K,) and np.isfinite(ev).all(), f"{tag} eigenvalues {ev}")
+    check(bool(np.all(np.diff(np.abs(ev)) <= 0)), f"{tag} not ordered by |lambda|: {ev}")
     op = HvpOperator(lambda q: loss_fn(q, cfg, batch)[0], params)
     X = res.eigenvectors
     true = np.array([float(torch.linalg.norm(op.matvec(X[:, i]).double() - lam[i] * X[:, i].double()))
                      for i in range(LM_K)])
     gap = np.abs(true - res.residuals)
     check(bool(np.all(gap <= LM_RESID_TOL * np.abs(ev).max())),
-          f"(d) true residuals {true} vs bounds {res.residuals} (|lambda|max {np.abs(ev).max():.4g})")
-    print(f"[decode] (d) {cfg.name} ({n:,} params): Hessian probe at batch {LM_BATCH} x {LM_SEQ} "
+          f"{tag} true residuals {true} vs bounds {res.residuals} (|lambda|max {np.abs(ev).max():.4g})")
+    print(f"{prefix} {cfg.name} ({param_count(params):,} params): Hessian probe at batch {b} x {s} "
           f"(k {LM_K}, {LM_ITERS} Lanczos steps, FFF) in {probe_ms:.1f} ms, peak {_gb(peak)}; "
           f"launches {probe_launches}; eigenvalues by |lambda| {np.round(ev, 4).tolist()}; true "
           f"residuals {np.round(true, 4).tolist()} vs Ritz bounds "
           f"{np.round(res.residuals, 4).tolist()}: max gap {gap.max() / np.abs(ev).max():.3e} of "
           f"|lambda|max (<= 2^-4) on {smi}")
     if dev == "cuda":  # the card's busy share of one HVP
-        busy(lambda: op.matvec(X[:, 0]), f"HVP ({cfg.name})", smi, prefix="[decode] (d)")
-    del op, X, res, batch, params
-    kern = lm_kernel_shape(n, dev, accums=(torch.float32,), tag="[decode] (d)")["float32"]
-    check(kern["u_bits_equal"], "(d) lanczos_update's u differs from the plain version's bits")
-    return {"err": err, "launches": probe_launches, "kernel": kern}
+        busy(lambda: op.matvec(X[:, 0]), f"HVP ({cfg.name})", smi, prefix=prefix)
+    del op, X, res
+    return probe_launches
 
 
 def phase_decode(smi, dev="cuda", smoke=False) -> dict:
@@ -2874,6 +2997,282 @@ def phase_decode(smi, dev="cuda", smoke=False) -> dict:
     print(f"[decode] phase 16 took {time.perf_counter() - t_phase:.1f} s ("
           + ", ".join(f"({k}) {v:.1f} s" for k, v in times.items()) + f") on {smi}")
     return {"launches": out["d"]["launches"], "kernel": out["d"]["kernel"]}
+
+
+# ------------- phase 17: the encoder-decoder and VLM families, the multi-start sweep
+
+ENC_ARCH, VLM_ARCH = "seamless-m4t-medium", "qwen2-vl-72b"
+ENC_PROMPTS, ENC_FRAMES, ENC_TEXT, ENC_NEW = 4, 256, 64, 32  # (a): frames and text a prompt
+ENC_STEPS = 3  # (b): AdamW steps at batch LM_BATCH x LM_SEQ on the full config
+ENC_PROBE_LAYERS, ENC_PROBE_BATCH = 2, 4  # (b): the probe's encoder and decoder layers, batch
+VLM_LAYERS, VLM_PATCHES, VLM_TEXT, VLM_STEPS = 2, 64, 128, 16  # (c): 2 of 80 layers
+MULTI_DENSE_N = 16_384  # (d): the dense matrix's n (f32: 1.07 GB)
+ENC_PARAMS = 977_860_608  # seamless-m4t-medium's parameter count (12 + 12 layers)
+ENC_PROBE_PARAMS = 600_322_048  # the same at 2 + 2 layers: (b)'s Hessian n
+VLM_PARAMS = 4_246_773_760  # qwen2-vl-72b at 2 of its 80 layers
+
+
+def _frames(cfg, shape, seed, dev) -> torch.Tensor:
+    """Stub frame or patch embeddings (B, S, d_model), N(0, 0.02^2), f32."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(tuple(shape) + (cfg.d_model,), generator=g, device=dev) * 0.02
+
+
+def encdec_serve(smi, dev, smoke) -> dict:
+    """(a) seamless-m4t-medium, full config: ``Engine`` greedy over
+    ``ENC_PROMPTS`` prompts of ``ENC_FRAMES`` encoder frames and
+    ``ENC_TEXT`` tokens, ``ENC_NEW`` new each; decode against forward; the
+    cross K/V bytes (one (L, B, S_src, KV, D) stack each of K and V, built
+    once by prefill)."""
+    from repro_torch.models.common import param_count
+
+    cfg, params = _lm_setup(ENC_ARCH, dev, smoke, seed=31)
+    n = param_count(params)
+    check(smoke or n == ENC_PARAMS, f"(a) {n:,} params, expected {ENC_PARAMS:,}")
+    frames = _frames(cfg, (ENC_PROMPTS, ENC_FRAMES), 32, dev)
+    toks = _tokens(cfg, (ENC_PROMPTS, ENC_TEXT), 33, dev)
+    nxt = _tokens(cfg, (ENC_PROMPTS, 1), 34, dev)
+    max_len = ENC_TEXT + ENC_NEW
+    extra = {"frames": frames}
+    reset_launches()
+    err, _, _ = decode_vs_forward(f"(a) {cfg.name}", params, cfg, toks, nxt, max_len, dev,
+                                  extra=extra)
+    _, state, pre, step, wall, peak = _serve("(a)", cfg, params, {"tokens": toks, **extra},
+                                             ENC_NEW, max_len, dev)
+    check(state.step == ENC_TEXT + ENC_NEW, f"(a) state step {state.step}")
+    ck, cv, cpos = state.cross
+    esize = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    want = 2 * cfg.n_layers * ENC_PROMPTS * ENC_FRAMES * cfg.n_kv_heads * cfg.hd * esize
+    cross = nbytes(ck, cv)
+    check(cross == want and tuple(cpos.shape) == (ENC_PROMPTS, ENC_FRAMES),
+          f"(a) cross K/V {cross:,} bytes, positions {tuple(cpos.shape)}; expected {want:,}")
+    med = float(np.median(step.ms))
+    print(f"[encdec] (a) {cfg.name} ({n:,} params, {cfg.n_enc_layers} + {cfg.n_layers} layers) "
+          f"Engine greedy: {ENC_PROMPTS} prompts x ({ENC_FRAMES} frames + {ENC_TEXT} tokens), "
+          f"{ENC_NEW} new each; cross K/V {cross:,} bytes ({cross / 1e6:.1f} MB); prefill "
+          f"{pre.ms[0]:.1f} ms; decode step median {med:.2f} ms (min {min(step.ms):.2f}, max "
+          f"{max(step.ms):.2f}) over {len(step.ms)}; {ENC_PROMPTS * ENC_NEW / wall:.1f} tokens/s "
+          f"over generate ({wall * 1e3:.1f} ms); peak {_gb(peak)}; kernel launches 0 on {smi}")
+    del state, ck, cv
+    decode_vs_forward_f32(f"(a) {cfg.name}", params, cfg, toks, nxt, max_len, dev, extra=extra)
+    return {"err": err, "params": n}
+
+
+def encdec_train_and_probe(smi, dev, smoke) -> dict:
+    """(b) ``launch/train.py``'s code path on the full seamless config
+    (``ENC_STEPS`` AdamW steps at batch ``LM_BATCH`` x ``LM_SEQ``, no
+    probe), then a Hessian probe at full width with ``ENC_PROBE_LAYERS``
+    encoder and decoder layers at batch ``ENC_PROBE_BATCH`` x ``LM_SEQ``
+    (the whole depth's basis would not fit beside its HVP), and
+    ``lanczos_update`` at the probe's n against its plain version."""
+    from repro_torch.models.common import param_count
+    from repro_torch.training.data import DataConfig, synthetic_batch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_encdec_")
+    try:
+        run = lm_train_and_probe(os.path.join(tmp, "ckpt"), dev, smoke, arch=ENC_ARCH,
+                                 steps_n=ENC_STEPS, every=0)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    trainer, steps = run["trainer"], run["steps"]
+    losses = [st["loss"] for st in steps]
+    check(len(losses) == ENC_STEPS and all(np.isfinite(losses)) and trainer.rollbacks == 0,
+          f"(b) train losses {losses}, rollbacks {trainer.rollbacks}")
+    check(trainer.cfg.family == "encdec" and not trainer.spectra, "(b) not the encdec run")
+    n_full = param_count(trainer.params)
+    check(smoke or n_full == ENC_PARAMS, f"(b) {n_full:,} params, expected {ENC_PARAMS:,}")
+    print(f"[encdec] (b) {trainer.cfg.name}: {n_full:,} params, compute "
+          f"{dname(trainer.cfg.compute_dtype)}; {ENC_STEPS} AdamW steps at batch {LM_BATCH} x seq "
+          f"{LM_SEQ} (frames {LM_BATCH} x {LM_SEQ} x {trainer.cfg.d_model}): losses "
+          f"{[round(x, 4) for x in losses]}; step median {float(np.median([st['ms'] for st in steps])):.1f} "
+          f"ms ({[round(st['ms'], 1) for st in steps]}), peak {_gb(max(st['peak'] for st in steps))}; "
+          f"run {run['wall']:.1f} s (init and the step-0 checkpoint included) on {smi}")
+    del trainer, run, steps
+    if dev == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+    cfg, params = _lm_setup(ENC_ARCH, dev, smoke, seed=35, n_layers=ENC_PROBE_LAYERS,
+                            n_enc_layers=ENC_PROBE_LAYERS)
+    n = param_count(params)
+    check(smoke or n == ENC_PROBE_PARAMS, f"(b) probe n {n:,}, expected {ENC_PROBE_PARAMS:,}")
+    batch = synthetic_batch(cfg, DataConfig(batch=ENC_PROBE_BATCH, seq_len=LM_SEQ, seed=3), 0,
+                            device=dev)
+    launches = hessian_probe("(b)", "[encdec] (b)", params, cfg, batch, dev, smi)
+    del batch, params
+    kern = lm_kernel_shape(n, dev, accums=(torch.float32,), tag="[encdec] (b)")["float32"]
+    check(kern["u_bits_equal"], "(b) lanczos_update's u differs from the plain version's bits")
+    return {"launches": launches, "kernel": kern, "params": n_full, "probe_n": n}
+
+
+def vlm_serve(smi, dev, smoke) -> dict:
+    """(c) qwen2-vl-72b at full width with ``VLM_LAYERS`` of its 80 layers:
+    prefill of ``VLM_PATCHES`` patch embeddings + ``VLM_TEXT`` tokens a
+    prompt (M-RoPE positions over both), ``VLM_STEPS`` decode steps past
+    the frames, and decode against forward."""
+    from repro_torch.models.common import param_count
+    from repro_torch.models.model import prefill
+
+    cfg, params = _lm_setup(VLM_ARCH, dev, smoke, seed=36, n_layers=VLM_LAYERS)
+    n = param_count(params)
+    check(smoke or n == VLM_PARAMS, f"(c) {n:,} params, expected {VLM_PARAMS:,}")
+    frames = _frames(cfg, (ENC_PROMPTS, VLM_PATCHES), 37, dev)
+    toks = _tokens(cfg, (ENC_PROMPTS, VLM_TEXT), 38, dev)
+    nxt = _tokens(cfg, (ENC_PROMPTS, 1), 39, dev)
+    s = VLM_PATCHES + VLM_TEXT
+    max_len = s + VLM_STEPS
+    extra = {"frames": frames}
+    reset_launches()
+    st, _ = prefill(params, cfg, {"tokens": toks, **extra}, max_len=max_len)
+    check(st.step == s, f"(c) prefill step {st.step}, expected {s} (patches + text)")
+    err, _, st = decode_vs_forward(f"(c) {cfg.name}, {VLM_LAYERS} layers", params, cfg, toks, nxt,
+                                   max_len, dev, state=st, extra=extra)
+    top = max(int(c.slot_pos.max()) for c in st.layers.values())
+    check(st.step == s + 1 and top == s, f"(c) after one step: step {st.step}, last slot {top}")
+    del st
+    _, state, pre, step, wall, peak = _serve("(c)", cfg, params, {"tokens": toks, **extra},
+                                             VLM_STEPS, max_len, dev)
+    check(state.step == s + VLM_STEPS, f"(c) state step {state.step}")
+    del state
+    med = float(np.median(step.ms))
+    print(f"[vlm] (c) {cfg.name} ({n:,} params, {VLM_LAYERS} of 80 layers, M-RoPE "
+          f"{cfg.mrope_sections}): {ENC_PROMPTS} prompts x ({VLM_PATCHES} patches + {VLM_TEXT} "
+          f"tokens), {VLM_STEPS} decode steps at positions {s}..{s + VLM_STEPS - 1}; prefill "
+          f"{pre.ms[0]:.1f} ms; decode step median {med:.2f} ms (min {min(step.ms):.2f}, max "
+          f"{max(step.ms):.2f}) over {len(step.ms)}; peak {_gb(peak)}; kernel launches 0 on {smi}")
+    decode_vs_forward_f32(f"(c) {cfg.name}, {VLM_LAYERS} layers", params, cfg, toks, nxt, max_len,
+                          dev, extra=extra)
+    return {"err": err, "params": n}
+
+
+def multistart(road, smi, dev="cuda", dense_n=MULTI_DENSE_N) -> dict:
+    """(d) ``eigsh_many`` over ``MULTI_STARTS`` start vectors (k ``K``,
+    FDF) on ``road`` with ``format="coo"`` and on a dense ``dense_n``
+    matrix: one sweep, ``lanczos_update_multi`` ``K`` launches and no other
+    kernel, each start within rel 1e-9 of a lone ``eigsh(v0=...)``; one of
+    the sweep's own batched launches again against 8 solo launches (bits)
+    and the plain version, with its device time and bound; the walls of the
+    sweep and of the lone calls.  Returns the sweep's launches (road)."""
+    import repro_torch
+    from repro_torch.api import EigQuery
+    from repro_torch.kernels import lanczos_update, ops, ref
+
+    seen = []  # (dtype, accum, shape) of every batched launch; step 3's operands
+    orig = ops.lanczos_update_multi_kernel_call
+
+    def watched(w, v, v_prev, alpha, beta, *, accum_dtype):
+        seen.append((dname(w.dtype), dname(accum_dtype), tuple(w.shape)))
+        if len(seen) == 4 and capture is not None:
+            capture.extend(t.clone() for t in (w, v, v_prev, alpha, beta))
+        return orig(w, v, v_prev, alpha, beta, accum_dtype=accum_dtype)
+
+    g = torch.Generator(device=dev).manual_seed(40)
+    a = torch.randn((dense_n, dense_n), generator=g, device=dev)
+    dense = (a + a.T) * 0.5
+    del a
+    out = {}
+    for tag, A, kw in (("road COO", road, {"format": "coo"}), ("dense", dense, {})):
+        repro_torch.session_cache_clear()
+        n = A.shape[0]
+        starts = [np.random.default_rng(170 + s).standard_normal(n) for s in range(MULTI_STARTS)]
+        sess = repro_torch.prepare(A, device=dev, **kw)
+        sess.eigsh(K, v0=starts[0])  # the first query builds the operator
+        capture = [] if tag == "road COO" else None
+        seen.clear()
+        ops.lanczos_update_multi_kernel_call = watched
+        try:
+            sweeps0 = sess.stats["sweeps"]
+            reset_launches()
+            sync(dev)
+            t0 = time.perf_counter()
+            many = sess.eigsh_many([EigQuery(k=K, v0=v) for v in starts])
+            sync(dev)
+            wall = time.perf_counter() - t0
+            launches = read_launches()
+        finally:
+            ops.lanczos_update_multi_kernel_call = orig
+        check(sess.stats["sweeps"] == sweeps0 + 1, f"(d) {tag}: "
+              f"{sess.stats['sweeps'] - sweeps0} sweeps, expected 1")
+        want = {name: (K if name == "lanczos_update_multi" else 0) for name in KERNEL_ORDER}
+        check(launches == want, f"(d) {tag}: launches {launches}, expected {want}")
+        dts = set((d, acc) for d, acc, _ in seen)
+        check(dts == {("float64", "float64")} and all(sh == (MULTI_STARTS, n) for _, _, sh in seen),
+              f"(d) {tag}: batched launches took {sorted(set(seen))}")
+        check(all(r.timings["amortized_over"] == MULTI_STARTS and r.spmv_format == many[0].spmv_format
+                  for r in many), f"(d) {tag}: amortized_over / format {[r.timings for r in many]}")
+        reset_launches()
+        sync(dev)
+        t0 = time.perf_counter()
+        lone = [sess.eigsh(K, v0=v) for v in starts]
+        sync(dev)
+        lone_wall = time.perf_counter() - t0
+        lone_launches = read_launches()
+        check(lone_launches["lanczos_update"] == K * MULTI_STARTS
+              and lone_launches["lanczos_update_multi"] == 0,
+              f"(d) {tag}: lone sweeps launched {lone_launches}")
+        errs = [eig_rel_err(f"(d) {tag} start {s}", many[s].eigenvalues, lone[s].eigenvalues, 1e-9)
+                for s in range(MULTI_STARTS)]
+        lone_lanczos = sum(r.timings["lanczos_s"] for r in lone)
+        print(f"[multi] (d) {tag} (n={n:,}, format {many[0].spmv_format}, FDF, k {K}): eigsh_many "
+              f"over {MULTI_STARTS} starts = 1 sweep, launches "
+              f"{({k: v for k, v in launches.items() if v})}, each batched launch "
+              f"{sorted(dts)} on ({MULTI_STARTS}, {n:,}); each start vs a lone eigsh(v0): max rel "
+              f"err {max(errs):.3e} (<= 1e-9); wall {wall * 1e3:.1f} ms (lanczos "
+              f"{many[0].timings['lanczos_s'] * 1e3:.1f} ms, shared) against {MULTI_STARTS} lone "
+              f"calls {lone_wall * 1e3:.1f} ms (lanczos {lone_lanczos * 1e3:.1f} ms) on {smi}")
+        out[tag] = {"launches": launches, "err": max(errs), "wall": wall, "lone_wall": lone_wall}
+        if capture:  # the sweep's own operands of its 4th batched launch
+            w, v, vp, al, be = capture
+            fns = kernel_modules()
+            u, nr = fns["lanczos_update_multi"](w, v, vp, al, be, accum_dtype=torch.float64)
+            for s in range(MULTI_STARTS):
+                us, ns = fns["lanczos_update"](w[s], v[s], vp[s], al[s], be[s],
+                                               accum_dtype=torch.float64)
+                check(torch.equal(u[s], us) and torch.equal(nr[s], ns),
+                      f"(d) the sweep's batched launch, row {s}: not a solo launch's bits")
+            ur, nrr = ref.lanczos_update_multi_ref(w, v, vp, al, be, torch.float64)
+            err = close(u, ur, RTOL[torch.float64])
+            close(nr, nrr, RTOL[torch.float64])
+            run = lambda: fns["lanczos_update_multi"](w, v, vp, al, be,  # noqa: E731
+                                                      accum_dtype=torch.float64)
+            t_b, by = bound(nbytes(w, v, vp, u) + 3 * MULTI_STARTS * 8, 6.0 * w.numel(),
+                            torch.float64)
+            dms = device_ms(run)
+            print(f"[multi] (d) the sweep's 4th batched launch ({MULTI_STARTS} x {n:,}, "
+                  f"{dname(w.dtype)}, acc float64): rows equal {MULTI_STARTS} solo launches bit for "
+                  f"bit; vs plain max_abs_err {err:.3e}; device {dms:.4f} ms, series "
+                  f"{time_ms(run):.4f} ms against its bound {t_b:.4f} ms ({by}: "
+                  f"{nbytes(w, v, vp, u) / 1e9:.3f} GB over 3.35 TB/s), {t_b / dms:.0%} of it")
+            del capture[:], w, v, vp, u, ur
+        del sess, many, lone
+    del dense
+    repro_torch.session_cache_clear()
+    return {"launches": out["road COO"]["launches"], **out}
+
+
+def phase_encdec_vlm(road, smi, dev="cuda", smoke=False, dense_n=MULTI_DENSE_N) -> dict:
+    """Phase 17: the encoder-decoder and VLM families at full width and the
+    batched multi-start sweep, each part on a card that holds nothing
+    else.  Returns (b)'s probe launches (``launches_encdec_vlm``) and (d)'s
+    sweep launches (``launches_multistart``)."""
+    t_phase = time.perf_counter()
+    times, out = {}, {}
+    parts = (("a", lambda: encdec_serve(smi, dev, smoke)),
+             ("b", lambda: encdec_train_and_probe(smi, dev, smoke)),
+             ("c", lambda: vlm_serve(smi, dev, smoke)),
+             ("d", lambda: multistart(road, smi, dev, dense_n)))
+    for tag, part in parts:
+        if dev == "cuda":
+            gc.collect()
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out[tag] = part()
+        times[tag] = time.perf_counter() - t0
+    print(f"[encdec] the decode paths of (a) and (c) launched none of the kernels; (b)'s probe "
+          f"launched {out['b']['launches']}; (d)'s sweep {out['d']['launches']}")
+    print(f"[encdec] phase 17 took {time.perf_counter() - t_phase:.1f} s ("
+          + ", ".join(f"({k}) {v:.1f} s" for k, v in times.items()) + f") on {smi}")
+    return {"launches_encdec_vlm": out["b"]["launches"], "launches_multistart": out["d"]["launches"],
+            "kernel": out["b"]["kernel"]}
 
 
 def phase_device() -> str:
@@ -3088,15 +3487,20 @@ def main() -> int:
 
     # ---- phase 15: the LM training path and its Hessian monitor, full width
     # (what the earlier phases keep on the card goes first: a probe needs ~70 GB)
-    del data, road, web, block, central, main_res, hyb, hyb2, fus, bres, chunk_res, sess, r
+    # (road stays on the host for phase 17)
+    del data, web, block, central, main_res, hyb, hyb2, fus, bres, chunk_res, sess, r
     lm = phase_lm(smi)
 
     # ---- phase 16: the LM decode path and the MoE, RG-LRU and SSD families
     dec = phase_decode(smi)
 
+    # ---- phase 17: the encoder-decoder and VLM families, the multi-start sweep
+    ev = phase_encdec_vlm(road, smi)
+
     launches = {
         "spmv_ell": main_launches["spmv_ell"],
         "lanczos_update": main_launches["lanczos_update"],
+        "lanczos_update_multi": main_launches["lanczos_update_multi"],
         "spmv_ell_alpha": fl["spmv_ell_alpha"],
         "spmv_bsr": bl["spmv_bsr"],
         "spmv_ell_packed": packed_launches["bf16 FDF"]["spmv_ell_packed"],
@@ -3110,7 +3514,10 @@ def main() -> int:
             {"name": name, "route": "cuda", "source": source, "replaces": replaces,
              "launches": launches[name], "launches_distributed": dist_launches[name],
              "launches_hessian": lm["launches"][name],
-             "launches_lm_families": dec["launches"][name], **records[name], **analysis[name]}
+             "launches_lm_families": dec["launches"][name],
+             "launches_encdec_vlm": ev["launches_encdec_vlm"][name],
+             "launches_multistart": ev["launches_multistart"][name],
+             **records[name], **analysis[name]}
         )
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -77,15 +77,19 @@ CSRC = Path(__file__).resolve().parents[1] / "kernels" / "csrc"
 
 WARP = 32
 MAX_GRID_X = 2**31 - 1
-_TYPE_MAX = {"int": 2**31 - 1, "long long": 2**63 - 1, "grid": MAX_GRID_X}
+_TYPE_MAX = {"int": 2**31 - 1, "unsigned": 2**32 - 1, "long long": 2**63 - 1,
+             "grid": MAX_GRID_X}
 SMEM_PER_BLOCK = 232_448  # 227 KB: the most shared memory a Hopper block may use
 H100_SMS = 132
 
 # Kernels whose result crosses blocks, and how the port keeps its sum in a
 # fixed order: (source, the per-block partial write, the one fixed-order
 # pass over the partials).  The other kernels are row-parallel.
+# ``lanczos_update`` writes one run of partials a start row (one row solo,
+# B in the multi-start sweep's batched launch) and reduces each run in one
+# block of the pass.
 CROSS_BLOCK = {
-    "lanczos_update": ("lanczos_update.cu", "partials[blockIdx.x] = acc",
+    "lanczos_update": ("lanczos_update.cu", "partials[row * gridDim.x + blockIdx.x] = acc",
                        "launch_reduce_partials"),
     "spmv_ell_alpha": ("lanczos_fused.cu", "partials[blockIdx.x] = total",
                        "launch_reduce_partials"),
@@ -147,6 +151,13 @@ def _ell_cols(L: Layout) -> int:
     return L.n_cols - 1
 
 
+def _update_rows() -> int:
+    """The most starts one batched ``lanczos_update`` launch takes."""
+    from ..kernels.lanczos_update import MAX_ROWS
+
+    return MAX_ROWS
+
+
 INDEX_EXPRS = (
     ("spmv_ell", "ell_row.cuh",
      "const long long off = r * width + static_cast<long long>(lane) * V;", "long long",
@@ -176,6 +187,12 @@ INDEX_EXPRS = (
      "grid", lambda L: -(-L.nbr * L.bs // 256)),
     ("lanczos_update", "lanczos_update.cu", "i += stride", "long long",
      lambda L: L.rows + 1024 * 256),
+    # a start's row offset and partials, at the most starts a batched launch takes
+    ("lanczos_update", "lanczos_update.cu",
+     "const long long off = static_cast<long long>(row) * n;", "long long",
+     lambda L: _update_rows() * L.rows),
+    ("lanczos_update", "lanczos_update.cu", "partials[row * gridDim.x + blockIdx.x]",
+     "unsigned", lambda L: _update_rows() * 1024),
     ("mixed_dot", "mixed_dot.cu", "const long long lo = tile * block;", "long long",
      lambda L: L.rows),
     ("mixed_dot", "mixed_dot.cu", "if (tiles >= INT_MAX)", "int",

@@ -27,9 +27,10 @@ vector and every query slices its Ritz pairs from it.  ``recovery="auto"``
 retries a failed group along the reference's axes (reseed, a policy rung
 up, unfuse, chunked fallback; ``EigenResult.recovery_trail``), and
 ``checkpoint_dir=`` snapshots the restarted and chunked sweeps so a killed
-solve resumes bit-identically.  The start vectors
-of one group run one after the other, each its own sweep (the reference
-vmaps them into one sweep on dense and COO operators).  ``policy="auto"``
+solve resumes bit-identically.  On dense and COO operators the start
+vectors of one group run as one multi-start sweep, as in the reference
+(``lanczos_tridiag_multi``); on the kernel layouts each runs its own
+sweep.  ``policy="auto"``
 queries run the precision ladder one rung at a time and never group.
 
 ``repro_torch.eigsh`` goes through :func:`get_session`, a small LRU of
@@ -68,8 +69,20 @@ import torch
 
 from ..configs import env as envcfg
 from ..core.distributed import PreparedShards, ShardComm, prepare_sharded, solve_sharded
-from ..core.eigensolver import JACOBI_PLACEMENTS, solve_fixed
-from ..core.lanczos import NumericalBreakdown, ops_for_operator, resolve_update_mode
+from ..core.eigensolver import (
+    JACOBI_PLACEMENTS,
+    ritz_decompose,
+    ritz_extract,
+    solve_fixed,
+    start_vector,
+)
+from ..core.lanczos import (
+    LanczosResult,
+    NumericalBreakdown,
+    lanczos_tridiag_multi,
+    ops_for_operator,
+    resolve_update_mode,
+)
 from ..core.operators import (
     ChunkedOperator,
     DenseOperator,
@@ -309,6 +322,27 @@ def _norm_group_key(q: _NormQuery) -> tuple:
 
 def _tensor_bytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if isinstance(t, torch.Tensor))
+
+
+def _multistart_batch(op, pol: PrecisionPolicy, m: int, dev: torch.device) -> int:
+    """The most start vectors one multi-start sweep takes: the batched
+    update's row limit and, on the card, what half the free memory holds of
+    each start's working set, its (m, n) basis in storage, ``project_out``'s
+    masked copy of it in the reorth dtype, a few (n,) vectors and, on COO,
+    its (nnz,) gathered products."""
+    from ..kernels.lanczos_update import MAX_ROWS
+
+    if dev.type != "cuda":
+        return MAX_ROWS
+    n = op.n
+    mat = getattr(op, "mat", None)
+    nnz = mat.val.numel() if isinstance(getattr(mat, "val", None), torch.Tensor) else 0
+    per_start = (m * n * (pol.storage.itemsize + pol.phase_dtype("reorth").itemsize)
+                 + 8 * n * pol.compute.itemsize
+                 + nnz * (pol.storage.itemsize + pol.phase_dtype("spmv").itemsize))
+    free, _ = torch.cuda.mem_get_info(dev)
+    free += torch.cuda.memory_reserved(dev) - torch.cuda.memory_allocated(dev)
+    return max(1, min(MAX_ROWS, free // 2 // per_start))
 
 
 @dataclasses.dataclass
@@ -1107,6 +1141,8 @@ class EigenSession:
         all_qs = [q for qs in starts.values() for q in qs]
         pol, reorth, jacobi = all_qs[0].pol, all_qs[0].reorth, all_qs[0].jacobi
         chunked = backend == "chunked"
+        if len(starts) > 1 and self._vmappable(prep):
+            return self._run_fixed_multistart(starts, prep, built, fused_pin)
         out = []
         for qs in starts.values():
             k_max = max(q.k for q in qs)
@@ -1153,6 +1189,83 @@ class EigenSession:
                     group_size=len(qs),
                     measured=measured,
                 ))
+        return out
+
+    def _vmappable(self, prep: _Prepared) -> bool:
+        """Does this operator's matvec take an ``(n, B)`` block, so one
+        sweep can run all start vectors of a group (the reference's name:
+        there, what ``jax.vmap`` batches)?  The dense product and the COO
+        segmented sum do; the kernel layouts and the chunked operator run
+        one start at a time."""
+        op = prep.operator
+        if isinstance(op, DenseOperator):
+            return True
+        if isinstance(op, SparseOperator):
+            if op.engine is not None:
+                return op.engine.format == "coo"
+            return op.impl == "coo"
+        return False
+
+    def _run_fixed_multistart(self, starts, prep: _Prepared, built: bool,
+                              fused_pin: Optional[bool] = None):
+        """Multi-start sweeps over the start vectors of a group
+        (:func:`~repro_torch.core.lanczos.lanczos_tridiag_multi`), with the
+        reference's accounting: one sweep a batch, ``lanczos_s`` shared by
+        the batch, ``amortized_over`` the whole group, no health probe, no
+        partition.  A group that :func:`_multistart_batch` says does not fit
+        one batch runs in several, each start's result as in one.  A query
+        without ``v0`` draws from its ``seed`` as a lone sweep does."""
+        out = []
+        all_qs = [q for qs in starts.values() for q in qs]
+        pol, reorth, jacobi = all_qs[0].pol, all_qs[0].reorth, all_qs[0].jacobi
+        m = max(q.m for q in all_qs)
+        op = prep.operator
+        groups = list(starts.values())
+        cap = _multistart_batch(op, pol, m, self.device)
+        for lo in range(0, len(groups), cap):
+            chunk = groups[lo: lo + cap]
+            v1s = torch.stack([start_vector(op, pol, qs[0].v0, qs[0].seed).to(pol.compute)
+                               for qs in chunk])
+            dev = v1s.device
+            t0 = time.perf_counter()
+            batch, measured = self._measured(
+                lanczos_tridiag_multi, op.bound_matvec(pol), v1s, m, pol, reorth=reorth,
+                ops=prep.ops_for(pol, self.device, fused=fused_pin))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            t_lanczos = time.perf_counter() - t0
+            self.stats["sweeps"] += 1
+            for s, qs in enumerate(chunk):
+                lres = LanczosResult(alpha=batch.alpha[s], beta=batch.beta[s],
+                                     basis=batch.basis[s], beta_last=batch.beta_last[s])
+                t1 = time.perf_counter()
+                evals, w, evals_f64, w_f64, beta_m = ritz_decompose(lres, pol, jacobi)
+                k_max = max(q.k for q in qs)
+                evals_k, x, resid = ritz_extract(lres, evals, w, w_f64, beta_m, k_max, pol)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                t_finish = time.perf_counter() - t1
+                timings = {
+                    "lanczos_s": t_lanczos,  # shared across all starts of the batch
+                    "jacobi_s": t_finish,
+                    "total_s": t_lanczos + t_finish,
+                }
+                for q in qs:
+                    out.append(self._finish(
+                        q, prep, built,
+                        eigenvalues=evals_k[: q.k],
+                        eigenvectors=x[:, : q.k],
+                        residuals=resid[: q.k],
+                        evals_f64=np.asarray(evals_f64[: q.k], dtype=np.float64),
+                        iterations=m,
+                        restarts=0,
+                        timings=timings,
+                        partition={},
+                        tridiag=lres,
+                        group_size=len(all_qs),
+                        measured=measured,
+                    ))
+            del batch
         return out
 
     def _run_distributed(self, starts, prep: _Prepared, built: bool):

@@ -5,9 +5,7 @@ Arch modules import the model substrate, while low layers (``core``,
 ``kernels``) import ``env``; so the arch modules load lazily (PEP 562) and
 ``from ..configs import env`` never drags the model stack in.
 
-``ARCHS`` lists the archs whose family the port runs (dense, MoE, RG-LRU
-hybrid and SSD); the reference's encoder-decoder and VLM archs raise a
-``KeyError`` that names the ROADMAP item still to come.
+``ARCHS`` lists all ten of the reference's archs.
 """
 
 _ARCH_MODULES = {
@@ -16,15 +14,11 @@ _ARCH_MODULES = {
     "phi3-medium-14b": "phi3_medium_14b",
     "codeqwen1.5-7b": "codeqwen1_5_7b",
     "qwen1.5-32b": "qwen1_5_32b",
+    "seamless-m4t-medium": "seamless_m4t_medium",
     "arctic-480b": "arctic_480b",
     "mixtral-8x7b": "mixtral_8x7b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
     "mamba2-130m": "mamba2_130m",
-}
-
-# The reference's other archs and the ROADMAP queue A item that ports each.
-_PENDING_ARCHS = {
-    "seamless-m4t-medium": "encdec/vlm",
-    "qwen2-vl-72b": "encdec/vlm",
 }
 
 
@@ -35,9 +29,6 @@ class _LazyArchs(dict):
         import importlib
 
         if arch not in _ARCH_MODULES:
-            if arch in _PENDING_ARCHS:
-                raise KeyError(f"{arch}: not ported yet (ROADMAP queue A, item "
-                               f"{_PENDING_ARCHS[arch]!r})")
             raise KeyError(arch)
         mod = importlib.import_module(f".{_ARCH_MODULES[arch]}", __name__)
         self[arch] = mod

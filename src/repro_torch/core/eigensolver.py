@@ -28,6 +28,7 @@ __all__ = [
     "ritz_decompose",
     "ritz_extract",
     "solve_fixed",
+    "start_vector",
     "topk_eigs",
     "operator_device",
 ]
@@ -120,6 +121,22 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def start_vector(op: LinearOperator, policy: PrecisionPolicy, v1=None, seed: int = 0):
+    """The start vector of a sweep on ``op``'s device: ``v1`` (any
+    array-like of length n) as given, or without one a draw from a
+    ``torch.Generator`` seeded with ``seed`` on that device, in the
+    policy's compute dtype."""
+    n = op.n
+    dev = operator_device(op)
+    if v1 is None:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        return torch.randn((n,), generator=gen, dtype=policy.compute, device=dev)
+    v1 = v1 if isinstance(v1, torch.Tensor) else torch.as_tensor(np.asarray(v1))
+    if tuple(v1.shape) != (n,):
+        raise ValueError(f"start vector has shape {tuple(v1.shape)}, expected ({n},)")
+    return v1.to(device=dev)
+
+
 def solve_fixed(
     op: LinearOperator,
     k: int,
@@ -147,16 +164,8 @@ def solve_fixed(
     m = num_iters or k
     if m < k:
         raise ValueError("num_iters must be >= k")
-    n = op.n
     dev = operator_device(op)
-    if v1 is None:
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        v1 = torch.randn((n,), generator=gen, dtype=policy.compute, device=dev)
-    else:
-        v1 = v1 if isinstance(v1, torch.Tensor) else torch.as_tensor(np.asarray(v1))
-        if tuple(v1.shape) != (n,):
-            raise ValueError(f"start vector has shape {tuple(v1.shape)}, expected ({n},)")
-        v1 = v1.to(device=dev)
+    v1 = start_vector(op, policy, v1, seed)
 
     t0 = time.perf_counter()
     if ops is None:

@@ -18,6 +18,11 @@ The update modes of the :class:`~repro_torch.kernels.engine.IterationPlan`:
 * ``unfused``    — plain tensor expressions;
 * ``fused``      — the ``lanczos_update`` kernel (update + ||u||^2, one pass);
 * ``fused_spmv`` — ``spmv_ell_alpha`` + ``lanczos_update`` (ELL only).
+
+:func:`lanczos_tridiag_multi` runs one loop for B start vectors at once
+(the reference vmaps the loop): each step one block matvec over an
+``(n, B)`` block, row-wise alpha and beta, a batched re-orthogonalization
+and, on the card, one batched ``lanczos_update`` launch for all B starts.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ __all__ = [
     "NumericalBreakdown",
     "check_tridiag_health",
     "lanczos_tridiag",
+    "lanczos_tridiag_multi",
     "make_local_ops",
     "ops_for_operator",
     "fused_update_enabled",
@@ -163,9 +169,41 @@ def resolve_update_mode(policy: PrecisionPolicy, plan=None, device="cuda",
 
 
 def _local_reduce(x: torch.Tensor, policy: PrecisionPolicy, dtype=None) -> torch.Tensor:
+    """The sum of ``x``, or of each row of (B, n) ``x`` (the multi-start
+    sweep's B starts)."""
+    if x.ndim == 2:
+        if policy.compensated:
+            return torch.stack([compensated_sum(r, dtype or policy.compute) for r in x])
+        return torch.sum(x, dim=-1)
     if policy.compensated:
         return compensated_sum(x.reshape(-1), dtype or policy.compute)
     return torch.sum(x)
+
+
+def _reductions(policy: PrecisionPolicy):
+    """``dot`` and ``project_out`` of one solve, in the per-phase compute
+    dtypes, every result cast back to the carried ``compute`` dtype.  Both
+    take (n,) vectors or (B, n) rows of B starts, each start against its own
+    (B, m, n) basis."""
+    cdt = policy.compute
+    abdt = policy.phase_dtype("alpha_beta")
+    rdt = policy.phase_dtype("reorth")
+
+    def dot(a, b):
+        return _local_reduce(a.to(abdt) * b.to(abdt), policy, abdt).to(cdt)
+
+    def project_out(basis, u, mask):
+        basis_c = basis.to(rdt) * mask.to(rdt)[:, None]  # ONE (m, n) or (B, m, n) cast
+        # u rounds through the storage dtype before the coefficient dot, as
+        # in the reference.  Each temporary dies within its statement: at a
+        # Hessian's n one (n,) vector is GBs.
+        if u.ndim == 1:
+            coeffs = basis_c @ u.to(policy.storage).to(rdt)
+            return (u.to(rdt) - coeffs @ basis_c).to(cdt)
+        coeffs = basis_c @ u.to(policy.storage).to(rdt)[:, :, None]  # (B, m, 1)
+        return (u.to(rdt) - (coeffs.transpose(1, 2) @ basis_c)[:, 0]).to(cdt)
+
+    return dot, project_out
 
 
 def _make_fused_iteration(operator, policy: PrecisionPolicy) -> Optional[Callable]:
@@ -195,24 +233,35 @@ def _make_fused_iteration(operator, policy: PrecisionPolicy) -> Optional[Callabl
     return fused_iteration
 
 
+def _batched_ops(matvec: Callable, policy: PrecisionPolicy, fused: bool) -> Ops:
+    """The multi-start loop's ops over (B, n) rows of B starts: ``matvec``
+    takes an ``(n, B)`` block (``DenseOperator`` and ``DeviceCOO`` read the
+    matrix once for all B columns), ``dot`` and ``project_out`` are a lone
+    sweep's over a leading axis, and with ``fused`` the update is the
+    batched ``lanczos_update`` (one launch a step on the card)."""
+    cdt = policy.compute
+    dot, project_out = _reductions(policy)
+
+    def block_matvec(rows):
+        return matvec(rows.T).T.contiguous()
+
+    fused_update = None
+    if fused:
+        from ..kernels import ops as kops
+
+        def fused_update(w, v, v_prev, alpha, beta):
+            return kops.lanczos_update_multi(w, v, v_prev, alpha, beta, accum_dtype=cdt)
+
+    return Ops(matvec=block_matvec, dot=dot, project_out=project_out, fused_update=fused_update)
+
+
 def make_local_ops(matvec: Callable, policy: PrecisionPolicy, plan=None, operator=None,
                    device="cuda", fused: Optional[bool] = None) -> Ops:
     """Single-device ops: plain reductions in the per-phase compute dtypes,
     every result cast back to the carried ``compute`` dtype; ``fused`` pins
     the update mode (see :func:`resolve_update_mode`)."""
     cdt = policy.compute
-    abdt = policy.phase_dtype("alpha_beta")
-    rdt = policy.phase_dtype("reorth")
-
-    def dot(a, b):
-        return _local_reduce(a.to(abdt) * b.to(abdt), policy, abdt).to(cdt)
-
-    def project_out(basis, u, mask):
-        basis_c = basis.to(rdt) * mask.to(rdt)[:, None]  # ONE (m, n) cast
-        # u rounds through the storage dtype before the coefficient dot, as
-        # in the reference.
-        coeffs = basis_c @ u.to(policy.storage).to(rdt)
-        return (u.to(rdt) - coeffs @ basis_c).to(cdt)
+    dot, project_out = _reductions(policy)
 
     mode = resolve_update_mode(policy, plan=plan, device=device, fused=fused)
     fused_iteration = None
@@ -262,21 +311,24 @@ def _reorth_mask(m: int, i: int, mode: str, dtype, device) -> torch.Tensor:
 
 def _lanczos_loop(v1: torch.Tensor, ops: Ops, num_iters: int, policy: PrecisionPolicy,
                   reorth: str, checkpoint=None) -> LanczosResult:
+    """The Lanczos sweep from the (n,) ``v1``, or from the (B, n) rows of B
+    starts at once (the multi-start sweep, with batched ``ops`` and no
+    checkpoint): every carried quantity then has a leading start axis."""
     m = num_iters
-    n = v1.shape[0]
+    *lead, n = v1.shape
     dev = v1.device
     cdt, sdt = policy.compute, policy.storage
     tiny = float(torch.finfo(cdt).tiny) * 1e3
 
     v1 = v1.to(cdt)
-    v1 = v1 / torch.sqrt(ops.dot(v1, v1))
+    v1 = (v1 / torch.sqrt(ops.dot(v1, v1))[..., None]).contiguous()
 
-    basis = torch.zeros((m, n), dtype=sdt, device=dev)
-    alphas = torch.zeros((m,), dtype=cdt, device=dev)
-    betas = torch.zeros((m,), dtype=cdt, device=dev)
-    v_prev = torch.zeros((n,), dtype=cdt, device=dev)
-    w = torch.zeros((n,), dtype=cdt, device=dev)
-    beta_prev = torch.zeros((), dtype=cdt, device=dev)
+    basis = torch.zeros((*lead, m, n), dtype=sdt, device=dev)
+    alphas = torch.zeros((*lead, m), dtype=cdt, device=dev)
+    betas = torch.zeros((*lead, m), dtype=cdt, device=dev)
+    v_prev = torch.zeros((*lead, n), dtype=cdt, device=dev)
+    w = torch.zeros((*lead, n), dtype=cdt, device=dev)
+    beta_prev = torch.zeros(lead, dtype=cdt, device=dev)
     start = 0
     ckpt_op = None
     chunk_every = 0
@@ -323,14 +375,14 @@ def _lanczos_loop(v1: torch.Tensor, ops: Ops, num_iters: int, policy: PrecisionP
             ckpt_op.set_step_hook(chunk_hook)
         try:
             # --- normalize the incoming vector (paper lines 5-7) ---
-            v = v1 if i == 0 else w / torch.clamp_min(beta_prev, tiny)
-            basis[i] = v.to(sdt)
+            v = v1 if i == 0 else w / torch.clamp_min(beta_prev, tiny)[..., None]
+            basis[..., i, :] = v.to(sdt)
             nrm_sq = None
             if ops.fused_iteration is not None:
                 # --- lines 9-11 in two fused passes ---
                 u, alpha, fused_nrm = ops.fused_iteration(v, v_prev, beta_prev)
                 u = _faults.tap_spmv(u, i)
-                alphas[i] = alpha
+                alphas[..., i] = alpha
                 if reorth == "none":
                     nrm_sq = fused_nrm
             else:
@@ -339,14 +391,14 @@ def _lanczos_loop(v1: torch.Tensor, ops: Ops, num_iters: int, policy: PrecisionP
                 u = _faults.tap_spmv(u, i)
                 # --- alpha (line 10) ---
                 alpha = ops.dot(v, u)
-                alphas[i] = alpha
+                alphas[..., i] = alpha
                 # --- three-term recurrence (line 11) ---
                 if ops.fused_update is not None:
                     u, fused_nrm = ops.fused_update(u, v, v_prev, alpha, beta_prev)
                     if reorth == "none":
                         nrm_sq = fused_nrm
                 else:
-                    u = u - alpha * v - beta_prev * v_prev
+                    u = u - alpha[..., None] * v - beta_prev[..., None] * v_prev
         finally:
             if chunk_every > 0:
                 ckpt_op.set_step_hook(None)
@@ -361,13 +413,14 @@ def _lanczos_loop(v1: torch.Tensor, ops: Ops, num_iters: int, policy: PrecisionP
         else:
             beta = torch.sqrt(torch.clamp_min(ops.dot(u, u), 0.0))
         beta = _faults.tap_beta(beta, i)
-        betas[i] = beta
+        betas[..., i] = beta
         v_prev, w, beta_prev = v, u, beta
         if checkpoint is not None and (i + 1) % every == 0 and i + 1 < m:
             snapshot(i)
     if checkpoint is not None:
         store.clear(token)  # completed: the snapshot must not resurrect
-    return LanczosResult(alpha=alphas, beta=betas[: m - 1], basis=basis, beta_last=betas[m - 1])
+    return LanczosResult(alpha=alphas, beta=betas[..., : m - 1], basis=basis,
+                         beta_last=betas[..., m - 1])
 
 
 def lanczos_tridiag(
@@ -397,3 +450,33 @@ def lanczos_tridiag(
     ops = ops or make_local_ops(matvec, policy, device=v1.device)
     return _lanczos_loop(v1, ops, num_iters, policy, reorth, checkpoint=checkpoint)
 
+
+def lanczos_tridiag_multi(
+    matvec: Callable,
+    v1s: torch.Tensor,
+    num_iters: int,
+    policy: PrecisionPolicy,
+    reorth: str = "half",
+    ops: Optional[Ops] = None,
+) -> LanczosResult:
+    """Multi-start Lanczos: ``v1s`` is (s, n) start vectors; every field of
+    the result gains a leading start axis ((s, m) alpha, (s, m, n) basis,
+    (s,) beta_last).  One loop builds all s bases: each step one block
+    matvec (``matvec`` takes an ``(n, s)`` block, as ``DenseOperator`` and
+    the COO operator do), one batched re-orthogonalization and, on the card,
+    one batched ``lanczos_update`` launch for all starts (compensated
+    policies keep the plain update, as a lone sweep does).  ``ops`` are a
+    lone sweep's (``make_local_ops``, as the reference takes them): their
+    ``matvec`` and whether their update is fused carry over to the batched
+    ops; without them, the device's update mode decides.
+    """
+    policy = policy.effective()
+    _faults.check_sweep_entry()
+    if v1s.ndim != 2:
+        raise ValueError(f"lanczos_tridiag_multi: v1s must be (s, n), got {tuple(v1s.shape)}")
+    if ops is None:
+        fused = resolve_update_mode(policy, device=v1s.device) != "unfused"
+    else:
+        matvec = ops.matvec
+        fused = ops.fused_update is not None or ops.fused_iteration is not None
+    return _lanczos_loop(v1s, _batched_ops(matvec, policy, fused), num_iters, policy, reorth)

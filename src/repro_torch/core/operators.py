@@ -96,6 +96,8 @@ class DenseOperator(LinearOperator):
         return self.a.shape[0]
 
     def matvec(self, x, accum_dtype=None):
+        """``A @ x`` for ``(n,)``, or ``A @ X`` for an ``(n, B)`` block (the
+        matrix read once for all B columns)."""
         acc = accum_dtype or x.dtype
         return self.a.to(acc) @ x.to(acc)
 

@@ -91,7 +91,7 @@ _SIGNATURES = {
     "repro_spmv_ell_alpha": (
         _I, [_I, _I, _P, _P, _P, _P, _L, _P, _P, _L, _P, _L, _I, _I, _I, _I, _P]
     ),
-    "repro_lanczos_update": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _P]),
+    "repro_lanczos_update": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P]),
     "repro_spmv_bsr": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _I, _P]),
     "repro_spmv_ell_packed": (
         _I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]

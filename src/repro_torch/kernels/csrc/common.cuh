@@ -84,21 +84,26 @@ __device__ __forceinline__ A block_sum(A v, A* scratch) {
 
 // Second pass of every cross-block reduction: one block sums the per-block
 // partials in a fixed order (each thread a strided run, then the block
-// tree) and writes out[0].  No float atomics anywhere.
+// tree) and writes out[0].  No float atomics anywhere.  A launch of `rows`
+// blocks reduces `rows` runs of `count` partials, block r the r-th run into
+// out[r], each in the order of a one-block launch on its run alone.
 template <typename A>
 __global__ void __launch_bounds__(kThreads) reduce_partials_kernel(const A* __restrict__ partials,
                                                                    long long count,
                                                                    A* __restrict__ out) {
   __shared__ A scratch[kThreads / 32];
+  const A* run = partials + static_cast<long long>(blockIdx.x) * count;
   A acc = A(0);
-  for (long long i = threadIdx.x; i < count; i += kThreads) acc += partials[i];
+  for (long long i = threadIdx.x; i < count; i += kThreads) acc += run[i];
   acc = block_sum(acc, scratch);
-  if (threadIdx.x == 0) out[0] = acc;
+  if (threadIdx.x == 0) out[blockIdx.x] = acc;
 }
 
 template <typename A>
-int launch_reduce_partials(const A* partials, long long count, A* out, cudaStream_t stream) {
-  reduce_partials_kernel<A><<<1, kThreads, 0, stream>>>(partials, count, out);
+int launch_reduce_partials(const A* partials, long long count, A* out, cudaStream_t stream,
+                           int rows = 1) {
+  reduce_partials_kernel<A><<<static_cast<unsigned>(rows), kThreads, 0, stream>>>(partials, count,
+                                                                                 out);
   return static_cast<int>(cudaGetLastError());
 }
 

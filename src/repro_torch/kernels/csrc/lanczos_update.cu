@@ -15,6 +15,14 @@
 // rides on the same pass, so u is never read back.  The number of blocks
 // is capped (kMaxUpdateBlocks) so the partials stay a few KB and the second
 // pass is one short launch.
+//
+// One kernel serves the solo launch (one row) and the batched launch of the
+// multi-start sweep, the counterpart of jax.vmap over the TPU kernel: rows
+// of (B, n) w, v and v_prev with (B,) alpha and beta, one grid row a start
+// (blockIdx.y).  Each start runs the solo block count and in-block order
+// over its row, and its partials are summed by one block of the rows-wide
+// reduce launch in the solo order, so row s has the bits of a solo launch
+// on row s.  A step pays two launches for all starts instead of 2 B.
 #include "common.cuh"
 
 namespace {
@@ -33,9 +41,12 @@ __global__ void __launch_bounds__(kThreads)
                           const A* __restrict__ beta, T* __restrict__ u, A* __restrict__ partials,
                           long long n) {
   __shared__ A scratch[kThreads / 32];
-  const A a = *alpha, b = *beta;
-  A acc = A(0);
+  const unsigned row = blockIdx.y;
+  const long long off = static_cast<long long>(row) * n;
   const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+  const A a = alpha[row], b = beta[row];
+  w += off, v += off, vp += off, u += off;
+  A acc = A(0);
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < n;
        i += stride) {
     // Same operation order as the plain version: (w - a*v) - b*vp.
@@ -44,32 +55,36 @@ __global__ void __launch_bounds__(kThreads)
     acc += ui * ui;
   }
   acc = block_sum(acc, scratch);
-  if (threadIdx.x == 0) partials[blockIdx.x] = acc;
+  if (threadIdx.x == 0) partials[row * gridDim.x + blockIdx.x] = acc;
 }
 
 template <typename T, typename A>
 struct LanczosUpdate {
   static int run(const void* w, const void* v, const void* vp, const void* alpha,
-                 const void* beta, void* u, void* partials, void* nrm, long long n,
+                 const void* beta, void* u, void* partials, void* nrm, long long n, int rows,
                  cudaStream_t stream) {
     const long long blocks = update_blocks(n);
-    lanczos_update_kernel<T, A><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(rows));
+    lanczos_update_kernel<T, A><<<grid, kThreads, 0, stream>>>(
         static_cast<const T*>(w), static_cast<const T*>(v), static_cast<const T*>(vp),
         static_cast<const A*>(alpha), static_cast<const A*>(beta), static_cast<T*>(u),
         static_cast<A*>(partials), n);
     const int err = static_cast<int>(cudaGetLastError());
     if (err) return err;
-    return launch_reduce_partials<A>(static_cast<const A*>(partials), blocks, static_cast<A*>(nrm),
-                                     stream);
+    return launch_reduce_partials<A>(static_cast<const A*>(partials), blocks,
+                                     static_cast<A*>(nrm), stream, rows);
   }
 };
 
 }  // namespace
 
+// rows: 1 for the solo launch, else the number of starts B, at most 65,535
+// (the grid's y limit; the wrapper checks it).  partials holds
+// rows * repro_update_blocks(n).
 extern "C" int repro_lanczos_update(int tdt, int adt, const void* w, const void* v, const void* vp,
                                     const void* alpha, const void* beta, void* u, void* partials,
-                                    void* nrm, long long n, void* stream) {
-  return dispatch_pair<LanczosUpdate>(tdt, adt, w, v, vp, alpha, beta, u, partials, nrm, n,
+                                    void* nrm, long long n, int rows, void* stream) {
+  return dispatch_pair<LanczosUpdate>(tdt, adt, w, v, vp, alpha, beta, u, partials, nrm, n, rows,
                                       static_cast<cudaStream_t>(stream));
 }
 

@@ -19,7 +19,12 @@ import torch
 from ..analysis.op_count import kernel_scope
 from . import ref
 from .lanczos_fused import spmv_ell_alpha_contract, spmv_ell_alpha_kernel_call
-from .lanczos_update import lanczos_update_contract, lanczos_update_kernel_call
+from .lanczos_update import (
+    lanczos_update_contract,
+    lanczos_update_kernel_call,
+    lanczos_update_multi_contract,
+    lanczos_update_multi_kernel_call,
+)
 from .mixed_dot import mixed_dot_contract, mixed_dot_kernel_call
 from .spmv_bsr import check_bsr_operands, spmv_bsr_contract, spmv_bsr_kernel_call
 from .spmv_ell import spmv_ell_contract, spmv_ell_kernel_call
@@ -35,6 +40,7 @@ __all__ = [
     "spmv_ell_packed",
     "spmv_bsr",
     "lanczos_update",
+    "lanczos_update_multi",
     "mixed_dot",
 ]
 
@@ -126,6 +132,17 @@ def lanczos_update(w, v, v_prev, alpha, beta, accum_dtype=None):
         if on_cpu(w):
             return ref.lanczos_update_ref(w, v, v_prev, alpha, beta, acc)
         return lanczos_update_kernel_call(w, v, v_prev, alpha, beta, accum_dtype=acc)
+
+
+def lanczos_update_multi(w, v, v_prev, alpha, beta, accum_dtype=None):
+    """:func:`lanczos_update` on every row of ``(B, n)`` ``w``, ``v`` and
+    ``v_prev`` with ``(B,)`` ``alpha`` and ``beta``, in one batched launch:
+    ``(u (B, n), ||u_s||^2 (B,))``, row s with the bits of a solo launch."""
+    acc = accum_dtype or torch.float32
+    with kernel_scope("lanczos_update_multi", lambda: lanczos_update_multi_contract(w, acc)):
+        if on_cpu(w):
+            return ref.lanczos_update_multi_ref(w, v, v_prev, alpha, beta, acc)
+        return lanczos_update_multi_kernel_call(w, v, v_prev, alpha, beta, accum_dtype=acc)
 
 
 def mixed_dot(a, b, accum_dtype=None, compensated: bool = False, block: int = 4096):

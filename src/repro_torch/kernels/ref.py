@@ -14,6 +14,7 @@ __all__ = [
     "spmv_ell_ref",
     "spmv_ell_alpha_ref",
     "lanczos_update_ref",
+    "lanczos_update_multi_ref",
     "spmv_bsr_ref",
     "spmv_ell_packed_ref",
     "mixed_dot_ref",
@@ -44,6 +45,16 @@ def lanczos_update_ref(w, v, v_prev, alpha, beta, accum_dtype):
     acc = accum_dtype
     u = w.to(acc) - alpha.to(acc) * v.to(acc) - beta.to(acc) * v_prev.to(acc)
     return u.to(w.dtype), torch.sum(u * u)
+
+
+def lanczos_update_multi_ref(w, v, v_prev, alpha, beta, accum_dtype):
+    """:func:`lanczos_update_ref` on every row of ``(B, n)`` ``w``, ``v``
+    and ``v_prev``, with ``(B,)`` ``alpha`` and ``beta``: returns ``(u
+    (B, n) in w.dtype, ||u_s||^2 (B,) in accum_dtype)``."""
+    acc = accum_dtype
+    u = (w.to(acc) - alpha.to(acc)[:, None] * v.to(acc)
+         - beta.to(acc)[:, None] * v_prev.to(acc))
+    return u.to(w.dtype), torch.sum(u * u, dim=1)
 
 
 def spmv_bsr_ref(val: torch.Tensor, bcol: torch.Tensor, x: torch.Tensor, accum_dtype) -> torch.Tensor:

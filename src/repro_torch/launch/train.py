@@ -6,7 +6,8 @@
         --steps 20 --device cpu                      # reduced config, on the host
 
 ``--arch`` is any arch of ``repro_torch.configs.ARCHS``: the dense, MoE,
-RG-LRU hybrid and SSD families.  It initializes the model from a seeded
+RG-LRU hybrid, SSD, encoder-decoder and VLM families (the last two train
+on synthetic batches with frames: ``--arch seamless-m4t-medium``).  It initializes the model from a seeded
 ``torch.Generator`` on ``--device`` (``cuda`` unless asked), trains with
 the port's ``Trainer`` on synthetic data and, every ``--spectral-every``
 steps, probes the top-K Hessian eigenvalues, listed at the end

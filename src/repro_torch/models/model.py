@@ -1,10 +1,13 @@
-"""Model top level: init / forward / loss / prefill / decode for the decoder
+"""Model top level: init / forward / loss / prefill / decode for all
 families (``repro/models/model.py``).
 
-Families: ``dense`` and ``moe`` (a uniform decoder stack, attention + MLP
-or MoE), ``hybrid_rglru`` (RecurrentGemma's pattern: rec, rec, local
-attention) and ``ssm`` (a Mamba-2 SSD stack).  ``encdec`` and ``vlm`` wait
-for their own slice of the port.
+Families: ``dense``, ``moe`` and ``vlm`` (a uniform decoder stack,
+attention + MLP or MoE), ``hybrid_rglru`` (RecurrentGemma's pattern: rec,
+rec, local attention), ``ssm`` (a Mamba-2 SSD stack) and ``encdec`` (an
+encoder stack, then a decoder with cross-attention: seamless).  The
+modality frontends are stubs, as in the reference: ``batch["frames"]``
+carries precomputed frame or patch embeddings, which ``encdec`` encodes and
+``vlm`` prefixes to the text embeddings.
 
 Layer parameters are stacked on a leading ``layers`` axis, one stack per
 kind of the pattern (``params["blocks"]["rec_0"]``, ...), with the
@@ -17,7 +20,7 @@ through non-reentrant ``torch.utils.checkpoint``, which also supports the
 double backward of the Hessian-vector product.
 
 Decode keeps the reference's state tree (:class:`DecodeState`: per-kind
-stacked layer states, the remainder's, no cross-attention), with ``step``
+stacked layer states, the remainder's, the encoder's cross K/V), with ``step``
 as host data, so the ring slot ``step % w`` needs no read from the device.
 ``decode_step`` updates the layer states in place (see its docstring).
 Prefill and decode run without autograd: they serve.
@@ -41,6 +44,7 @@ from .attention import (
     decode_attention,
     init_attention,
     init_cache,
+    project_kv_only,
     quantize_kv,
 )
 from .common import Leaf, ModelConfig, _map_leaves, make_positions, rms_norm
@@ -51,17 +55,7 @@ from .ssd import SSDState, init_ssd_block, init_ssd_state, ssd_block, ssd_decode
 __all__ = ["init_model", "forward", "loss_fn", "prefill", "decode_step", "init_decode_state",
            "decode_state_axes", "DecodeState", "params_from_numpy", "params_to_numpy"]
 
-# The ROADMAP queue A item that ports each family still missing.
-_PENDING_FAMILY = {"encdec": "encdec/vlm", "vlm": "encdec/vlm"}
-_FAMILIES = ("dense", "moe", "hybrid_rglru", "ssm")
-_ATTN_KINDS = ("dense", "moe", "attn_local")  # blocks with attention and a KV cache
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in _FAMILIES:
-        item = _PENDING_FAMILY.get(cfg.family)
-        where = f"ROADMAP queue A, item {item!r}" if item else "no ROADMAP item"
-        raise ValueError(f"model family {cfg.family!r} ({cfg.name}) is not ported yet: {where}")
+_ATTN_KINDS = ("dense", "moe", "attn_local", "dec")  # blocks with self-attention and a KV cache
 
 
 # --------------------------------------------------------------------------
@@ -74,7 +68,7 @@ def _norm_leaf(cfg: ModelConfig, dev, lead=()):
 
 def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=()):
     dev = gen.device
-    if kind in ("dense", "attn_local"):
+    if kind in ("dense", "attn_local", "enc"):
         return {"n1": _norm_leaf(cfg, dev, lead), "attn": init_attention(gen, cfg, lead=lead),
                 "n2": _norm_leaf(cfg, dev, lead), "mlp": init_mlp(gen, cfg, lead=lead)}
     if kind == "moe":
@@ -85,6 +79,10 @@ def _init_block(gen: torch.Generator, cfg: ModelConfig, kind: str, lead=()):
                 "n2": _norm_leaf(cfg, dev, lead), "mlp": init_mlp(gen, cfg, lead=lead)}
     if kind == "ssd":
         return {"n1": _norm_leaf(cfg, dev, lead), "ssd": init_ssd_block(gen, cfg, lead=lead)}
+    if kind == "dec":
+        return {"n1": _norm_leaf(cfg, dev, lead), "attn": init_attention(gen, cfg, lead=lead),
+                "nx": _norm_leaf(cfg, dev, lead), "xattn": init_attention(gen, cfg, lead=lead),
+                "n2": _norm_leaf(cfg, dev, lead), "mlp": init_mlp(gen, cfg, lead=lead)}
     raise ValueError(kind)
 
 
@@ -94,13 +92,14 @@ def _stacked_init(gen: torch.Generator, cfg: ModelConfig, kind: str, n: int):
 
 
 def _pattern(cfg: ModelConfig):
-    _check_family(cfg)
     if cfg.family == "hybrid_rglru":
         return cfg.block_pattern or ("rec", "rec", "attn_local")
     if cfg.family == "ssm":
         return ("ssd",)
     if cfg.family == "moe":
         return ("moe",)
+    if cfg.family == "encdec":
+        return ("dec",)
     return ("dense",)
 
 
@@ -123,6 +122,12 @@ def init_model(gen: torch.Generator, cfg: ModelConfig):
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = Leaf(normal((cfg.d_model, vp)), ("embed", "vocab"))
+    if cfg.family == "encdec":
+        params["enc"] = _stacked_init(gen, cfg, "enc", cfg.n_enc_layers)
+        params["enc_norm"] = _norm_leaf(cfg, dev)
+        params["blocks"] = {"dec_0": _stacked_init(gen, cfg, "dec", cfg.n_layers)}
+        params["rem"] = []
+        return params
     n_full, rem = divmod(cfg.n_layers, len(pat))
     params["blocks"] = {f"{kind}_{i}": _stacked_init(gen, cfg, kind, n_full)
                         for i, kind in enumerate(pat)}
@@ -131,24 +136,33 @@ def init_model(gen: torch.Generator, cfg: ModelConfig):
 
 
 # --------------------------------------------------------------------------
-# sequence forward (training / prefill)
+# sequence forward (training / prefill / encoder)
 # --------------------------------------------------------------------------
 
-def _block_seq(p, cfg: ModelConfig, kind: str, x, pos, collect: bool = False):
+def _block_seq(p, cfg: ModelConfig, kind: str, x, pos, enc_ctx=None, collect: bool = False):
     """One residual block, full sequence. Returns (x, aux, side).
 
     ``side``: with ``collect=True``, (k, v) for attention kinds and the final
     recurrent state for rec/ssd kinds; else ().  ``collect`` also marks the
-    serving path, which runs the MoE dropless (see ``mlp.moe``).
+    serving path, which runs the MoE dropless (see ``mlp.moe``).  An ``enc``
+    block attends without a causal mask or a window; a ``dec`` block adds
+    cross-attention to ``enc_ctx = (enc_out, enc_pos)``.
     """
     side: Any = ()
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if kind in _ATTN_KINDS:
+    if kind in _ATTN_KINDS or kind == "enc":
+        window = cfg.window if kind not in ("enc", "dec") else None
         h = rms_norm(x, p["n1"], cfg.rms_eps)
         if collect:
             _, k, v = _project_qkv(p["attn"], cfg, h, pos)
             side = (k, v)
-        x = x + attention(p["attn"], cfg, h, pos, causal=True, window=cfg.window)
+        x = x + attention(p["attn"], cfg, h, pos, causal=kind != "enc", window=window)
+        if kind == "dec":
+            enc_out, enc_pos = enc_ctx
+            hx = rms_norm(x, p["nx"], cfg.rms_eps)
+            k, v = project_kv_only(p["xattn"], cfg, enc_out)
+            x = x + attention(p["xattn"], cfg, hx, pos if pos.ndim == 2 else pos[0],
+                              causal=False, kv_override=(k, v, enc_pos))
         h2 = rms_norm(x, p["n2"], cfg.rms_eps)
         if kind == "moe":
             y, aux = moe(p["moe"], cfg, h2, dropless=collect)
@@ -188,7 +202,7 @@ def _stack(trees: list):
     return _tree.unflatten(trees[0], [torch.stack(c) for c in cols])
 
 
-def _run_stack(params, cfg: ModelConfig, x, pos, collect: bool = False):
+def _run_stack(params, cfg: ModelConfig, x, pos, enc_ctx=None, collect: bool = False):
     """The block stack, then the remainder layers.  Returns (x, aux_sum,
     (side_stacks, rem_sides)): the MoE aux loss summed over the layers (0
     without MoE), and with ``collect`` each kind's sides stacked over its
@@ -201,7 +215,8 @@ def _run_stack(params, cfg: ModelConfig, x, pos, collect: bool = False):
     sides = {key: [] for key in keys}
     for layer in zip(*stacks):
         for key, kind, bp in zip(keys, pat, layer):
-            fn = lambda x_, bp=bp, kind=kind: _block_seq(bp, cfg, kind, x_, pos, collect)  # noqa: E731
+            fn = lambda x_, bp=bp, kind=kind: _block_seq(bp, cfg, kind, x_, pos, enc_ctx,  # noqa: E731
+                                                         collect)
             x, aux, side = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
             aux_sum = aux_sum + aux
             sides[key].append(side)
@@ -210,7 +225,7 @@ def _run_stack(params, cfg: ModelConfig, x, pos, collect: bool = False):
     side_stacks = {key: _stack(s) if collect and s else () for key, s in sides.items()}
     rem_sides = []
     for i, bp in enumerate(params.get("rem", [])):
-        x, aux, side = _block_seq(bp, cfg, pat[i], x, pos, collect)
+        x, aux, side = _block_seq(bp, cfg, pat[i], x, pos, enc_ctx, collect)
         aux_sum = aux_sum + aux
         rem_sides.append(side)
     return x, aux_sum, (side_stacks, rem_sides)
@@ -244,18 +259,43 @@ def _positions(cfg: ModelConfig, batch, b: int, s: int, device):
     return pos
 
 
+def _encode(params, cfg: ModelConfig, frames):
+    """Encoder stack over stub frame embeddings. Returns (enc_out, enc_pos)."""
+    b, s_src = frames.shape[:2]
+    enc_pos = make_positions(b, s_src, device=frames.device)
+    x = hint(frames.to(cfg.compute_dtype), "batch", "seq", "act_embed")
+    remat = cfg.remat != "none" and torch.is_grad_enabled()
+    for bp in _unstack(params["enc"]):
+        fn = lambda x_, bp=bp: _block_seq(bp, cfg, "enc", x_, enc_pos)[0]  # noqa: E731
+        x = checkpoint(fn, x, use_reentrant=False) if remat else fn(x)
+    return rms_norm(x, params["enc_norm"], cfg.rms_eps), enc_pos
+
+
+def _inputs(params, cfg: ModelConfig, batch):
+    """(x, pos, enc_ctx): the embedded input of the block stack, its
+    positions and, for ``encdec``, the encoded frames.  For ``vlm`` the
+    frames are prefixed to the text embeddings (and count in the
+    positions, M-RoPE ``(3, B, S)`` unless ``batch["positions"]`` is given)."""
+    enc_ctx = None
+    if cfg.family == "encdec":
+        enc_ctx = _encode(params, cfg, batch["frames"])
+    x = _embed(params, cfg, batch["tokens"])
+    if cfg.family == "vlm" and batch.get("frames") is not None:
+        x = torch.cat([batch["frames"].to(cfg.compute_dtype), x], dim=1)
+    pos = _positions(cfg, batch, x.shape[0], x.shape[1], x.device)
+    return x, pos, enc_ctx
+
+
 def _backbone(params, cfg: ModelConfig, batch):
     """Everything up to (but not including) the LM head. Returns (x, aux)."""
-    _check_family(cfg)
-    tokens = batch["tokens"]
-    x = _embed(params, cfg, tokens)
-    pos = _positions(cfg, batch, tokens.shape[0], x.shape[1], x.device)
-    x, aux, _ = _run_stack(params, cfg, x, pos)
+    x, pos, enc_ctx = _inputs(params, cfg, batch)
+    x, aux, _ = _run_stack(params, cfg, x, pos, enc_ctx)
     return x, aux
 
 
 def forward(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor]):
-    """batch: tokens (B,S) [, positions] -> (logits (B,S,Vp) f32, {"moe_aux": aux})."""
+    """batch: tokens (B,S) [, frames, positions] -> (logits (B,S,Vp) f32,
+    {"moe_aux": aux}); for ``vlm`` with frames, S counts the frames too."""
     x, aux = _backbone(params, cfg, batch)
     return _logits(params, cfg, x), {"moe_aux": aux}
 
@@ -309,7 +349,7 @@ class DecodeState(NamedTuple):
     step: int  # absolute position of the NEXT token: host data (an int or a CPU 0-d tensor)
     layers: Any  # dict: per-pattern-kind stacked layer states
     rem: Any  # remainder-layer states (tuple)
-    cross: Any  # encdec: (k_stack, v_stack, enc_pos); None for the ported families
+    cross: Any  # encdec: (k_stack (L,B,S_src,KV,D), v_stack, enc_pos (B,S_src)) or None
 
 
 def _layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int, device, lead=()):
@@ -326,14 +366,20 @@ def _layer_state(cfg: ModelConfig, kind: str, batch: int, max_len: int, device, 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, step: int = 0,
                       enc_len: int = 1, device="cuda") -> DecodeState:
     """Empty caches and zero recurrent states on ``device``, each kind's
-    stacked over its layers.  ``enc_len`` sizes the encoder context of the
-    encoder-decoder family, which is not ported (``encdec`` raises)."""
+    stacked over its layers.  For ``encdec``, zero cross K/V placeholders
+    of ``enc_len`` encoder positions (``prefill`` fills them)."""
     pat = _pattern(cfg)
     n_full, rem = divmod(cfg.n_layers, len(pat))
     layers = {f"{kind}_{i}": _layer_state(cfg, kind, batch, max_len, device, lead=(n_full,))
               for i, kind in enumerate(pat)}
     rem_states = tuple(_layer_state(cfg, pat[i], batch, max_len, device) for i in range(rem))
-    return DecodeState(step=int(step), layers=layers, rem=rem_states, cross=None)
+    cross = None
+    if cfg.family == "encdec":
+        shape = (cfg.n_layers, batch, enc_len, cfg.n_kv_heads, cfg.hd)
+        cross = (torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+                 torch.zeros(shape, dtype=cfg.compute_dtype, device=device),
+                 torch.zeros((batch, enc_len), dtype=torch.int32, device=device))
+    return DecodeState(step=int(step), layers=layers, rem=rem_states, cross=cross)
 
 
 def _layer_state_axes(cfg: ModelConfig, kind: str):
@@ -361,14 +407,24 @@ def decode_state_axes(cfg: ModelConfig) -> DecodeState:
 
     layers = {f"{kind}_{i}": prepend(_layer_state_axes(cfg, kind)) for i, kind in enumerate(pat)}
     rem_axes = tuple(_layer_state_axes(cfg, pat[i]) for i in range(rem))
-    return DecodeState(step=(), layers=layers, rem=rem_axes, cross=None)
+    cross = None
+    if cfg.family == "encdec":
+        cross = (("layers", "batch", None, "act_kv_heads", None),
+                 ("layers", "batch", None, "act_kv_heads", None),
+                 ("batch", None))
+    return DecodeState(step=(), layers=layers, rem=rem_axes, cross=cross)
 
 
-def _block_decode(p, cfg: ModelConfig, kind: str, x, pos, state, step: int):
+def _block_decode(p, cfg: ModelConfig, kind: str, x, pos, state, step: int, cross_kv=None):
     if kind in _ATTN_KINDS:
+        window = cfg.window if kind != "dec" else None
         h = rms_norm(x, p["n1"], cfg.rms_eps)
-        y, state = decode_attention(p["attn"], cfg, h, pos, state, window=cfg.window, step=step)
+        y, state = decode_attention(p["attn"], cfg, h, pos, state, window=window, step=step)
         x = x + y
+        if kind == "dec":
+            hx = rms_norm(x, p["nx"], cfg.rms_eps)
+            yx, _ = decode_attention(p["xattn"], cfg, hx, pos, state, cross_kv=cross_kv)
+            x = x + yx
         h2 = rms_norm(x, p["n2"], cfg.rms_eps)
         if kind == "moe":
             y2, _ = moe(p["moe"], cfg, h2, dropless=True)  # serving: no drops
@@ -408,9 +464,13 @@ def decode_step(params, cfg: ModelConfig, state: DecodeState, tokens: torch.Tens
     keys = [f"{kind}_{i}" for i, kind in enumerate(pat)]
     stacks = [_unstack(params["blocks"][key]) for key in keys]
     states = [_unstack(state.layers[key]) for key in keys]  # per-layer views of the stacks
-    for layer, layer_states in zip(zip(*stacks), zip(*states)):
+    crosses = [None] * len(states[0])
+    if cfg.family == "encdec":  # one pattern kind ("dec"): one cross K/V a layer
+        ck, cv, cpos = state.cross
+        crosses = [(k, v, cpos) for k, v in zip(ck.unbind(0), cv.unbind(0))]
+    for layer, layer_states, cross_kv in zip(zip(*stacks), zip(*states), crosses):
         for kind, bp, st in zip(pat, layer, layer_states):
-            x, new = _block_decode(bp, cfg, kind, x, pos, st, step)
+            x, new = _block_decode(bp, cfg, kind, x, pos, st, step, cross_kv=cross_kv)
             for dst, src in zip(_tree.leaves(st), _tree.leaves(new)):
                 if dst is not src:
                     dst.copy_(src)
@@ -457,14 +517,22 @@ def _fill_cache(cache: AttnCache, k, v, pos2d) -> AttnCache:
 @torch.no_grad()
 def prefill(params, cfg: ModelConfig, batch, max_len: int):
     """Run the prompt; build the decode state on the tokens' device.
-    Returns (state, last-position logits (B, vocab_padded) f32)."""
-    tokens = batch["tokens"]
-    b = tokens.shape[0]
-    x = _embed(params, cfg, tokens)
-    s = x.shape[1]
-    pos = _positions(cfg, batch, b, s, x.device)
+    Returns (state, last-position logits (B, vocab_padded) f32).
+
+    For ``encdec`` the frames are encoded once and each decoder layer's
+    cross K/V are stacked into ``state.cross``; for ``vlm`` the frames
+    prefix the prompt, so ``state.step`` counts them and decode positions
+    run on past them."""
+    x, pos, enc_ctx = _inputs(params, cfg, batch)
+    b, s = x.shape[:2]
+    cross = None
+    if enc_ctx is not None:
+        enc_out, enc_pos = enc_ctx
+        kvs = [project_kv_only(bp["xattn"], cfg, enc_out)
+               for bp in _unstack(params["blocks"]["dec_0"])]
+        cross = (torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs]), enc_pos)
     pos2d = pos if pos.ndim == 2 else pos[0]
-    x, _, (side_stacks, rem_sides) = _run_stack(params, cfg, x, pos, collect=True)
+    x, _, (side_stacks, rem_sides) = _run_stack(params, cfg, x, pos, enc_ctx, collect=True)
     # logits of the LAST position only (a whole prompt's would be (B, S, V) f32)
     logits = _logits(params, cfg, x[:, -1:, :])[:, -1]
 
@@ -485,7 +553,7 @@ def prefill(params, cfg: ModelConfig, batch, max_len: int):
             new_rem.append(_fill_cache(empty, side[0], side[1], pos2d))
         else:
             new_rem.append(side)
-    return DecodeState(step=s, layers=new_layers, rem=tuple(new_rem), cross=None), logits
+    return DecodeState(step=s, layers=new_layers, rem=tuple(new_rem), cross=cross), logits
 
 
 # --------------------------------------------------------------------------

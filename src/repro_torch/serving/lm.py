@@ -48,7 +48,7 @@ class Engine:
 
     @torch.no_grad()
     def generate(self, batch: Dict, steps: int, seed: int = 0) -> Tuple[torch.Tensor, Dict]:
-        """batch: prompt dict (tokens (B,S)) on the model's device.  Returns
+        """batch: prompt dict (tokens (B,S) [, frames]) on the model's device.  Returns
         (tokens (B, steps) int32, {"token_logprobs": (B, steps) f32,
         "final_state": DecodeState}); after an ``eos_id`` a row emits
         ``pad_id``."""

@@ -153,8 +153,14 @@ class DeviceCOO:
     n_cols: int
 
     def matvec(self, x: torch.Tensor, accum_dtype=None) -> torch.Tensor:
+        """``A @ x`` for ``x`` of shape ``(n,)``, or ``A @ X`` for an ``(n, B)``
+        block: one segmented sum over the ``(nnz, B)`` products, so the
+        triplets are read once for all B columns."""
         acc = accum_dtype or self.val.dtype
-        prod = self.val.to(acc) * x.index_select(0, self.col).to(acc)
+        val = self.val.to(acc)
+        if x.ndim == 2:
+            val = val[:, None]
+        prod = val * x.index_select(0, self.col).to(acc)
         return segment_sum(prod, self.offsets)
 
 

@@ -42,9 +42,10 @@ def synthetic_batch(cfg: ModelConfig, dc: DataConfig, step: int,
                     device="cpu") -> Dict[str, torch.Tensor]:
     """One batch of int32 ``tokens`` and ``labels`` on ``device``.  Planted
     structure: every token at odd position repeats a deterministic function
-    of its predecessor (learnable bigrams)."""
-    if cfg.family in ("encdec", "vlm"):
-        raise ValueError(f"{cfg.family} batches carry frames: ROADMAP queue A, item 'encdec/vlm'")
+    of its predecessor (learnable bigrams).  ``encdec`` batches carry f32
+    ``frames`` (B, S, d_model) for the encoder; ``vlm`` batches carry
+    ``max(1, S // 8)`` patch embeddings, which prefix the text, with labels
+    -1 over them."""
     rng = np.random.default_rng((dc.seed * 1_000_003 + step) * 97 + dc.host_id)
     b = dc.batch // dc.num_hosts
     s = dc.seq_len
@@ -52,8 +53,18 @@ def synthetic_batch(cfg: ModelConfig, dc: DataConfig, step: int,
     # plant bigram signal: t[2i+1] = (t[2i] * 7 + 13) % vocab
     toks[:, 1::2] = (toks[:, 0::2] * 7 + 13) % cfg.vocab
     labels = np.concatenate([toks[:, 1:], toks[:, :1]], axis=1)
-    return {"tokens": torch.from_numpy(toks).to(device),
-            "labels": torch.from_numpy(labels).to(device)}
+    frames = None
+    if cfg.family == "encdec":
+        frames = rng.standard_normal((b, s, cfg.d_model)).astype(np.float32) * 0.02
+    if cfg.family == "vlm":
+        npatch = max(1, s // 8)
+        frames = rng.standard_normal((b, npatch, cfg.d_model)).astype(np.float32) * 0.02
+        labels = np.concatenate([np.full((b, npatch), -1, np.int32), labels], axis=1)
+    batch = {"tokens": torch.from_numpy(toks).to(device),
+             "labels": torch.from_numpy(labels).to(device)}
+    if frames is not None:
+        batch["frames"] = torch.from_numpy(frames).to(device)
+    return batch
 
 
 def data_stream(cfg: ModelConfig, dc: DataConfig, start_step: int = 0,

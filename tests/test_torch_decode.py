@@ -30,7 +30,6 @@ from repro.training.data import synthetic_batch as jax_synthetic_batch
 from repro_torch.configs import get_config
 from repro_torch.core import tree
 from repro_torch.models import attention, model as tm
-from repro_torch.models.common import split_tree
 from repro_torch.training.data import DataConfig, synthetic_batch
 
 ARCHS = ["qwen3-0.6b", "codeqwen1.5-7b", "phi3-medium-14b", "qwen1.5-32b",
@@ -266,15 +265,3 @@ def test_decode_step_consumes_the_state(carried):
     assert st2.step == st.step + 1 == 10
     assert [v.data_ptr() for v in tree.leaves(st2.layers)] == ptrs
     assert all(not torch.equal(a, b) for a, b in zip(before, tree.leaves(st2.layers)))
-
-
-def test_encdec_and_vlm_still_raise():
-    for arch in ("seamless-m4t-medium", "qwen2-vl-72b"):
-        with pytest.raises(KeyError, match="encdec/vlm"):
-            get_config(arch)
-    for family in ("encdec", "vlm"):
-        cfg = dataclasses.replace(get_config("qwen3-0.6b", smoke=True), family=family)
-        with pytest.raises(ValueError, match="encdec/vlm"):
-            tm.init_decode_state(cfg, 1, 8, device="cpu")
-        with pytest.raises(ValueError, match="encdec/vlm"):
-            split_tree(tm.init_model(torch.Generator(), cfg))

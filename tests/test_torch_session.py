@@ -118,10 +118,10 @@ def test_eigsh_many_groups_and_answers_like_the_reference(small):
 def test_multistart_sweep_matches_reference(small, layout):
     """Queries that differ only in their start vector, on dense and COO
     operators: each start gives what the reference's multi-start sweep
-    gives it, and what a lone solve from it gives.  The reference vmaps the
-    starts into one sweep (``stats["sweeps"]`` 1, ``amortized_over`` 3);
-    the port runs them one after the other, each its own sweep with the
-    lone call's kernels, and counts them so."""
+    gives it, and what a lone solve from it gives (within rel 1e-12: the
+    block matvec and the row-wise dots sum in another order than the lone
+    sweep's).  Both packages run the starts as one sweep
+    (``stats["sweeps"]`` 1, ``amortized_over`` 3)."""
     starts = [np.random.default_rng(s).standard_normal(small.n) for s in range(3)]
     queries = [{"k": 3, "num_iters": ITERS, "v0": v} for v in starts]
     if layout == "dense":
@@ -132,14 +132,13 @@ def test_multistart_sweep_matches_reference(small, layout):
     got_sess = repro_torch.prepare(a_g, device="cpu", **kw)
     want = want_sess.eigsh_many(queries)
     got = got_sess.eigsh_many([EigQuery(**q) for q in queries])
-    assert want_sess.stats["sweeps"] == 1 and got_sess.stats["sweeps"] == 3
+    assert want_sess.stats["sweeps"] == 1 and got_sess.stats["sweeps"] == 1
     for g, w, v in zip(got, want, starts):
         assert g.spmv_format == w.spmv_format == layout
         _assert_close(g, w, 1e-12, 1e-12)
-        assert w.timings["amortized_over"] == 3.0 and "amortized_over" not in g.timings
+        assert w.timings["amortized_over"] == g.timings["amortized_over"] == 3.0
         alone = got_sess.eigsh(3, num_iters=ITERS, v0=v)
-        assert torch.equal(alone.eigenvalues, g.eigenvalues)
-        assert np.array_equal(alone.residuals, g.residuals)
+        _assert_close(g, alone, 1e-12, 1e-12)
 
 
 def test_cache_hits_misses_and_rejects_mutation(small):
