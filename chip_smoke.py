@@ -195,6 +195,24 @@ before the last line:
    and ``DEC_TOL_F32`` in f32 compute), and their decode paths launch no
    kernel.  Phase 2 also holds the batched launch at (8, road's n) against
    its plain version and, row by row, solo launches, for every pair.
+18. the sharded trainer and its Hessian probe, ranks sharing the card over
+   gloo with DTensor's collectives staged through the host
+   (``repro_torch.distributed.host_staged``), qwen3-0.6b at full width cut
+   to 2 of its 28 layers (``SHARD_LAYERS``): the unsharded 3 AdamW steps
+   and probe on the card first, then (a) the reference's rule cases on
+   each rank's mesh; (b) 4 ranks on ``(data=2, model=2)``: 3 AdamW steps
+   at 8 x 256, losses bit-equal on every rank and within 2^-8 of the
+   unsharded run, params within AdamW's bound of it, params + optimizer
+   bytes a rank equal to the dry-run's (``launch.dryrun.state_bytes``);
+   (c) the same on 2 ranks, ``(1, 2)``; (d) the sharded probe at G = 4 (k
+   4, 8 steps, FFF, the unsharded probe's ``v0``): eigenvalues
+   bit-equal on every rank and within 2^-4 of the unsharded ones,
+   ``lanczos_update`` 8 launches a rank and nothing else, and the kernel
+   at the owned slice's n against its plain version and bound; (e)
+   ``python -m torch.distributed.run --nproc-per-node 2 -m
+   repro_torch.launch.train --mesh-model 2 --steps 2`` at full width, and
+   ``--mesh-model 2`` on a world of one; (f) step walls, the staged
+   collectives' share, peaks, the probe's wall, the phase's seconds.
 
 ``repro_torch.eigsh`` keeps a cache of prepared sessions, so every call a
 phase reports as cold (``solve``) clears it first; phase 7 prints its
@@ -204,10 +222,12 @@ Then one JSON line of kernel records (``launches`` from the main path's
 phases, ``launches_distributed`` from phase 13's, ``launches_analysis`` from
 phase 14's, ``launches_hessian`` from phase 15's training run,
 ``launches_lm_families`` from phase 16's probe, ``launches_encdec_vlm``
-from phase 17(b)'s probe and ``launches_multistart`` from phase 17(d)'s
+from phase 17(b)'s probe, ``launches_multistart`` from phase 17(d)'s
 road sweep, the only path that launches the batched
-``lanczos_update_multi``, so its ``launches`` on the main path are 0; and
-the resources of each kernel's main-path instantiation), and
+``lanczos_update_multi``, so its ``launches`` on the main path are 0, and
+``launches_sharded`` from phase 18(d)'s probe on rank 0; the resources of
+each kernel's main-path instantiation; ``lanczos_update`` also carries
+``owned_slice``, its record at phase 18's owned slice), and
 as the last line
 ``{"ok": true, "device": {...}}``.  Exits 2 without printing a result when
 no CUDA device is visible.
@@ -3275,6 +3295,358 @@ def phase_encdec_vlm(road, smi, dev="cuda", smoke=False, dense_n=MULTI_DENSE_N) 
             "kernel": out["b"]["kernel"]}
 
 
+# ------------------------- phase 18: the sharded trainer and its Hessian probe
+
+SHARD_STEPS, SHARD_BATCH, SHARD_SEQ, SHARD_V0_SEED = 3, 8, 256, 18
+# The phase's depth cut, width full: 2 of qwen3's 28 layers.  Four ranks on
+# one card each hold their slice of the probe's (m, n) basis and of
+# project_out's masked copy beside the double backward's graph: at 28
+# layers the four probes ran the card out of memory (78.8 GiB in use).  And
+# the host-staged collectives set the pace: at G = 4 a step took 20.3 s at
+# 28 layers and 12.6 s at 8, the probe 253 s at 8 (91% staged), which the
+# whole script's time limit does not hold.
+SHARD_LAYERS = 2
+# The reference's rule cases (tests/test_sharding.py) on the card's meshes:
+# (shape, logical axes) -> the spec each mesh resolves.
+SHARD_RULE_CASES = {
+    "heads_divisible": ((8, 64, 16, 128), ("batch", "cache_seq", "act_kv_heads", None)),
+    "heads_fallback": ((8, 64, 10, 128), ("batch", "cache_seq", "act_kv_heads", None)),
+    "expert_ok": ((8, 4096, 512), ("expert", "embed", "moe_mlp")),
+    "expert_fallback": ((3, 4096, 512), ("expert", "embed", "moe_mlp")),
+    "batch_1": ((1, 524288), ("batch", None)),
+    "no_double_use": ((8, 512, 512), ("batch", "mlp", "act_mlp")),
+}
+SHARD_RULE_WANT = {
+    (2, 2): {"heads_divisible": "PartitionSpec('data', None, 'model', None)",
+             "heads_fallback": "PartitionSpec('data', None, 'model', None)",
+             "expert_ok": "PartitionSpec('model', 'data', None)",
+             "expert_fallback": "PartitionSpec(None, 'data', 'model')",
+             "batch_1": "PartitionSpec(None, None)",
+             "no_double_use": "PartitionSpec('data', 'model', None)"},
+    (1, 2): {"heads_divisible": "PartitionSpec('data', None, 'model', None)",
+             "heads_fallback": "PartitionSpec('data', None, 'model', None)",
+             "expert_ok": "PartitionSpec('model', 'data', None)",
+             "expert_fallback": "PartitionSpec(None, 'data', 'model')",
+             "batch_1": "PartitionSpec('data', None)",
+             "no_double_use": "PartitionSpec('data', 'model', None)"},
+}
+# bf16 compute: a sharded step sums its matmuls and reductions in other
+# orders than one card (partial sums per rank, then a reduction), so its
+# roundings (unit 2**-8) differ.  A loss is a mean over 2,048 tokens: the
+# differences average out well inside one unit of relative rounding.
+SHARD_LOSS_TOL = 2.0 ** -8
+# Params: an AdamW step moves each element by at most lr * (|m/sqrt(v)| +
+# wd * |p|), |m/sqrt(v)| <= 1 in the first steps; gradients that differ in
+# their rounding can flip an element's update, so two runs part by at most
+# 2 * sum(lr_t) * (1 + wd * max|p|) per element after the steps.
+SHARD_PARAM_SLACK = 1.25
+
+
+def _shard_lr_sum(steps: int) -> float:
+    """The learning rates of steps 1..``steps`` summed."""
+    from repro_torch.training.optimizer import lr_at
+
+    opt = _shard_tc("").opt
+    return float(sum(lr_at(opt, torch.tensor(t + 1)) for t in range(steps)))
+
+
+def _shard_tc(ckpt_dir: str):
+    """The sharded and the unsharded runs' config: the launcher's at 3
+    steps (lr 3e-3, 5 warmup steps)."""
+    from repro_torch.training import OptConfig, TrainConfig
+
+    return TrainConfig(opt=OptConfig(peak_lr=3e-3, warmup_steps=5, decay_steps=SHARD_STEPS),
+                       ckpt_every=10**9, ckpt_dir=ckpt_dir, async_ckpt=False)
+
+
+def _shard_setup(dev, smoke, layers=None):
+    """(cfg, params, axes) of qwen3-0.6b at full width (bf16 compute, f32
+    weights from phase 15's seed), or its smoke config; ``layers`` cuts the
+    depth."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import split_tree
+    from repro_torch.models.model import init_model
+
+    cfg = get_config(LM_ARCH, smoke=smoke)
+    if not smoke:
+        cfg = dataclasses.replace(cfg, compute_dtype=torch.bfloat16)
+    if layers is not None and not smoke:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params, axes = split_tree(init_model(gen, cfg))
+    return cfg, params, axes
+
+
+def _shard_batches(cfg, dev):
+    from repro_torch.training import DataConfig, synthetic_batch
+
+    dc = DataConfig(batch=SHARD_BATCH, seq_len=SHARD_SEQ, seed=0)
+    return [synthetic_batch(cfg, dc, i, device=dev) for i in range(SHARD_STEPS + 1)]
+
+
+def _no_checkpoints():
+    """The trainer's checkpoints off for the phase (the unsharded layout
+    and the cross-resumes are the host tests' work: a step-0 anchor of
+    7.2 GB gathered through the host would take the phase's time).
+    Returns the trainer's own method, for the caller to put back."""
+    from repro_torch.training import train_loop
+
+    own = train_loop.Trainer._checkpoint
+    train_loop.Trainer._checkpoint = lambda self: None
+    return own
+
+
+def shard_rank(rank: int, world: int, job: dict) -> dict:
+    """Phase 18's work on one rank sharing the card (spawned by
+    ``repro_torch.launch.ranks`` over gloo, its DTensor collectives staged
+    through the host): (a) the rule cases on its mesh, (b/c) the sharded
+    trainer, (d) with ``job["probe"]`` the sharded Hessian probe."""
+    import torch.distributed as dist
+
+    from repro_torch.core import tree
+    from repro_torch.distributed import host_staged
+    from repro_torch.distributed.sharding import distribute_tree, logical_spec, sharding_ctx
+    from repro_torch.launch.dryrun import local_bytes
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.training import Trainer
+    from repro_torch.training.data import BATCH_AXES
+
+    dev, shape = job["dev"], tuple(job["shape"])
+    _no_checkpoints()
+    out = {}
+    mesh = make_mesh(shape, ("data", "model"), torch.device(dev).type)
+    with sharding_ctx(mesh):
+        out["rules"] = {name: str(logical_spec(*case)) for name, case in SHARD_RULE_CASES.items()}
+        cfg, params, axes = _shard_setup(dev, job["smoke"], SHARD_LAYERS)
+        params = distribute_tree(params, axes)
+        batches = [{k: distribute_tree(v, BATCH_AXES[k]) for k, v in b.items()}
+                   for b in _shard_batches(cfg, dev)]
+        tr = Trainer(cfg, _shard_tc(job["tmp"]), params)
+        out["state_bytes"] = local_bytes(tr.params) + local_bytes(tr.opt_state)
+        step_fn, steps = tr.step_fn, []
+
+        def timed_step(p, o, b):
+            sync(dev)
+            _reset_peak(dev)
+            host_staged.reset()
+            t0 = time.perf_counter()
+            r = step_fn(p, o, b)
+            sync(dev)
+            steps.append({"ms": (time.perf_counter() - t0) * 1e3,
+                          "coll_ms": host_staged.seconds["total"] * 1e3,
+                          "calls": sum(host_staged.calls.values()), "peak": _peak(dev)})
+            return r
+
+        tr.step_fn = timed_step
+        out["losses"] = tr.run(iter(batches[:SHARD_STEPS]), num_steps=SHARD_STEPS,
+                               log_every=10**9)
+        out["steps"] = steps
+        # the params after the steps, against the unsharded run's (rank 0
+        # reads them leaf by leaf; every rank gathers)
+        want = torch.load(job["want_params"], weights_only=True) if rank == 0 else None
+        worst, mean = 0.0, []
+        for i, t in enumerate(tree.leaves(tr.params)):
+            whole = t.full_tensor()
+            if rank == 0:
+                d = (whole.double() - want[i].to(whole.device).double()).abs()
+                worst, _ = max(worst, float(d.max())), mean.append(float(d.mean()))
+            del whole
+        out["param_err"], out["param_mean_err"] = worst, float(np.mean(mean)) if mean else 0.0
+        out["max_param"] = max(float(t.to_local().abs().max()) for t in tree.leaves(tr.params))
+        del tr, want
+        if job["probe"]:
+            from repro_torch.training.spectral import hessian_spectrum
+
+            gc.collect()
+            if dev == "cuda":
+                torch.cuda.empty_cache()
+            gen = torch.Generator(device=dev).manual_seed(SHARD_V0_SEED)
+            n = sum(t.numel() for t in tree.leaves(params))
+            v0 = torch.randn((n,), generator=gen, dtype=torch.float32, device=dev)
+            sync(dev)
+            _reset_peak(dev)
+            reset_launches()
+            host_staged.reset()
+            t0 = time.perf_counter()
+            res = hessian_spectrum(params, cfg, batches[SHARD_STEPS], k=LM_K, v0=v0)
+            sync(dev)
+            out["probe_ms"] = (time.perf_counter() - t0) * 1e3
+            out["probe_launches"] = read_launches()
+            out["probe_coll_ms"] = host_staged.seconds["total"] * 1e3
+            out["probe_peak"] = _peak(dev)
+            out["evals"] = res.eigenvalues.double().cpu().numpy().tolist()
+            out["n_local"] = int(res.partition["n_local"])
+            del res, v0
+    dist.barrier()
+    return out
+
+
+def _shard_spawn(shape, job, dev, timeout=600.0):
+    from repro_torch.launch.ranks import run_ranks
+
+    world = shape[0] * shape[1]
+    t0 = time.perf_counter()
+    out = run_ranks(shard_rank, world, args=({**job, "shape": shape, "dev": dev},),
+                    backend="gloo", device=dev, timeout=timeout)
+    return out, time.perf_counter() - t0
+
+
+def _shard_check_run(tag, ranks, want, shape, cfg, smi):
+    """(b)/(c): rank-identical losses within tolerance of the unsharded
+    run's, params within the AdamW bound, the rule cases, and each rank's
+    params + optimizer bytes against the dry-run's reckoning."""
+    from repro_torch.launch.dryrun import state_bytes
+
+    for r in ranks:
+        check(r["rules"] == SHARD_RULE_WANT[shape], f"{tag} rule cases {r['rules']}")
+        check(r["losses"] == ranks[0]["losses"], f"{tag} rank losses differ: "
+              f"{[r['losses'] for r in ranks]}")
+    losses = np.asarray(ranks[0]["losses"])
+    lerr = float(np.abs(losses - want["losses"]).max() / np.abs(want["losses"]).max())
+    check(np.isfinite(losses).all() and lerr <= SHARD_LOSS_TOL,
+          f"{tag} losses {losses} vs unsharded {want['losses']}: rel {lerr:.3e} > 2^-8")
+    slack = 2.0 * want["lr_sum"] * (1.0 + 0.1 * want["max_param"]) * SHARD_PARAM_SLACK
+    perr = ranks[0]["param_err"]
+    check(perr <= slack, f"{tag} params after {SHARD_STEPS} steps differ by {perr:.3e} > {slack:.3e}")
+    reckoned = [state_bytes(cfg, shape, rank=r)["total"] for r in range(len(ranks))]
+    got = [r["state_bytes"] for r in ranks]
+    check(got == reckoned, f"{tag} params + optimizer bytes per rank {got}, dry-run {reckoned}")
+    step_ms = [s["ms"] for r in ranks for s in r["steps"]]
+    coll = [s["coll_ms"] / s["ms"] for r in ranks for s in r["steps"]]
+    print(f"[sharded] {tag} mesh {shape}, {len(ranks)} ranks on cuda:0: losses "
+          f"{[round(x, 5) for x in losses.tolist()]} bit-equal on every rank, vs unsharded "
+          f"{[round(x, 5) for x in want['losses']]}: max rel {lerr:.3e} (<= 2^-8); params max "
+          f"|diff| {perr:.3e} (mean {ranks[0]['param_mean_err']:.3e}; <= {slack:.3e}, "
+          f"2 x sum lr x (1 + wd max|p|) x {SHARD_PARAM_SLACK}); params + AdamW state per rank "
+          f"{[f'{b / 1e9:.3f} GB' for b in got]} = the dry-run's; rule cases as expected")
+    print(f"[sharded] {tag} step wall median {float(np.median(step_ms)):.1f} ms over "
+          f"{len(step_ms)} rank-steps ({[round(x) for x in step_ms]}), staged collectives "
+          f"{float(np.median(coll)):.1%} of a step (median; host clock, "
+          f"{ranks[0]['steps'][-1]['calls']} calls a step on rank 0); peak per rank "
+          f"{[_gb(max(s['peak'] for s in r['steps'])) for r in ranks]} on {smi}")
+
+
+def phase_sharded(smi, dev="cuda", smoke=False) -> dict:
+    """Phase 18: the sharded trainer and its Hessian probe, ranks sharing
+    one card.  Returns the probe's launches (rank 0) and the kernel record
+    of ``lanczos_update`` at the owned slice's n."""
+    from repro_torch.core import tree
+    from repro_torch.models.common import param_count
+    from repro_torch.training import Trainer
+    from repro_torch.training.spectral import hessian_spectrum
+
+    t_phase = time.perf_counter()
+    own_checkpoint = _no_checkpoints()
+    if dev == "cuda":
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"[sharded] card memory at the start of phase 18: {torch.cuda.memory_allocated():,} "
+              f"bytes allocated, {torch.cuda.memory_reserved():,} reserved")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_sharded_")
+    try:
+        # the unsharded runs on the card, then everything off it
+        cfg, params, _ = _shard_setup(dev, smoke, SHARD_LAYERS)
+        n = param_count(params)
+        batches = _shard_batches(cfg, dev)
+        t0 = time.perf_counter()
+        tr = Trainer(cfg, _shard_tc(tmp), params)
+        want = {"losses": tr.run(iter(batches[:SHARD_STEPS]), num_steps=SHARD_STEPS,
+                                 log_every=10**9)}
+        want["max_param"] = max(float(t.abs().max()) for t in tree.leaves(tr.params))
+        want["lr_sum"] = _shard_lr_sum(SHARD_STEPS)
+        path = os.path.join(tmp, "want_params.pt")
+        torch.save([t.cpu() for t in tree.leaves(tr.params)], path)
+        del tr
+        sync(dev)
+        t_unsharded_train = time.perf_counter() - t0
+        gen = torch.Generator(device=dev).manual_seed(SHARD_V0_SEED)
+        v0 = torch.randn((n,), generator=gen, dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        res = hessian_spectrum(params, cfg, batches[SHARD_STEPS], k=LM_K, v0=v0)
+        sync(dev)
+        t_unsharded_probe = time.perf_counter() - t0
+        want_evals = res.eigenvalues.double().cpu().numpy()
+        del res, v0, params, batches
+        gc.collect()
+        if dev == "cuda":
+            torch.cuda.empty_cache()
+        print(f"[sharded] unsharded on the card: {SHARD_STEPS} AdamW steps of {cfg.name} at "
+              f"full width, {cfg.n_layers} layers ({n:,} params, batch {SHARD_BATCH} x "
+              f"{SHARD_SEQ}) in {t_unsharded_train:.1f} s, losses "
+              f"{[round(x, 5) for x in want['losses']]}; probe (k {LM_K}, {LM_ITERS} "
+              f"steps, FFF, v0 from seed {SHARD_V0_SEED}) in {t_unsharded_probe:.1f} s: "
+              f"{np.round(want_evals, 4).tolist()}")
+
+        job = {"smoke": smoke, "tmp": tmp, "want_params": path}
+        # (b) + (d): four ranks, (data=2, model=2)
+        ranks4, wall4 = _shard_spawn((2, 2), {**job, "probe": True}, dev)
+        _shard_check_run("(b)", ranks4, want, (2, 2), cfg, smi)
+        # (c): two ranks, (data=1, model=2)
+        ranks2, wall2 = _shard_spawn((1, 2), {**job, "probe": False}, dev)
+        _shard_check_run("(c)", ranks2, want, (1, 2), cfg, smi)
+
+        # (d) the probe: rank-identical eigenvalues near the unsharded ones,
+        # lanczos_update LM_ITERS times on every rank, no other kernel
+        for r in ranks4:
+            check(r["evals"] == ranks4[0]["evals"], "(d) rank eigenvalues differ: "
+                  f"{[r['evals'] for r in ranks4]}")
+            if dev == "cuda":
+                want_l = {name: (LM_ITERS if name == "lanczos_update" else 0) for name in KERNEL_ORDER}
+                check(r["probe_launches"] == want_l, f"(d) rank launches {r['probe_launches']}")
+        check(sum(r["n_local"] for r in ranks4) == n,
+              f"(d) owned slices {[r['n_local'] for r in ranks4]}")
+        ev = np.asarray(ranks4[0]["evals"])
+        # sorted: two Ritz values of one |lambda| may trade places
+        eerr = float(np.abs(np.sort(ev) - np.sort(want_evals)).max() / np.abs(want_evals).max())
+        check(np.isfinite(ev).all() and eerr <= LM_RESID_TOL,
+              f"(d) eigenvalues {ev} vs unsharded {want_evals}: rel {eerr:.3e} > 2^-4")
+        print(f"[sharded] (d) probe at G = 4 (k {LM_K}, {LM_ITERS} Lanczos steps, FFF, same v0): "
+              f"eigenvalues {np.round(ev, 4).tolist()} bit-equal on every rank, vs unsharded max rel "
+              f"{eerr:.3e} of |lambda|max (<= 2^-4); owned slices "
+              f"{[r['n_local'] for r in ranks4]} (sum {n:,}); launches per rank "
+              f"{ranks4[0]['probe_launches']}; wall {[round(r['probe_ms']) for r in ranks4]} ms, "
+              f"staged collectives {[round(r['probe_coll_ms']) for r in ranks4]} ms, peak "
+              f"{[_gb(r['probe_peak']) for r in ranks4]} on {smi}")
+        kern = lm_kernel_shape(ranks4[0]["n_local"], dev, accums=(torch.float32,),
+                               tag="[sharded] (d)")["float32"]
+        check(kern["u_bits_equal"] and kern["norm_rel_err"] <= RTOL[torch.float32],
+              f"(d) lanczos_update at the owned slice: {kern}")
+
+        # (e) the command line over torchrun, and --mesh-model 2 on a world of one
+        t0 = time.perf_counter()
+        env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node", "2",
+               "--master-port", "29517", "-m", "repro_torch.launch.train", "--arch", LM_ARCH,
+               "--mesh-model", "2", "--steps", "2", "--ckpt-dir", os.path.join(tmp, "tr2"),
+               "--device", dev] + (["--smoke"] if smoke else [])
+        proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=300)
+        t_torchrun = time.perf_counter() - t0
+        check(proc.returncode == 0 and "mesh: data=1 model=2" in proc.stdout
+              and "final loss" in proc.stdout,
+              f"(e) torchrun exit {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-3000:]}")
+        from repro_torch.launch import train as launch_train
+
+        t0 = time.perf_counter()
+        one = launch_train.main(["--arch", LM_ARCH, "--smoke", "--mesh-model", "2", "--steps", "2",
+                                 "--batch", "2", "--seq", "16", "--device", dev, "--ckpt-dir",
+                                 os.path.join(tmp, "tr1")])
+        check(one.step == 2, f"(e) a world of one with --mesh-model 2 stopped at step {one.step}")
+        print(f"[sharded] (e) torchrun --nproc-per-node 2 launch.train --mesh-model 2 --steps 2 "
+              f"(full width): exit 0 in {t_torchrun:.1f} s ("
+              + "; ".join(ln.strip() for ln in proc.stdout.splitlines() if "mesh:" in ln
+                          or "final loss" in ln)
+              + f"); --mesh-model 2 on a world of one (smoke) trained 2 steps in "
+              f"{time.perf_counter() - t0:.1f} s")
+    finally:
+        Trainer._checkpoint = own_checkpoint
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[sharded] phase 18 took {time.perf_counter() - t_phase:.1f} s ((b)+(d) spawn "
+          f"{wall4:.1f} s, (c) spawn {wall2:.1f} s) on {smi}")
+    return {"launches": ranks4[0]["probe_launches"], "kernel": kern}
+
+
 def phase_device() -> str:
     """Phase 1: the card's name and power limit (``nvidia-smi``, returned),
     the versions, and the build of the kernels with each new kernel's
@@ -3497,6 +3869,11 @@ def main() -> int:
     # ---- phase 17: the encoder-decoder and VLM families, the multi-start sweep
     ev = phase_encdec_vlm(road, smi)
 
+    # ---- phase 18: the sharded trainer and its Hessian probe, ranks sharing the card
+    del road
+    sh = phase_sharded(smi)
+    records["lanczos_update"]["owned_slice"] = sh["kernel"]
+
     launches = {
         "spmv_ell": main_launches["spmv_ell"],
         "lanczos_update": main_launches["lanczos_update"],
@@ -3517,6 +3894,7 @@ def main() -> int:
              "launches_lm_families": dec["launches"][name],
              "launches_encdec_vlm": ev["launches_encdec_vlm"][name],
              "launches_multistart": ev["launches_multistart"][name],
+             "launches_sharded": sh["launches"][name],
              **records[name], **analysis[name]}
         )
     print(smi)

@@ -5,7 +5,9 @@ Arch modules import the model substrate, while low layers (``core``,
 ``kernels``) import ``env``; so the arch modules load lazily (PEP 562) and
 ``from ..configs import env`` never drags the model stack in.
 
-``ARCHS`` lists all ten of the reference's archs.
+``ARCHS`` lists all ten of the reference's archs; ``SHAPES``,
+``ShapeSpec``, ``applicable`` and ``input_specs`` (``configs/shapes.py``,
+the dry-run's inputs) load on first access too.
 """
 
 _ARCH_MODULES = {
@@ -55,10 +57,20 @@ class _LazyArchs(dict):
 
 ARCHS = _LazyArchs()
 
+_SHAPE_EXPORTS = ("SHAPES", "ShapeSpec", "applicable", "input_specs")
+
 
 def get_config(arch: str, smoke: bool = False):
     mod = ARCHS[arch]
     return mod.SMOKE if smoke else mod.CONFIG
 
 
-__all__ = ["ARCHS", "get_config"]
+def __getattr__(name):
+    if name in _SHAPE_EXPORTS:
+        from . import shapes
+
+        return getattr(shapes, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+__all__ = ["ARCHS", "get_config", "SHAPES", "ShapeSpec", "applicable", "input_specs"]

@@ -87,6 +87,7 @@ __all__ = [
     "solve_sharded",
     "topk_eigs_sharded",
     "sharded_lanczos",
+    "sharded_reductions",
 ]
 
 # Formats the distributed hot loop may auto-select: kernel-backed only (the
@@ -234,21 +235,17 @@ class ShardComm:
 # ------------------------------------------------------------------- ops
 
 
-def _make_sharded_ops(mat, n_pad: int, policy: PrecisionPolicy, comm: ShardComm,
-                      engine: SpmvEngine, reorth: str) -> Ops:
-    """The Lanczos kernel set of one rank's shard.  The norm of a fused
-    update is reduced only when the loop uses it (``reorth="none"``; with
-    re-orthogonalization the loop recomputes beta after the projection, and
-    an extra reduction would break the paper's budget)."""
+def sharded_reductions(policy: PrecisionPolicy, comm: ShardComm, reorth: str):
+    """``(dot, project_out, fused_update)`` of a sweep whose vectors are
+    partitioned over ``comm``'s ranks: each reduces its local partial over
+    the ranks, in rank order (every rank gets the same bits).  The norm of a
+    fused update is reduced only when the loop uses it (``reorth="none"``;
+    with re-orthogonalization the loop recomputes beta after the
+    projection, and an extra reduction would break the paper's budget)."""
     cdt, sdt = policy.compute, policy.storage
     abdt = policy.phase_dtype("alpha_beta")
     rdt = policy.phase_dtype("reorth")
-    acc = policy.phase_dtype("spmv")
     need_norm = reorth == "none"
-
-    def matvec(x_local):
-        # Replicate the SpMV input: the paper's round-robin partition swap.
-        return engine.spmv(mat, comm.all_gather(x_local), accum_dtype=acc).to(cdt)
 
     def dot(a, b):
         local = _local_reduce(a.to(abdt) * b.to(abdt), policy, abdt)
@@ -259,6 +256,27 @@ def _make_sharded_ops(mat, n_pad: int, policy: PrecisionPolicy, comm: ShardComm,
         # u rounds through the storage dtype first, as on one device.
         coeffs = comm.reduce_vector(basis_c @ u.to(sdt).to(rdt))  # sync point C
         return (u.to(rdt) - coeffs @ basis_c).to(cdt)
+
+    def fused_update(w, v, v_prev, alpha, beta):
+        u, nrm = kops.lanczos_update(w, v, v_prev, alpha, beta, accum_dtype=cdt)
+        if need_norm:
+            nrm = comm.reduce_scalar(nrm)  # sync point B
+        return u, nrm
+
+    return dot, project_out, fused_update
+
+
+def _make_sharded_ops(mat, n_pad: int, policy: PrecisionPolicy, comm: ShardComm,
+                      engine: SpmvEngine, reorth: str) -> Ops:
+    """The Lanczos kernel set of one rank's shard."""
+    cdt, sdt = policy.compute, policy.storage
+    acc = policy.phase_dtype("spmv")
+    need_norm = reorth == "none"
+    dot, project_out, sharded_update = sharded_reductions(policy, comm, reorth)
+
+    def matvec(x_local):
+        # Replicate the SpMV input: the paper's round-robin partition swap.
+        return engine.spmv(mat, comm.all_gather(x_local), accum_dtype=acc).to(cdt)
 
     dev = mat.val.device if hasattr(mat, "val") else mat.ell_val.device
     mode = resolve_update_mode(policy, plan=engine.iteration_plan, device=dev)
@@ -280,12 +298,7 @@ def _make_sharded_ops(mat, n_pad: int, policy: PrecisionPolicy, comm: ShardComm,
 
     fused_update = None
     if fused_iteration is None and mode in ("fused", "fused_spmv"):
-
-        def fused_update(w, v, v_prev, alpha, beta):
-            u, nrm = kops.lanczos_update(w, v, v_prev, alpha, beta, accum_dtype=cdt)
-            if need_norm:
-                nrm = comm.reduce_scalar(nrm)  # sync point B
-            return u, nrm
+        fused_update = sharded_update
 
     return Ops(matvec=matvec, dot=dot, project_out=project_out,
                fused_update=fused_update, fused_iteration=fused_iteration)

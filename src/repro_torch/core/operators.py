@@ -31,6 +31,7 @@ from ..sparse.formats import (
     to_device_hybrid,
 )
 from ..testing import faults as _faults
+from ..distributed.sharding import settle
 from . import tree as _tree
 from .precision import PrecisionPolicy
 
@@ -192,20 +193,38 @@ class HvpOperator(LinearOperator):
     differentiable.  It runs on the params' device in their dtype.
     ``ggn`` is accepted and ignored, as in the reference: the product is
     always the full Hessian's.
+
+    With DTensor params (a sharded model) the vector is partitioned over
+    the ranks, the paper's partition of every vector across GPUs: rank r
+    owns its local block of a leaf when its mesh coordinate is 0 on every
+    mesh dimension the leaf is replicated over, so the ranks' owned blocks
+    cover the n parameters once.  ``matvec`` then maps this rank's
+    ``(n_local,)`` slice to the same slice of ``H x`` (every rank calls it
+    together: the product is collective); :meth:`local_slices` cuts a whole
+    vector into a rank's slice.
     """
 
     def __init__(self, loss_fn: Callable, params, ggn: bool = False):
+        from torch.distributed.tensor import DTensor
+
         self._loss = loss_fn
         self._params = params
         self._leaves = _tree.leaves(params)
         self.n = sum(t.numel() for t in self._leaves)
-        self.device = self._leaves[0].device
-        dt = self._leaves[0].dtype
-        for t in self._leaves[1:]:
+        self.sharded = any(isinstance(t, DTensor) for t in self._leaves)
+        locals_ = [t.to_local() if isinstance(t, DTensor) else t for t in self._leaves]
+        self.device = locals_[0].device
+        dt = locals_[0].dtype
+        for t in locals_[1:]:
             dt = torch.promote_types(dt, t.dtype)
         self.dtype = dt
+        if self.sharded:
+            self._owned = [_owns(t) for t in self._leaves]
+            self.n_local = sum(t.numel() for t, o in zip(locals_, self._owned) if o)
 
     def matvec(self, x, accum_dtype=None):
+        if self.sharded:
+            return self._matvec_sharded(x, accum_dtype)
         x = x.to(device=self.device, dtype=self.dtype)
         ps = [p.detach().requires_grad_(True) for p in self._leaves]
         with torch.enable_grad():
@@ -220,6 +239,85 @@ class HvpOperator(LinearOperator):
             hv = torch.autograd.grad(gv, ps)
         y = torch.cat([h.reshape(-1).to(self.dtype) for h in hv])
         return y.to(accum_dtype) if accum_dtype else y
+
+    # ---------------------------------------------------------- under a mesh
+
+    def local_slices(self, v) -> torch.Tensor:
+        """This rank's owned part of a whole ``(n,)`` vector (NumPy, memory
+        map or tensor, in the flat order): each owned leaf's local block,
+        flattened, in leaf order."""
+        from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+        parts, off = [], 0
+        for t, owned in zip(self._leaves, self._owned):
+            k = t.numel()
+            if owned:
+                lshape, goff = compute_local_shape_and_global_offset(
+                    t.shape, t.device_mesh, t.placements)
+                block = v[off:off + k].reshape(tuple(t.shape))
+                idx = tuple(slice(o, o + n) for o, n in zip(goff, lshape))
+                block = block[idx]
+                block = block if isinstance(block, torch.Tensor) else torch.as_tensor(
+                    np.ascontiguousarray(block))
+                parts.append(block.reshape(-1).to(device=self.device, dtype=self.dtype))
+            off += k
+        return torch.cat(parts) if parts else torch.zeros((0,), dtype=self.dtype,
+                                                            device=self.device)
+
+    def _matvec_sharded(self, x, accum_dtype=None):
+        """``H x`` on the owned slices: ``x`` is this rank's ``(n_local,)``
+        part; the tangent of each leaf is rebuilt as a DTensor laid out as
+        the leaf (its owner's values, summed over the mesh dimensions the
+        leaf is replicated on, where every other rank adds zeros), the
+        double backward runs on DTensors, and the owned part of ``H x``
+        comes back."""
+        from torch.distributed.tensor import DTensor, Partial
+
+        x = x.to(device=self.device, dtype=self.dtype)
+        ps = [p.detach().requires_grad_(True) for p in self._leaves]
+        tangents, off = [], 0
+        for p, owned in zip(self._leaves, self._owned):
+            local_shape = p.to_local().shape
+            if owned:
+                k = p.to_local().numel()
+                local = x[off:off + k].reshape(local_shape)
+                off += k
+            else:
+                local = torch.zeros(local_shape, dtype=self.dtype, device=self.device)
+            pl = [Partial() if q.is_replicate() else q for q in p.placements]
+            t = DTensor.from_local(local, p.device_mesh, pl, run_check=False, shape=p.shape,
+                                   stride=p.stride())
+            tangents.append(t.redistribute(p.device_mesh, p.placements))
+        with torch.enable_grad():
+            loss = settle(self._loss(_tree.unflatten(self._params, ps)))
+            gs = torch.autograd.grad(loss, ps, create_graph=True)
+            gv = None
+            for g, t in zip(gs, tangents):
+                term = torch.sum(g.to(self.dtype) * t)
+                gv = term if gv is None else gv + term
+            hv = torch.autograd.grad(settle(gv), ps)
+        parts = []
+        for h, p, owned in zip(hv, self._leaves, self._owned):
+            if tuple(h.placements) != tuple(p.placements):  # a collective: every rank
+                h = h.redistribute(p.device_mesh, p.placements)
+            if owned:
+                parts.append(h.to_local().reshape(-1).to(self.dtype))
+        y = torch.cat(parts)
+        return y.to(accum_dtype) if accum_dtype else y
+
+
+def _owns(t) -> bool:
+    """Whether this rank owns its local block of leaf ``t`` in the
+    partitioned Lanczos vector: its mesh coordinate is 0 on every mesh
+    dimension ``t`` is replicated over (a plain tensor: global rank 0)."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(t, DTensor):
+        import torch.distributed as dist
+
+        return not dist.is_initialized() or dist.get_rank() == 0
+    coord = t.device_mesh.get_coordinate()
+    return all(c == 0 for c, q in zip(coord, t.placements) if not q.is_shard())
 
 
 _IMPLS = ("coo", "ell", "ell_kernel", "bsr_kernel", "chunked")

@@ -20,7 +20,9 @@ killed and the parent raises with that rank's traceback.
 
 On the card (``device="cuda"``) rank r uses card ``r % device_count``.
 NCCL takes one rank per card; G ranks sharing one card use gloo, which
-stages CUDA tensors through the host (``core.distributed.ShardComm``).
+stages CUDA tensors through the host (``core.distributed.ShardComm``); for
+DTensor's functional collectives each such rank installs the host-staged
+CUDA kernels of ``distributed/host_staged.py`` before it joins.
 """
 
 from __future__ import annotations
@@ -42,6 +44,10 @@ __all__ = ["run_ranks"]
 def _rank_main(rank: int, fn: Callable, world: int, args: tuple, backend: str, device: str,
                timeout: float, workdir: str) -> None:
     torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if backend == "gloo" and device.startswith("cuda"):
+        from ..distributed.host_staged import register
+
+        register()  # DTensor's collectives on CUDA tensors, staged through the host
     if device.startswith("cuda"):
         torch.cuda.set_device(rank % torch.cuda.device_count())
     dist.init_process_group(

@@ -23,7 +23,16 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import hint
+from ..distributed.sharding import (
+    current_ctx,
+    from_local,
+    hint,
+    keep_layout,
+    logical_spec,
+    placements_of,
+    split_last,
+)
+from ..distributed.sharding import to_local as _to_local
 from .common import Leaf, ModelConfig, apply_rope, dense_init, rms_norm
 
 __all__ = ["init_attention", "attention", "project_kv_only", "decode_attention", "AttnCache",
@@ -90,13 +99,15 @@ def _project_qkv(p, cfg: ModelConfig, x, pos, rope: bool = True):
     b, s, _ = x.shape
     hd, h, kv = cfg.hd, cfg.n_heads, cfg.n_kv_heads
     dt = cfg.compute_dtype
-    q = (x @ p["wq"].to(dt)).reshape(b, s, h, hd)
-    k = (x @ p["wk"].to(dt)).reshape(b, s, kv, hd)
-    v = (x @ p["wv"].to(dt)).reshape(b, s, kv, hd)
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(dt).reshape(h, hd)
-        k = k + p["bk"].to(dt).reshape(kv, hd)
-        v = v + p["bv"].to(dt).reshape(kv, hd)
+    q, k, v = x @ p["wq"].to(dt), x @ p["wk"].to(dt), x @ p["wv"].to(dt)
+    if cfg.qkv_bias:  # added before the head split: the same sums, elementwise
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    # under a mesh: laid out as the hints below resolve, before the split
+    q = split_last(q, (b, s, h, hd), ("batch", "act_seq", "act_heads", None))
+    k = split_last(k, (b, s, kv, hd), ("batch", "act_seq", "act_kv_heads", None))
+    v = split_last(v, (b, s, kv, hd), ("batch", "act_seq", "act_kv_heads", None))
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = rms_norm(k, p["k_norm"], cfg.rms_eps)
@@ -169,6 +180,48 @@ def _chunked_gqa(q, k, v, q_pos, kv_pos, *, causal: bool, window: Optional[int],
     return out.reshape(b, sq, h, d).to(q.dtype)
 
 
+def _gqa(q, k, v, q_pos, kv_pos, *, k_scale=None, v_scale=None, **kw):
+    """:func:`_chunked_gqa`; under a mesh, on each rank's shard.
+
+    Attention is independent per batch row, per KV head group and per
+    query, so the core runs on local tensors (no DTensor op inside the
+    chunk loop).  The grouped form reshapes the query heads into (KV heads,
+    group), so the ``model`` axis may split the heads only when both the
+    query and the KV heads divide it (``act_heads`` and ``act_kv_heads``
+    agree); else it splits the queries (``act_seq``: the keys and values
+    whole on every rank, their gradients partial sums there, as the
+    reference's "attention re-gathers inside the layer"), else nothing.
+    The batch is split as the ``batch`` rule puts it; the output keeps the
+    queries' layout."""
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh is None:
+        return _chunked_gqa(q, k, v, q_pos, kv_pos, k_scale=k_scale, v_scale=v_scale, **kw)
+    from torch.distributed.tensor import Partial
+
+    mesh = ctx.mesh
+    qs, ks = tuple(q.shape), tuple(k.shape)
+    q_spec = logical_spec(qs, ("batch", None, "act_heads", None), ctx)
+    kv_spec = logical_spec(ks, ("batch", None, "act_kv_heads", None), ctx)
+    if q_spec[2] is None or q_spec[2] != kv_spec[2]:
+        q_spec = logical_spec(qs, ("batch", "act_seq", None, None), ctx)
+        kv_spec = logical_spec(ks, ("batch", None, None, None), ctx)
+    P = type(q_spec)
+    q_pl, kv_pl = placements_of(q_spec, mesh), placements_of(kv_spec, mesh)
+    # where the queries are split and the keys are not, each rank's key and
+    # value gradients are partial sums
+    kv_grad = tuple(Partial() if a.is_shard() and b.is_replicate() else b
+                    for a, b in zip(q_pl, kv_pl))
+
+    def loc(t, spec, grad=None):
+        return None if t is None else _to_local(t, mesh, placements_of(spec, mesh), grad)
+
+    out = _chunked_gqa(
+        loc(q, q_spec), loc(k, kv_spec, kv_grad), loc(v, kv_spec, kv_grad),
+        loc(q_pos, P(*q_spec[:2])), loc(kv_pos, P(*kv_spec[:2])),
+        k_scale=loc(k_scale, P(*kv_spec[:3])), v_scale=loc(v_scale, P(*kv_spec[:3])), **kw)
+    return from_local(out, mesh, q_pl, qs)
+
+
 def attention(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor, *, causal: bool = True,
               window: Optional[int] = None, kv_override=None):
     """Full-sequence attention (training / prefill / encoder).
@@ -176,17 +229,17 @@ def attention(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor, *, causal
     ``kv_override`` = (k, v, kv_pos) enables cross-attention (decoder side).
     """
     dt = cfg.compute_dtype
-    x = x.to(dt)
+    x = hint(x.to(dt), "batch", "seq", "act_embed")  # the sequence whole for the projections
     pos2d = pos if pos.ndim == 2 else pos[0]
     q, k, v = _project_qkv(p, cfg, x, pos, rope=kv_override is None or cfg.family != "encdec")
     if kv_override is not None:
         k, v, kv_pos = kv_override
     else:
         kv_pos = pos2d
-    out = _chunked_gqa(q, k, v, pos2d, kv_pos, causal=causal, window=window, chunk=cfg.attn_chunk)
+    out = _gqa(q, k, v, pos2d, kv_pos, causal=causal, window=window, chunk=cfg.attn_chunk)
     out = hint(out, "batch", "seq", "act_heads", None)
     b, s = x.shape[:2]
-    y = out.reshape(b, s, cfg.n_heads * cfg.hd) @ p["wo"].to(dt)
+    y = keep_layout(out.reshape(b, s, cfg.n_heads * cfg.hd)) @ p["wo"].to(dt)
     return hint(y, "batch", "seq", "act_embed")
 
 
@@ -195,8 +248,9 @@ def project_kv_only(p, cfg: ModelConfig, x: torch.Tensor):
     b, s, _ = x.shape
     dt = cfg.compute_dtype
     kv, hd = cfg.n_kv_heads, cfg.hd
-    k = (x.to(dt) @ p["wk"].to(dt)).reshape(b, s, kv, hd)
-    v = (x.to(dt) @ p["wv"].to(dt)).reshape(b, s, kv, hd)
+    x = hint(x.to(dt), "batch", "seq", "act_embed")
+    k = split_last(x @ p["wk"].to(dt), (b, s, kv, hd), ("batch", "act_seq", "act_kv_heads", None))
+    v = split_last(x @ p["wv"].to(dt), (b, s, kv, hd), ("batch", "act_seq", "act_kv_heads", None))
     return k, v
 
 
@@ -255,12 +309,12 @@ def decode_attention(p, cfg: ModelConfig, x: torch.Tensor, pos: torch.Tensor, ca
         cache.v[:, slot] = v_new[:, 0].to(cache.v.dtype)
         cache.slot_pos[:, slot] = pos2d[:, 0].to(torch.int32)
         k, v, kv_pos = cache.k, cache.v, cache.slot_pos
-    out = _chunked_gqa(
+    out = _gqa(
         q, k, v, pos2d, kv_pos,
         causal=cross_kv is None,  # cross-attention sees the whole encoder
         window=window, chunk=min(cfg.attn_chunk, k.shape[1]),
         k_scale=k_scale, v_scale=v_scale,
     )
     b = x.shape[0]
-    y = out.reshape(b, 1, cfg.n_heads * cfg.hd) @ p["wo"].to(dt)
+    y = keep_layout(out.reshape(b, 1, cfg.n_heads * cfg.hd)) @ p["wo"].to(dt)
     return y, cache

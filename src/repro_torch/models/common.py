@@ -25,6 +25,7 @@ __all__ = [
     "rms_norm",
     "apply_rope",
     "make_positions",
+    "MetaGenerator",
 ]
 
 
@@ -118,6 +119,16 @@ def _map_leaves(fn, tree):
 def split_tree(tree):
     """Tree of Leaf -> (values tree, axes tree)."""
     return _map_leaves(lambda l: l.value, tree), _map_leaves(lambda l: l.axes, tree)
+
+
+class MetaGenerator(torch.Generator):
+    """A generator whose draws land on the meta device: ``init_model(
+    MetaGenerator(), cfg)`` builds the parameter tree's shapes and dtypes
+    with no storage, the port's ``jax.eval_shape(init_model)``."""
+
+    @property
+    def device(self) -> torch.device:
+        return torch.device("meta")
 
 
 def dense_init(gen: torch.Generator, shape, axes, dtype, scale: Optional[float] = None,

@@ -18,7 +18,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import hint
+from ..distributed.sharding import as_dtensor, current_ctx, from_local, hint, logical_spec, to_local
 from .common import ModelConfig, dense_init
 
 __all__ = ["init_mlp", "mlp", "init_moe", "moe"]
@@ -37,7 +37,7 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff=None, d_in=None,
 
 def mlp(p, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     dt = cfg.compute_dtype
-    x = x.to(dt)
+    x = hint(x.to(dt), "batch", "seq", "act_embed")  # the sequence whole for the projections
     h = F.silu(x @ p["wg"].to(dt)) * (x @ p["wi"].to(dt))
     h = hint(h, "batch", "seq", "act_mlp")
     return hint(h @ p["wo"].to(dt), "batch", "seq", "act_embed")
@@ -55,6 +55,51 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig, lead: Tuple[int, ...] = ())
     if cfg.dense_residual:  # arctic: dense MLP in parallel with the MoE
         p["dense"] = init_mlp(gen, cfg, lead=lead)
     return p
+
+
+def _expert_ffn(xe, wg, wi, wo):
+    hg = F.silu(torch.einsum("gecd,edf->gecf", xe, wg))
+    hi = torch.einsum("gecd,edf->gecf", xe, wi)
+    return torch.einsum("gecf,efd->gecd", hg * hi, wo)
+
+
+def _experts(p, xe, dt):
+    """The experts' SwiGLU on the dispatched tokens (ng, e, cap, d).
+
+    Under a mesh it runs on each rank's shards: the groups split as the
+    batch, the experts' FSDP (``embed``) dimension gathered, and the
+    ``model`` axis on the experts (expert parallel: each rank its experts'
+    tokens) or on their hidden dimension (``moe_mlp``, tensor parallel:
+    each rank a partial sum of every expert's output).  The weights'
+    gradients are partial sums over the batch axes, the tokens' over a
+    tensor-parallel axis."""
+    wg, wi, wo = p["wg"].to(dt), p["wi"].to(dt), p["wo"].to(dt)
+    ctx = current_ctx()
+    if ctx is None or ctx.mesh is None:
+        return _expert_ffn(xe, wg, wi, wo)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh = ctx.mesh
+    batch = logical_spec(tuple(xe.shape), ("batch", None, None, None), ctx)[0]
+    batch = set((batch,) if isinstance(batch, str) else (batch or ()))
+    xe_pl, w_pl, wo_pl, out_pl, xe_grad, w_grad, wo_grad = ([] for _ in range(7))
+    for name, pw in zip(mesh.mesh_dim_names, as_dtensor(p["wi"], mesh).placements):
+        ep = pw.is_shard() and pw.dim == 0  # experts split over this axis
+        tp = pw.is_shard() and pw.dim == 2  # every expert's hidden dim split
+        if name in batch:
+            xe_pl.append(Shard(0)), out_pl.append(Shard(0)), xe_grad.append(Shard(0))
+        elif ep:
+            xe_pl.append(Shard(1)), out_pl.append(Shard(1)), xe_grad.append(Shard(1))
+        else:
+            xe_pl.append(Replicate()), out_pl.append(Partial() if tp else Replicate())
+            xe_grad.append(Partial() if tp else Replicate())
+        w_pl.append(Shard(0) if ep else Shard(2) if tp else Replicate())
+        wo_pl.append(Shard(0) if ep else Shard(1) if tp else Replicate())
+        w_grad.append(Partial() if name in batch else w_pl[-1])
+        wo_grad.append(Partial() if name in batch else wo_pl[-1])
+    y = _expert_ffn(to_local(xe, mesh, xe_pl, xe_grad), to_local(wg, mesh, w_pl, w_grad),
+                    to_local(wi, mesh, w_pl, w_grad), to_local(wo, mesh, wo_pl, wo_grad))
+    return from_local(y, mesh, out_pl, tuple(xe.shape))
 
 
 def moe(p, cfg: ModelConfig, x: torch.Tensor, dropless: bool = False):
@@ -77,6 +122,7 @@ def moe(p, cfg: ModelConfig, x: torch.Tensor, dropless: bool = False):
     else:
         cap = min(gs, int(gs * k / e * cfg.capacity_factor) + 1)
 
+    x = hint(x, "batch", "seq", "act_embed")  # the sequence whole: groups cut (B * S)
     xt = hint(x.reshape(ng, gs, d), "batch", None, "act_embed")
     logits = xt.float() @ p["router"].float()  # (ng, gs, e)
     probs = torch.softmax(logits, dim=-1)
@@ -103,9 +149,7 @@ def moe(p, cfg: ModelConfig, x: torch.Tensor, dropless: bool = False):
 
     xe = torch.einsum("gsec,gsd->gecd", cap_oh, xt.to(dt))  # (ng, e, cap, d)
     xe = hint(xe, "batch", "act_expert", None, None)
-    hg = F.silu(torch.einsum("gecd,edf->gecf", xe, p["wg"].to(dt)))
-    hi = torch.einsum("gecd,edf->gecf", xe, p["wi"].to(dt))
-    ye = torch.einsum("gecf,efd->gecd", hg * hi, p["wo"].to(dt))
+    ye = _experts(p, xe, dt)
     ye = hint(ye, "batch", "act_expert", None, None)
     y = torch.einsum("gsec,gecd->gsd", combine, ye).reshape(b, s, d)
 

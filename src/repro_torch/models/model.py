@@ -33,10 +33,11 @@ from typing import Any, Dict, NamedTuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..core import tree as _tree
-from ..distributed.sharding import hint
+from ..distributed.sharding import as_dtensor, from_local, hint, settle, to_local
 from .attention import (
     AttnCache,
     _project_qkv,
@@ -236,15 +237,88 @@ def _embed(params, cfg: ModelConfig, tokens):
     The reference contracts a one-hot with the table under a custom VJP (a
     TPU sharding device); each one-hot row sums a single term, so the values
     are the same, and the table's gradient accumulates in the table's dtype."""
-    x = F.embedding(tokens, params["embed"]).to(cfg.compute_dtype)
+    x = _lookup(params["embed"], tokens).to(cfg.compute_dtype)
     return hint(x, "batch", "seq", "act_embed")
+
+
+def _lookup(table, tokens):
+    """``F.embedding(tokens, table)``; under a mesh, vocab-parallel on each
+    rank's shards.
+
+    Each rank looks its tokens up in its own rows of the table (the vocab
+    split as the table is, its other dimensions gathered) and zeroes the
+    tokens outside them; the output is a partial sum over the vocab's mesh
+    axes, each token's row coming from exactly one rank, so the sum is the
+    lookup's values exactly.  The table's gradient stays on its rows (a
+    partial sum over the batch axes).  A mesh axis that split both the vocab
+    and the batch would split the vocab only.  DTensor's own vocab-sharded
+    lookup cannot take a batch-sharded index on a 2-D mesh, and gathering
+    the whole table would move its bytes at every call."""
+    from torch.distributed.tensor import DTensor
+
+    if not isinstance(table, DTensor):
+        return F.embedding(tokens, table)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = table.device_mesh
+    tok = as_dtensor(tokens, mesh)
+    vocab = [p.is_shard() and p.dim == 0 for p in table.placements]
+    batch = [p.is_shard() and p.dim == 0 and not v for p, v in zip(tok.placements, vocab)]
+    t_pl = [Shard(0) if v else Replicate() for v in vocab]
+    k_pl = [Shard(0) if b else Replicate() for b in batch]
+    t_grad = [Shard(0) if v else Partial() if b else Replicate() for v, b in zip(vocab, batch)]
+    out_pl = [Partial() if v else Shard(0) if b else Replicate() for v, b in zip(vocab, batch)]
+    local_shape, offset = compute_local_shape_and_global_offset(table.shape, mesh, t_pl)
+    rows = to_local(table, mesh, t_pl, t_grad)
+    ids = to_local(tok, mesh, k_pl)
+    lo, n = int(offset[0]), int(local_shape[0])
+    inside = (ids >= lo) & (ids < lo + n)
+    out = F.embedding((ids - lo).clamp(0, max(n - 1, 0)), rows) * inside[..., None].to(rows.dtype)
+    return from_local(out, mesh, out_pl, tuple(tokens.shape) + (table.shape[1],))
+
+
+def _sharded_nll(logits, lbl):
+    """``logsumexp(logits) - logits[lbl]`` per token, vocab-parallel: each
+    rank works on its own (batch rows, vocab slice) of the f32 logits, and
+    only per-token scalars cross ranks (the max, the sum of exponentials and
+    the label's logit, each a reduction over the vocab's mesh axes), never
+    the (B, C, V) logits themselves.  The same terms in the same order per
+    vocab slice as one device, summed over the slices."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor._utils import compute_local_shape_and_global_offset
+
+    mesh = logits.device_mesh
+    logits = settle(logits)
+    pl = tuple(Shard(2) if p.is_shard() and p.dim % 3 == 2 else Shard(0)
+               if p.is_shard() and p.dim % 3 == 0 else Replicate() for p in logits.placements)
+    vocab = [p.is_shard() and p.dim == 2 for p in pl]
+    row = tuple(Shard(0) if p.is_shard() and p.dim == 0 else Replicate() for p in pl)
+    shape = tuple(logits.shape[:2])
+    lg = to_local(logits, mesh, pl)
+    ids = to_local(lbl, mesh, row)
+    _, off = compute_local_shape_and_global_offset(logits.shape, mesh, pl)
+    lo, n = int(off[2]), lg.shape[-1]
+
+    def reduced(t, op="sum"):
+        part = tuple(Partial(op) if v else r for v, r in zip(vocab, row))
+        return from_local(t, mesh, part, shape).redistribute(mesh, row)
+
+    m = reduced(lg.detach().amax(dim=-1), "max").to_local()
+    se = reduced(torch.exp(lg - m[..., None]).sum(dim=-1))
+    inside = (ids >= lo) & (ids < lo + n)
+    picked = lg.gather(-1, (ids - lo).clamp(0, n - 1)[..., None])[..., 0] * inside.to(lg.dtype)
+    return torch.log(se) + from_local(m, mesh, row, shape) - reduced(picked)
 
 
 def _logits(params, cfg: ModelConfig, x):
     dt = cfg.compute_dtype
-    x = rms_norm(x, params["final_norm"], cfg.rms_eps)
+    x = hint(rms_norm(x, params["final_norm"], cfg.rms_eps), "batch", "seq", "act_embed")
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    logits = (x @ head.to(dt)).float()
+    # under a mesh: the head's vocab split, its model dimension gathered, so
+    # the product needs no collective (DTensor's own choice moves the logits)
+    head = hint(head.to(dt), None, "act_vocab")
+    logits = (x @ head).float()
     if cfg.vocab_padded != cfg.vocab:  # mask padded vocab slots
         mask = torch.zeros((cfg.vocab_padded,), dtype=torch.float32, device=logits.device)
         mask[cfg.vocab:] = -1e30
@@ -316,6 +390,8 @@ def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
         logits = _logits(params, cfg, xc)  # (B,C,Vp) f32
         valid = lc >= 0
         lbl = torch.clamp_min(lc, 0).long()
+        if isinstance(logits, DTensor):
+            return (_sharded_nll(logits, lbl) * valid).sum()
         m = logits.amax(dim=-1, keepdim=True).detach()
         lse = torch.log(torch.exp(logits - m).sum(dim=-1)) + m[..., 0]
         label_logit = logits.gather(-1, lbl[..., None])[..., 0]

@@ -102,7 +102,7 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def rglru_block(p, cfg: ModelConfig, x: torch.Tensor):
     """Sequence form. x: (B,S,d) -> ((B,S,d), final RGLRUState)."""
     dt = cfg.compute_dtype
-    x = x.to(dt)
+    x = hint(x.to(dt), "batch", "seq", "act_embed")  # the sequence whole for the projections
     gate = F.gelu(x @ p["w_gate"].to(dt), approximate="tanh")  # jax.nn.gelu's default
     xr = x @ p["w_rec"].to(dt)
     xr = hint(xr, "batch", "act_seq", None)
@@ -132,7 +132,7 @@ def rglru_decode_step(p, cfg: ModelConfig, x: torch.Tensor, state: RGLRUState):
     """Single-token form. x: (B,1,d) -> ((B,1,d), new state); O(1) in the
     sequence length."""
     dt = cfg.compute_dtype
-    x = x.to(dt)
+    x = hint(x.to(dt), "batch", "seq", "act_embed")  # the sequence whole for the projections
     gate = F.gelu(x @ p["w_gate"].to(dt), approximate="tanh")
     xr = x @ p["w_rec"].to(dt)  # (B,1,W)
     conv_in = torch.cat([state.conv, xr], dim=1)  # (B,cw,W)

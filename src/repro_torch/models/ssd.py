@@ -18,7 +18,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..distributed.sharding import hint
+from ..distributed.sharding import hint, keep_layout, split_last
 from .common import Leaf, ModelConfig, dense_init, rms_norm
 from .rglru import _causal_conv  # the same depthwise causal conv
 
@@ -66,7 +66,8 @@ def _split_proj(p, cfg: ModelConfig, u: torch.Tensor):
     """u: (B,S,d) -> z (B,S,di), xbc (B,S,conv_dim), dt (B,S,H) pre-softplus."""
     di, _, _, _, conv_dim = _dims(cfg)
     dt_ = cfg.compute_dtype
-    zxbcdt = u.to(dt_) @ p["w_in"].to(dt_)
+    u = hint(u.to(dt_), "batch", "seq", "act_embed")  # the sequence whole for the projection
+    zxbcdt = u @ p["w_in"].to(dt_)
     return zxbcdt[..., :di], zxbcdt[..., di:di + conv_dim], zxbcdt[..., di + conv_dim:]
 
 
@@ -120,7 +121,8 @@ def ssd_block(p, cfg: ModelConfig, u: torch.Tensor):
     xbc = F.silu(_causal_conv(xbc, p["conv_w"].to(dt_), p["conv_b"].to(dt_)))
     x, b, c = xbc[..., :di], xbc[..., di:di + n], xbc[..., di + n:]
     bsz, s = x.shape[:2]
-    xh = hint(x.reshape(bsz, s, nh, hp).float(), "batch", "seq", "act_heads", None)
+    xh = hint(split_last(x, (bsz, s, nh, hp), ("batch", "seq", "act_heads", None)).float(),
+              "batch", "seq", "act_heads", None)
     dt = F.softplus(dtp.float() + p["dt_bias"])
     a = -torch.exp(p["a_log"])
     b, c = b.float(), c.float()
@@ -131,7 +133,7 @@ def ssd_block(p, cfg: ModelConfig, u: torch.Tensor):
         xh, dt, b, c = (F.pad(t, (0, 0) * (t.ndim - 2) + (0, s_pad)) for t in (xh, dt, b, c))
     y, hf = _ssd_chunked(xh, dt, a, b, c, cfg.ssm_chunk)
     y = y + xh * p["d_skip"][None, None, :, None]
-    y = y[:, :s].reshape(bsz, s, di).to(dt_)
+    y = keep_layout(y[:, :s].reshape(bsz, s, di)).to(dt_)  # its gradient merges back
     y = rms_norm(y * F.silu(z), p["out_norm"], cfg.rms_eps)
     out = hint(y @ p["w_out"].to(dt_), "batch", "seq", "act_embed")
     return out, SSDState(h=hf, conv=conv_tail)
@@ -159,14 +161,16 @@ def ssd_decode_step(p, cfg: ModelConfig, u: torch.Tensor, state: SSDState):
     for i in range(1, w.shape[0]):
         xbc_c = xbc_c + conv_in[:, i:i + 1, :] * w[i]
     xbc_c = F.silu(xbc_c + p["conv_b"].to(dt_))
-    x = xbc_c[..., :di].reshape(-1, nh, hp).float()  # (B,H,P)
-    b = xbc_c[:, 0, di:di + n].float()  # (B,N)
-    c = xbc_c[:, 0, di + n:].float()
-    dt = F.softplus(dtp[:, 0].float() + p["dt_bias"])  # (B,H)
+    # (B,H,P); under a mesh laid out as the heads split (24 SSD heads on 16 do not)
+    x = split_last(xbc_c[:, 0, :di], (xbc_c.shape[0], nh, hp), ("batch", "act_heads", None)).float()
+    b = hint(xbc_c[:, 0, di:di + n].float(), "batch", None)  # (B,N)
+    c = hint(xbc_c[:, 0, di + n:].float(), "batch", None)
+    dt = hint(F.softplus(dtp[:, 0].float() + p["dt_bias"]), "batch", "act_heads")  # (B,H)
     a = -torch.exp(p["a_log"])
     da = torch.exp(dt * a)  # (B,H)
-    h = state.h * da[..., None, None] + torch.einsum("bh,bn,bhp->bhpn", dt, b, x)
+    h0 = hint(state.h, "batch", "act_heads", None, None)
+    h = h0 * da[..., None, None] + torch.einsum("bh,bn,bhp->bhpn", dt, b, x)
     y = torch.einsum("bn,bhpn->bhp", c, h) + x * p["d_skip"][None, :, None]
-    y = y.reshape(-1, 1, di).to(dt_)
+    y = keep_layout(y.reshape(-1, 1, di)).to(dt_)
     y = rms_norm(y * F.silu(z), p["out_norm"], cfg.rms_eps)
     return y @ p["w_out"].to(dt_), SSDState(h=h, conv=conv_in[:, 1:, :])

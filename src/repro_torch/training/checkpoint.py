@@ -2,6 +2,12 @@
 (``repro/training/checkpoint.py``'s layout, so each package reads the
 other's params checkpoints).
 
+Checkpoints keep the unsharded layout.  Under a process group every rank
+gathers each DTensor leaf whole and rank 0 writes; a restore places each
+leaf as its template leaf is placed (``sharding_fn`` may do it instead), so
+a sharded run resumes an unsharded run's checkpoint and the other way
+round.
+
 Layout: ``<dir>/step_<N>/manifest.json`` + ``arrays/<i>.npy`` (one per leaf,
 in the tree's flatten order, named by its path as
 ``jax.tree_util.tree_flatten_with_path`` names it: ``['params']/['embed']``,
@@ -27,12 +33,34 @@ from ..core import tree as _tree
 __all__ = ["save_checkpoint", "load_checkpoint", "latest_step", "CheckpointManager"]
 
 
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
+
+
+def _whole(x):
+    """A DTensor's whole value (every rank gathers it), else ``x``."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
 def save_checkpoint(directory: str, step: int, tree, extra: Optional[dict] = None,
                     async_write: bool = False) -> Optional[threading.Thread]:
-    os.makedirs(directory, exist_ok=True)
     named = _tree.leaves_with_names(tree)
     names = [n for n, _ in named]
-    host_leaves = [x.detach().cpu().numpy() for _, x in named]  # copy to the host now
+    host_leaves = [_whole(x).detach().cpu().numpy() for _, x in named]  # copy to the host now
+    if _rank() != 0:  # every rank gathered (a collective); rank 0 writes
+        return None
+    os.makedirs(directory, exist_ok=True)
 
     def _write():
         tmp = os.path.join(directory, f".tmp_step_{step:08d}")
@@ -89,11 +117,24 @@ def load_checkpoint(directory: str, step: int, template,
         rec = by_name[name]
         arr = np.load(os.path.join(path, "arrays", f"{rec['i']}.npy"))
         placed = sharding_fn(name, arr) if sharding_fn else None
-        if placed is None:  # np.array keeps a 0-d leaf 0-d (ascontiguousarray would not)
-            placed = torch.from_numpy(np.array(arr, order="C")).to(device=tmpl.device,
-                                                                    dtype=tmpl.dtype)
+        if placed is None:
+            placed = _place_like(arr, tmpl)
         out.append(placed)
     return _tree.unflatten(template, out), manifest["extra"]
+
+
+def _place_like(arr: np.ndarray, tmpl):
+    """``arr`` with ``tmpl``'s dtype and device; a DTensor template's
+    placements too (each rank keeps its chunk of the whole array it read)."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+
+    # np.array keeps a 0-d leaf 0-d (ascontiguousarray would not)
+    t = torch.from_numpy(np.array(arr, order="C"))
+    if isinstance(tmpl, DTensor):
+        local = tmpl.to_local()
+        return distribute_tensor(t.to(device=local.device, dtype=tmpl.dtype), tmpl.device_mesh,
+                                 tmpl.placements, src_data_rank=None)
+    return t.to(device=tmpl.device, dtype=tmpl.dtype)
 
 
 class CheckpointManager:
@@ -119,6 +160,8 @@ class CheckpointManager:
             self._gc()
 
     def _gc(self):
+        if _rank() != 0:
+            return
         steps = sorted(
             int(d.split("_")[1]) for d in os.listdir(self.directory) if d.startswith("step_"))
         for s in steps[: -self.keep_n]:
@@ -126,6 +169,7 @@ class CheckpointManager:
 
     def restore_latest(self, template, sharding_fn=None):
         self.wait()
+        _barrier()  # rank 0's last write is published before any rank reads
         step = latest_step(self.directory)
         if step is None:
             return None, None, None

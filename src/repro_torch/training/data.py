@@ -16,7 +16,17 @@ import torch
 
 from ..models.common import ModelConfig
 
-__all__ = ["DataConfig", "synthetic_batch", "data_stream"]
+__all__ = ["DataConfig", "synthetic_batch", "data_stream", "BATCH_AXES"]
+
+# The inputs' logical axes (the reference dry-run's ``batch_axes``): under a
+# mesh ``distributed.sharding.distribute_tree(batch, BATCH_AXES)`` splits
+# each over the batch axes.
+BATCH_AXES = {
+    "tokens": ("batch", None),
+    "labels": ("batch", None),
+    "frames": ("batch", None, None),
+    "positions": (None, "batch", None),
+}
 
 
 @dataclasses.dataclass(frozen=True)

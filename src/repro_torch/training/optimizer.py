@@ -5,6 +5,12 @@ Functional, as the reference: an update returns new params and a new state
 (trees shaped like the params, f32 moments), so the trainer's rollback and
 checkpoint keep the old ones intact.  The step, the learning rate and the
 norms stay 0-d tensors on the params' device: no read-back per step.
+
+Under a mesh the params are DTensors and the state is laid out as they are
+(Adafactor's row and column moments drop the reduced dimension's
+placement); the gradients must already be laid out as the params
+(``train_loop.make_train_step`` redistributes them), so the global norm
+and every update see whole sums, never a rank's partial one.
 """
 
 from __future__ import annotations
@@ -41,14 +47,43 @@ class OptState(NamedTuple):
 
 
 def _device(params):
+    """The params' device (a DTensor's local one)."""
+    from torch.distributed.tensor import DTensor
+
     ls = _tree.leaves(params)
-    return ls[0].device if ls else torch.device("cpu")
+    if not ls:
+        return torch.device("cpu")
+    return ls[0].to_local().device if isinstance(ls[0], DTensor) else ls[0].device
+
+
+def _zeros(p, shape=None, drop: int = None):
+    """f32 zeros shaped like ``p`` (or ``shape``: ``p``'s shape less its
+    dimension ``drop``), laid out as ``p`` when it is a DTensor (the
+    dropped dimension's mesh axes replicate)."""
+    from torch.distributed.tensor import DTensor
+
+    shape = tuple(p.shape) if shape is None else tuple(shape)
+    if not isinstance(p, DTensor):
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+
+    placements = []
+    for pl in p.placements:
+        if drop is not None and pl.is_shard():
+            d = pl.dim % p.ndim
+            pl = Replicate() if d == drop else (Shard(d - 1) if d > drop else pl)
+        placements.append(pl)
+    dev = p.to_local().device
+    return distribute_tensor(torch.zeros(shape, dtype=torch.float32, device=dev), p.device_mesh,
+                             placements, src_data_rank=None)
 
 
 def init_opt_state(params) -> OptState:
+    """Zero moments, laid out as the params (DTensor params give DTensor
+    moments with the same placements)."""
+
     def zeros():
-        return _tree.tree_map(
-            lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+        return _tree.tree_map(_zeros, params)
 
     return OptState(step=torch.zeros((), dtype=torch.int32, device=_device(params)),
                     m=zeros(), v=zeros())
@@ -80,12 +115,14 @@ class FactoredState(NamedTuple):
 
 def init_factored_state(params) -> FactoredState:
     def rows(p):
-        shape = p.shape[:-1] if p.ndim >= 2 else p.shape
-        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+        if p.ndim < 2:
+            return _zeros(p)
+        return _zeros(p, p.shape[:-1], drop=p.ndim - 1)
 
     def cols(p):
-        shape = p.shape[:-2] + p.shape[-1:] if p.ndim >= 2 else ()
-        return torch.zeros(shape, dtype=torch.float32, device=p.device)
+        if p.ndim < 2:
+            return torch.zeros((), dtype=torch.float32, device=_device({"p": p}))
+        return _zeros(p, p.shape[:-2] + p.shape[-1:], drop=p.ndim - 2)
 
     return FactoredState(step=torch.zeros((), dtype=torch.int32, device=_device(params)),
                          vr=_tree.tree_map(rows, params), vc=_tree.tree_map(cols, params))

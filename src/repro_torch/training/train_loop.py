@@ -9,6 +9,13 @@ microbatches and optional int8 gradient compression.
 checkpoints (async), NaN/inf rollback, preemption-safe resume, straggler
 detection, and the paper-integration spectral monitor (top-K Hessian
 eigenvalues through the Lanczos core).
+
+Under a mesh (``distributed.sharding``) the params, the batch and the
+optimizer state are DTensors: each gradient is laid out as its parameter
+before clipping and the update (a replicated parameter's gradient arrives
+as a partial sum over the batch axes), microbatches are cut from the whole
+batch and laid out as it was, and checkpoints are written unsharded by
+rank 0 (``training/checkpoint.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import torch
 
 from ..core import tree as _tree
+from ..distributed.sharding import settle
 from ..models.common import ModelConfig
 from ..models.model import loss_fn
 from .checkpoint import CheckpointManager
@@ -52,13 +60,41 @@ class TrainConfig:
     accum_dtype: Any = None  # grad-accumulation dtype; None -> f32
 
 
+def _like_param(g, p):
+    """``g`` laid out as its parameter ``p`` (DTensor params).  A replicated
+    parameter's gradient comes back as a partial sum over the mesh axes the
+    batch is split on; the update must see the reduced one."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(p, DTensor) and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
 def _grads_of(cfg: ModelConfig, params, batch):
     leaves = [p.detach().requires_grad_(True) for p in _tree.leaves(params)]
     with torch.enable_grad():
         loss, metrics = loss_fn(_tree.unflatten(params, leaves), cfg, batch)
         grads = torch.autograd.grad(loss, leaves)
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return loss.detach(), metrics, _tree.unflatten(params, list(grads))
+    metrics = {k: settle(v.detach()) for k, v in metrics.items()}
+    grads = [_like_param(g, p) for g, p in zip(grads, _tree.leaves(params))]
+    return settle(loss.detach()), metrics, _tree.unflatten(params, grads)
+
+
+def _microbatches(batch, n: int):
+    """The batch cut into ``n`` microbatches along its batch axis (axis 1
+    for M-RoPE positions (3, B, S), else 0), in order.  A batch-sharded
+    DTensor is cut whole (DTensor gathers it), then each microbatch is laid
+    out as the batch was."""
+    from torch.distributed.tensor import DTensor
+
+    parts = {}
+    for key, x in batch.items():
+        chunks = x.chunk(n, dim=1 if key == "positions" else 0)
+        if isinstance(x, DTensor):
+            chunks = [c.redistribute(x.device_mesh, x.placements) for c in chunks]
+        parts[key] = chunks
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
@@ -67,19 +103,13 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
 
     def train_step(params, opt_state: OptState, batch):
         if tc.accum_steps > 1:
-            def split_mb(key, x):
-                # batch axis: 1 for M-RoPE positions (3, B, S), else 0
-                return x.chunk(tc.accum_steps, dim=1 if key == "positions" else 0)
-
-            parts = {k: split_mb(k, v) for k, v in batch.items()}
             adt = tc.accum_dtype or torch.float32
-            gsum = _tree.tree_map(lambda p: torch.zeros(p.shape, dtype=adt, device=p.device),
-                                  params)
-            lsum = torch.zeros((), dtype=torch.float32, device=_tree.leaves(params)[0].device)
-            for i in range(tc.accum_steps):
-                loss, _, grads = _grads_of(cfg, params, {k: v[i] for k, v in parts.items()})
+            gsum = _tree.tree_map(lambda p: torch.zeros_like(p, dtype=adt), params)
+            lsum = None
+            for mb in _microbatches(batch, tc.accum_steps):
+                loss, _, grads = _grads_of(cfg, params, mb)
                 gsum = _tree.tree_map(lambda a, g: a + g.to(a.dtype), gsum, grads)
-                lsum = lsum + loss
+                lsum = loss if lsum is None else lsum + loss
             grads = _tree.tree_map(lambda g: g / tc.accum_steps, gsum)
             loss = lsum / tc.accum_steps
             metrics = {}
@@ -98,6 +128,15 @@ def make_train_step(cfg: ModelConfig, tc: TrainConfig) -> Callable:
         return new_params, new_opt, {"loss": loss, **metrics, **opt_metrics}
 
     return train_step
+
+
+def _host_float(x) -> float:
+    """A 0-d tensor's value; a DTensor's from its (replicated) local value."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor):
+        x = settle(x).to_local()
+    return float(x)
 
 
 class Trainer:
@@ -173,7 +212,7 @@ class Trainer:
                 break
             t0 = time.perf_counter()
             self.params, self.opt_state, metrics = self.step_fn(self.params, self.opt_state, batch)
-            loss = float(metrics["loss"])
+            loss = _host_float(metrics["loss"])
             dt = time.perf_counter() - t0
             # straggler detection (per-step time watchdog)
             if self._ema_dt is not None and dt > self.tc.straggler_factor * self._ema_dt:
@@ -193,8 +232,8 @@ class Trainer:
                 self._spectral_probe()
             if self.step % log_every == 0:
                 log_fn(
-                    f"step {self.step}: loss={loss:.4f} lr={float(metrics['lr']):.2e} "
-                    f"gnorm={float(metrics['grad_norm']):.2f} dt={dt*1e3:.0f}ms"
+                    f"step {self.step}: loss={loss:.4f} lr={_host_float(metrics['lr']):.2e} "
+                    f"gnorm={_host_float(metrics['grad_norm']):.2f} dt={dt*1e3:.0f}ms"
                 )
         self.ckpt.wait()
         return history
