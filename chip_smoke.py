@@ -23,7 +23,9 @@ before the last line:
    ``spmv_ell_alpha``'s ``w`` equals ``spmv_ell``'s ``y`` bit for bit at the
    main path's shape for every pair, and alpha has the same bits on five
    calls; ``spmv_ell_packed`` also on the chunk that holds phase 4's widest
-   row (its hub: the kernel's wide path);
+   row (its hub: the kernel's wide path), timed there and on the fp8 chunk;
+   ``spmv_bsr`` also at BS 4 and 16 (kron matrices of ~16.8M nnz), timed
+   beside ``torch.mv`` on a BSR tensor;
 3. the main path: ``repro_torch.eigsh`` on a 4.19M-row road network
    (``generate("road", 1 << 22, 2.1)``, the size of the paper's italy_osm)
    with the defaults (FDF): ELL format, ``spmv_ell`` and ``lanczos_update``
@@ -213,6 +215,15 @@ before the last line:
    repro_torch.launch.train --mesh-model 2 --steps 2`` at full width, and
    ``--mesh-model 2`` on a world of one; (f) step walls, the staged
    collectives' share, peaks, the probe's wall, the phase's seconds.
+19. the four user examples (``examples/*_torch.py``) on the card, each
+   imported as a module: the quickstart and the Hessian example as they
+   stand, the spectral example through its helpers (its ``main`` asserts
+   the reference's 0.85, which the reference's non-symmetric graph misses
+   in both packages), ``train_lm_torch.py --full --steps 50`` (mamba2-130m
+   at full width, the monitor's probe at step 50); each one's launches
+   (``spmv_ell`` and ``lanczos_update`` where they lie), wall and peak,
+   and each against the same call on the host from one explicit ``v0``
+   (``EXAMPLE_TOL``; the spectral accuracy within ``EXAMPLE_ACC_TOL``).
 
 ``repro_torch.eigsh`` keeps a cache of prepared sessions, so every call a
 phase reports as cold (``solve``) clears it first; phase 7 prints its
@@ -225,7 +236,8 @@ phase 14's, ``launches_hessian`` from phase 15's training run,
 from phase 17(b)'s probe, ``launches_multistart`` from phase 17(d)'s
 road sweep, the only path that launches the batched
 ``lanczos_update_multi``, so its ``launches`` on the main path are 0, and
-``launches_sharded`` from phase 18(d)'s probe on rank 0; the resources of
+``launches_sharded`` from phase 18(d)'s probe on rank 0,
+``launches_examples`` from phase 19, one count an example; the resources of
 each kernel's main-path instantiation; ``lanczos_update`` also carries
 ``owned_slice``, its record at phase 18's owned slice), and
 as the last line
@@ -542,7 +554,52 @@ def phase_kernels(road, block_csr) -> dict:
         if (S, A) == MAIN_PAIR:
             t_b, by = bound(nbytes(val, bsr.bcol, x) + nbr * bs * A.itemsize, 2.0 * val.numel(), A)
             rec = timed(run, plain, library_bsr(block_csr, S, x), err, t_b, by)
+    rec["block_sizes"] = bsr_block_records(g)
     out["spmv_bsr"] = rec
+    return out
+
+
+# The engine's other BSR block edges, each on kron(road of these rows,
+# dense BS x BS): about 16.8M nnz each, as the BS 8 matrix of the main record.
+BSR_EXTRA_ROWS = {4: 1 << 18, 16: 1 << 14}
+
+
+def bsr_block_records(g) -> dict:
+    """``spmv_bsr`` at BS = 4 and 16 (the kernel's other instantiations):
+    every pair against the plain version, and at FDF's pair the record (bound,
+    device, series and plain ms) beside ``torch.mv`` on a BSR tensor."""
+    from repro_torch.kernels import ref
+    from repro_torch.sparse import generate, to_device_bsr
+
+    fn = kernel_modules()["spmv_bsr"]
+    dev = torch.device("cuda")
+    out = {}
+    for bs, road_rows in BSR_EXTRA_ROWS.items():
+        b = np.random.default_rng(bs).random((bs, bs))
+        small = generate("road", road_rows, 2.1, seed=0)
+        csr = to_port_csr(sp.kron(small.to_scipy(), sp.csr_matrix((b + b.T) / 2)))
+        bsr = to_device_bsr(csr, block_size=bs, dtype=torch.float64, device=dev)
+        nbr, slots, _, _ = bsr.val.shape
+        xb64 = torch.randn(nbr * bs, generator=g, dtype=torch.float64, device=dev)
+        rec = None
+        for S, A in PAIRS:
+            val, x = bsr.val.to(S), xb64.to(S)
+            run = lambda: fn(val, bsr.bcol, x, accum_dtype=A)  # noqa: E731
+            plain = lambda: ref.spmv_bsr_ref(val, bsr.bcol, x, A)  # noqa: E731
+            err = close(run(), plain(), RTOL[A])
+            if (S, A) == MAIN_PAIR:
+                t_b, by = bound(nbytes(val, bsr.bcol, x) + nbr * bs * A.itemsize,
+                                2.0 * val.numel(), A)
+                rec = timed(run, plain, library_bsr(csr, S, x, bs), err, t_b, by)
+                rec.update(n=csr.n, nnz=csr.nnz, layout=f"{nbr} x {slots} x {bs} x {bs}")
+        lib = ("none" if rec["library_ms"] is None else
+               f"device {rec['library_device_ms']:.4f} ms, series {rec['library_ms']:.4f} ms")
+        print(f"[kernels] spmv_bsr BS={bs} {rec['layout']} (n={csr.n:,}, nnz={csr.nnz:,}; every "
+              f"pair ok): (f32, f64) device {rec['device_ms']:.4f} ms, series {rec['ms']:.4f} ms, "
+              f"bound {rec['bound_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms; torch.mv BSR "
+              f"f32 {lib}")
+        out[str(bs)] = rec
+        del bsr, val, x, xb64
     return out
 
 
@@ -605,12 +662,13 @@ def timed(run, plain, lib, err, t_b, by) -> dict:
     }
 
 
-def library_bsr(block_csr, dtype, x):
+def library_bsr(block_csr, dtype, x, bs: int = 8):
     """One PyTorch call for the BSR product (a yardstick, never used by the
-    port): ``torch.sparse_bsr_tensor`` times the vector; None when this
-    build of PyTorch has no BSR matrix-vector product for ``dtype``."""
+    port): ``torch.sparse_bsr_tensor`` of ``bs`` x ``bs`` blocks times the
+    vector; None when this build of PyTorch has no BSR matrix-vector product
+    for ``dtype``."""
     dev = x.device
-    m = block_csr.to_scipy().tobsr(blocksize=(8, 8))
+    m = block_csr.to_scipy().tobsr(blocksize=(bs, bs))
     bsr_t = torch.sparse_bsr_tensor(
         torch.as_tensor(m.indptr.astype(np.int64), device=dev),
         torch.as_tensor(m.indices.astype(np.int64), device=dev),
@@ -653,7 +711,7 @@ def phase_kernels_chunked(big, small, web) -> dict:
     out = {}
     r0, r1 = chunk_row_bounds(big.indptr, big.n, 1 << 20)[0]
     chunks = {"int32": (ell_chunk(big, r0, r1), big.n), "int16": (ell_chunk(small, 0, small.n), small.n)}
-    rec = None
+    recs = {}
     for want_idx, ((val, col), n_x) in chunks.items():
         x64 = torch.randn(n_x, generator=g, dtype=torch.float64, device=dev)
         for mode in ("bf16", "fp8"):
@@ -668,14 +726,16 @@ def phase_kernels_chunked(big, small, web) -> dict:
                 err = close(run(), plain(), RTOL[A])
                 print(f"[kernels] spmv_ell_packed {rows} x {width} ({mode}, {idx}, {dname(S)}, "
                       f"{dname(A)}): max_abs_err {err:.3e} ok")
-                if (mode, idx, S, A) == ("bf16", "int32", *MAIN_PAIR):
-                    nnz = int(np.count_nonzero(val))
-                    touched = int(np.unique(col[val != 0]).size)
-                    moved = nbytes(*packed) + touched * S.itemsize + rows * A.itemsize
-                    t_b, by = bound(moved, 3.0 * nnz, A)
-                    rec = timed(run, plain, None, err, t_b, by)
+                if (idx, S, A) == ("int32", *MAIN_PAIR):
+                    recs[mode] = packed_record(val, col, packed, run, plain, err, S, A)
+    rec = recs["bf16"]
+    rec["fp8"] = recs["fp8"]
+    f8 = rec["fp8"]
+    print(f"[kernels] spmv_ell_packed fp8 chunk (int32, f32, f64): device {f8['device_ms']:.4f} "
+          f"ms, series {f8['ms']:.4f} ms, bound {f8['bound_ms']:.4f} ms, plain "
+          f"{f8['plain_ms']:.4f} ms")
+    rec["hub"] = packed_hub_check(web, g)
     out["spmv_ell_packed"] = rec
-    packed_hub_check(web, g)
     out["spmv_ell_chunk"] = chunk_ell_record(big, (r0, r1), chunks["int32"][0], g)
 
     n = 1 << 22
@@ -705,13 +765,24 @@ def phase_kernels_chunked(big, small, web) -> dict:
     return out
 
 
-def packed_hub_check(web, g) -> None:
+def packed_record(val, col, packed, run, plain, err, S, A) -> dict:
+    """The timed record of one packed chunk; its bound moves the packed
+    arrays, each column of ``x`` the chunk touches and the output once."""
+    nnz = int(np.count_nonzero(val))
+    touched = int(np.unique(col[val != 0]).size)
+    moved = nbytes(*packed) + touched * S.itemsize + packed[0].shape[0] * A.itemsize
+    t_b, by = bound(moved, 3.0 * nnz, A)
+    return timed(run, plain, None, err, t_b, by)
+
+
+def packed_hub_check(web, g) -> dict:
     """``spmv_ell_packed`` on a packed chunk that holds the web graph's widest
     row (its hub): rows ``[hub, hub + 8)``, the width the hub's nnz padded
     to 8, which takes the kernel's wide path; bf16 and fp8, every pair,
     against the plain version.  The hub's row sums a million products that
     cancel, so the error of the sum order is held to ``RTOL`` of the largest
-    row sum of |products|, not of |y|."""
+    row sum of |products|, not of |y|.  Returns {mode: the timed record at
+    FDF's pair}."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.spmv_ell_packed import pack_ell_chunk, packed_launch_plan
 
@@ -720,6 +791,7 @@ def packed_hub_check(web, g) -> None:
     hub = int(web.row_nnz().argmax())
     val, col = ell_chunk(web, hub, min(hub + 8, web.n))
     x64 = torch.randn(web.n, generator=g, dtype=torch.float64, device=dev)
+    recs = {}
     for mode in ("bf16", "fp8"):
         packed = [t.to(dev) for t in pack_ell_chunk(val, col, mode)]
         rows, width = packed[0].shape
@@ -736,6 +808,15 @@ def packed_hub_check(web, g) -> None:
             print(f"[kernels] spmv_ell_packed hub rows {hub:,}+{rows} x {width:,} ({mode}, {idx}, "
                   f"{dname(S)}, {dname(A)}, {path} path): max_abs_err {err:.3e} (sum |products| "
                   f"{float(terms.max()):.3e}) ok")
+            if (S, A) == MAIN_PAIR:
+                run = lambda: fn(*packed, x, accum_dtype=A)  # noqa: E731
+                plain = lambda: ref.spmv_ell_packed_ref(*packed, x, A)  # noqa: E731
+                recs[mode] = packed_record(val, col, packed, run, plain, err, S, A)
+                r = recs[mode]
+                print(f"[kernels] spmv_ell_packed hub ({mode}, f32, f64, {path} path): device "
+                      f"{r['device_ms']:.4f} ms, series {r['ms']:.4f} ms, bound "
+                      f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
+    return recs
 
 
 def chunk_ell_record(big, rows_range, chunk, g) -> dict:
@@ -2387,7 +2468,7 @@ def lm_hvp_card_vs_host(dev="cuda") -> float:
 
     cfg = get_config(LM_ARCH, smoke=True)
     p_host = split_tree(init_model(torch.Generator().manual_seed(1), cfg))[0]
-    b_host = synthetic_batch(cfg, DataConfig(batch=2, seq_len=16, seed=5), 0)
+    b_host = synthetic_batch(cfg, DataConfig(batch=2, seq_len=16, seed=5), 0, device="cpu")
     ops = {}
     for where in ("cpu", dev):
         p = tree.tree_map(lambda t: t.to(where), p_host)
@@ -3647,6 +3728,166 @@ def phase_sharded(smi, dev="cuda", smoke=False) -> dict:
     return {"launches": ranks4[0]["probe_launches"], "kernel": kern}
 
 
+# --------------------------------------------- phase 19: the four user examples
+
+# Card against host, the same call from the same explicit v0, max |dλ| over
+# |λ|max.  quickstart: FDF's f64 Lanczos, sum order only.  spectral: the
+# reference example's graph is not symmetric, so Lanczos amplifies the order
+# of the sums; 1e-6.  hessian: FDF on f32 HVPs (card and host sum the f32
+# products in other orders).  train_lm: an f32 probe of mamba2-130m's full
+# width, 129M-term f32 HVP sums.
+EXAMPLE_TOL = {"quickstart": 1e-9, "spectral_graph": 1e-6, "hessian_spectrum": 1e-4,
+               "train_lm": 1e-3}
+EXAMPLE_ACC_TOL = 1e-3  # spectral clustering accuracy, card against host
+TRAIN_LM_STEPS = 50  # the monitor probes at max(50, steps // 3): once, at step 50
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"example_{name}", os.path.join(ROOT, "examples", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_run(tag, fn, dev, smi) -> tuple:
+    """``fn()`` with the launch counts set to 0 just before and read just
+    after; prints its wall time and peak device memory."""
+    gc.collect()
+    if dev == "cuda":
+        torch.cuda.empty_cache()
+    _reset_peak(dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_launches()
+    peak = _peak(dev)
+    print(f"[examples] {tag}: wall {wall:.2f} s, peak {_gb(peak)}, launches "
+          f"{ {k: v for k, v in launches.items() if v} } on {smi}")
+    return out, launches, {"wall_s": wall, "peak_bytes": peak}
+
+
+def eig_gap(tag, card, host, tol) -> float:
+    """max |card - host| / max |host| of two eigenvalue vectors, checked."""
+    c = np.asarray(card, dtype=np.float64)
+    h = np.asarray(host, dtype=np.float64)
+    err = float(np.abs(c - h).max() / max(np.abs(h).max(), 1e-300))
+    check(err <= tol, f"{tag}: card vs host eigenvalues differ by {err:.3e} (> {tol:.0e})")
+    return err
+
+
+def _evals(res) -> np.ndarray:
+    return res.eigenvalues.detach().cpu().double().numpy()
+
+
+def phase_examples(smi, dev="cuda", host="cpu", smoke=False) -> dict:
+    """Phase 19: the four port examples on the card, each through its own
+    entry points, with its launches, wall and peak; each against the same
+    call on the host from the same explicit ``v0`` (``EXAMPLE_TOL``).
+    ``smoke`` (a rehearsal on the host) runs train_lm at its reduced width."""
+    import dataclasses
+
+    from repro_torch.core.tree import tree_map
+    from repro_torch.models.common import param_count
+    from repro_torch.training import DataConfig
+    from repro_torch.training.data import synthetic_batch
+    from repro_torch.training.spectral import hessian_spectrum
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(19)
+    launches, stats = {}, {}
+
+    # (a) the quickstart as it stands, then its solve card vs host
+    qs = load_example("quickstart_torch")
+    res, launches["quickstart"], stats["quickstart"] = example_run(
+        "(a) quickstart_torch.py", lambda: qs.main(["--device", dev]), dev, smi)
+    ln = launches["quickstart"]
+    check(ln["spmv_ell"] >= 1 and ln["lanczos_update"] >= 1,
+          f"quickstart launched {ln}: spmv_ell and lanczos_update expected")
+    csr = qs.web_graph()
+    v0 = rng.standard_normal(csr.n)
+    err = eig_gap("quickstart", _evals(qs.solve(csr, dev, v0)), _evals(qs.solve(csr, host, v0)),
+                  EXAMPLE_TOL["quickstart"])
+    print(f"[examples] (a) quickstart: format {res.spmv_format}; card vs host from one v0: "
+          f"{err:.3e} of |λ|max (<= {EXAMPLE_TOL['quickstart']:.0e})")
+
+    # (b) spectral clustering through its helpers (main() asserts the
+    # reference's 0.85, which its non-symmetric graph misses in both packages)
+    sg = load_example("spectral_graph_torch")
+    csr, labels = sg.planted_partition()
+    v0 = rng.standard_normal(csr.n)
+    (res, acc), launches["spectral_graph"], stats["spectral_graph"] = example_run(
+        "(b) spectral_graph_torch.py helpers", lambda: sg.cluster(csr, labels, dev, v0=v0), dev,
+        smi)
+    ln = launches["spectral_graph"]
+    check(ln["spmv_ell"] >= 1 and ln["lanczos_update"] >= 1,
+          f"spectral_graph launched {ln}: spmv_ell and lanczos_update expected")
+    host_res, host_acc = sg.cluster(csr, labels, host, v0=v0)
+    err = eig_gap("spectral_graph", _evals(res), _evals(host_res), EXAMPLE_TOL["spectral_graph"])
+    check(abs(acc - host_acc) <= EXAMPLE_ACC_TOL,
+          f"spectral_graph: accuracy {acc:.4f} on the card, {host_acc:.4f} on the host")
+    print(f"[examples] (b) spectral_graph: format {res.spmv_format}; top-4 {_evals(res)}; "
+          f"accuracy {acc:.4f} (host {host_acc:.4f}, <= {EXAMPLE_ACC_TOL:.0e} apart; the "
+          f"reference's 0.85 is not asserted); card vs host {err:.3e} of |λ|max "
+          f"(<= {EXAMPLE_TOL['spectral_graph']:.0e})")
+
+    # (c) the Hessian example as it stands, from one explicit v0 at init
+    hs = load_example("hessian_spectrum_torch")
+    cfg, p_host, _, probe_host = hs.setup(host)
+    v0 = rng.standard_normal(param_count(p_host))
+    host_init = _evals(hs.init_spectrum(p_host, cfg, probe_host, v0=v0))
+    del p_host, probe_host
+    out, launches["hessian_spectrum"], stats["hessian_spectrum"] = example_run(
+        "(c) hessian_spectrum_torch.py", lambda: hs.main(["--device", dev], v0=v0), dev, smi)
+    ln = launches["hessian_spectrum"]
+    check(ln["lanczos_update"] >= 1, f"hessian_spectrum launched {ln}: lanczos_update expected")
+    check(sorted(out["steps"]) == [40, 80] and all(np.isfinite(out["fff"])),
+          f"hessian_spectrum: probes at steps {sorted(out['steps'])}, FFF {out['fff']}")
+    err = eig_gap("hessian_spectrum", out["init"], host_init, EXAMPLE_TOL["hessian_spectrum"])
+    print(f"[examples] (c) hessian_spectrum: init top-4 {out['init']} (host {host_init}; "
+          f"{err:.3e} of |λ|max, <= {EXAMPLE_TOL['hessian_spectrum']:.0e}); steps 40 / 80 "
+          f"{out['steps'][40]} / {out['steps'][80]}; FFF {out['fff']}")
+
+    # (d) train_lm: mamba2-130m at full width; the monitor probes at step 50
+    tl = load_example("train_lm_torch")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_lm_")
+    try:
+        argv = ["--device", dev, "--steps", str(TRAIN_LM_STEPS), "--ckpt-dir", tmp]
+        argv += ["--batch", "2", "--seq", "16"] if smoke else ["--full"]
+        tr, launches["train_lm"], stats["train_lm"] = example_run(
+            "(d) train_lm_torch.py " + " ".join(argv[2:]), lambda: tl.main(argv), dev, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ln = launches["train_lm"]
+    n = param_count(tr.params)
+    check(ln["lanczos_update"] >= 1, f"train_lm launched {ln}: lanczos_update expected")
+    check(list(tr.spectra) == [TRAIN_LM_STEPS] and np.all(np.isfinite(tr.spectra[TRAIN_LM_STEPS])),
+          f"train_lm: monitor probes {tr.spectra}")
+    check(smoke or n == 129_001_920, f"train_lm --full: {n:,} params, expected 129,001,920")
+    # card vs host: an f32 probe of the trained weights on a short batch
+    cfg32 = dataclasses.replace(tr.cfg, compute_dtype=torch.float32)
+    batch = synthetic_batch(cfg32, DataConfig(batch=1, seq_len=16, seed=0), 10**6, device=host)
+    v0 = rng.standard_normal(n)
+    got = {}
+    for where in (dev, host):
+        p = tr.params if where == dev else tree_map(lambda t: t.detach().to(host), tr.params)
+        b = {k: t.to(where) for k, t in batch.items()}
+        got[where] = _evals(hessian_spectrum(p, cfg32, b, k=3, num_iters=6, v0=v0))
+        del p
+    err = eig_gap("train_lm", got[dev], got[host], EXAMPLE_TOL["train_lm"])
+    print(f"[examples] (d) train_lm: n = {n:,}; monitor @ step {TRAIN_LM_STEPS} "
+          f"{tr.spectra[TRAIN_LM_STEPS]}; f32 probe card {got[dev]} vs host {got[host]}: "
+          f"{err:.3e} of |λ|max (<= {EXAMPLE_TOL['train_lm']:.0e})")
+    del tr
+    print(f"[examples] phase 19 took {time.perf_counter() - t_phase:.1f} s on {smi}")
+    return {"launches": launches, "stats": stats}
+
+
 def phase_device() -> str:
     """Phase 1: the card's name and power limit (``nvidia-smi``, returned),
     the versions, and the build of the kernels with each new kernel's
@@ -3874,6 +4115,9 @@ def main() -> int:
     sh = phase_sharded(smi)
     records["lanczos_update"]["owned_slice"] = sh["kernel"]
 
+    # ---- phase 19: the four user examples
+    ex = phase_examples(smi)
+
     launches = {
         "spmv_ell": main_launches["spmv_ell"],
         "lanczos_update": main_launches["lanczos_update"],
@@ -3895,6 +4139,7 @@ def main() -> int:
              "launches_encdec_vlm": ev["launches_encdec_vlm"][name],
              "launches_multistart": ev["launches_multistart"][name],
              "launches_sharded": sh["launches"][name],
+             "launches_examples": {ex_name: ln[name] for ex_name, ln in ex["launches"].items()},
              **records[name], **analysis[name]}
         )
     print(smi)

@@ -39,14 +39,12 @@ CHECKS = ("precision", "kernels", "concurrency", "config")
 
 
 def resolve_device(device: Optional[str] = None) -> str:
-    """``device`` as given, or, for None, the card when one is visible and
-    the CPU otherwise (the CPU passes run the kernels' plain versions and
-    skip the library's attribute reads)."""
-    if device is not None:
-        return device
-    import torch
+    """The device type the passes run on: ``device`` as given, the card for
+    None.  Without a visible card the card raises (the session's error, which
+    names ``device="cpu"``): the passes never fall back to the host."""
+    from .._device import resolve_device as _resolve
 
-    return "cuda" if torch.cuda.is_available() else "cpu"
+    return _resolve(device).type
 
 
 def run_checks(

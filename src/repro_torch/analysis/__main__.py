@@ -33,8 +33,8 @@ def main(argv=None) -> int:
                         help="run only this pass (repeatable; default: all)")
     parser.add_argument("--strict", action="store_true", help="exit 1 on any finding")
     parser.add_argument("--device", choices=("cpu", "cuda"), default=None,
-                        help="where the precision and kernels passes run (default: the card "
-                        "when one is visible, else the CPU)")
+                        help="where the precision and kernels passes run (default: the card; "
+                        "without one the run fails, so pass --device cpu for the host)")
     parser.add_argument("--repo-root", default=".",
                         help="tree the AST passes lint (default: cwd)")
     parser.add_argument("--summary-out", default=None,

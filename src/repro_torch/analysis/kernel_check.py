@@ -38,7 +38,7 @@ from __future__ import annotations
 import dataclasses
 import re
 from pathlib import Path
-from typing import Callable, Dict, Iterable, List, Optional, Sequence
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Union
 
 from .findings import Finding, Findings
 
@@ -276,20 +276,23 @@ ROW_COUNTS = (0, 1, 7, 8, 9, 255, 256, 257, 4096, 261_816, 1 << 22, _SHARD4, _CE
 
 
 def check_lane_plans(plan: Optional[Callable] = None, *, widths: Sequence[int] = ELL_WIDTHS,
-                     rows: Sequence[int] = ROW_COUNTS, sms: int = H100_SMS) -> Findings:
+                     rows: Sequence[int] = ROW_COUNTS, sms: int = H100_SMS,
+                     sizes: Sequence[int] = (2, 4, 8)) -> Findings:
     """K001 over every (width, element size, alignment): the plan's lanes
     divide a warp, the C side accepts the plan, and the grid of every row
     count stays within ``2^31 - 1`` blocks.  ``plan`` defaults to the
     kernels' own (``ell_launch_plan`` for 2-, 4- and 8-byte values, then
-    ``packed_launch_plan`` for 2- and 4-byte deltas)."""
+    ``packed_launch_plan`` for 2- and 4-byte deltas); ``sizes`` keeps the
+    value and delta element sizes swept."""
     from ..kernels.spmv_ell import MAX_BLOCKS_PER_SM, ell_launch_plan
     from ..kernels.spmv_ell_packed import PACKED_SLOTS, packed_launch_plan
 
     if plan is not None:
-        cases = [("custom", plan, s, 16 // s) for s in (2, 4, 8)]
+        cases = [("custom", plan, s, 16 // s) for s in (2, 4, 8) if s in sizes]
     else:
-        cases = [("spmv_ell", ell_launch_plan, s, 16 // s) for s in (2, 4, 8)]
-        cases += [("spmv_ell_packed", packed_launch_plan, d, PACKED_SLOTS) for d in (2, 4)]
+        cases = [("spmv_ell", ell_launch_plan, s, 16 // s) for s in (2, 4, 8) if s in sizes]
+        cases += [("spmv_ell_packed", packed_launch_plan, d, PACKED_SLOTS) for d in (2, 4)
+                  if d in sizes]
     out: List[Finding] = []
     for kernel, fn, size, vec in cases:
         bad = 0
@@ -343,7 +346,8 @@ def check_index_bounds(layouts: Iterable[Layout] = LAYOUTS, exprs=INDEX_EXPRS,
 
 def check_partials(*, rows: Sequence[int] = ROW_COUNTS, widths: Sequence[int] = ELL_WIDTHS,
                    per_sm: Optional[Dict[str, int]] = None, update_blocks=None,
-                   sms: int = H100_SMS, sources: Optional[Dict[str, str]] = None) -> Findings:
+                   sms: int = H100_SMS, sources: Optional[Dict[str, str]] = None,
+                   sizes: Sequence[int] = (2, 4, 8)) -> Findings:
     """K002: the partial buffers cover the grids that write them.
 
     ``spmv_ell_alpha`` allocates ``ell_max_blocks`` partials; its grid is
@@ -351,7 +355,8 @@ def check_partials(*, rows: Sequence[int] = ROW_COUNTS, widths: Sequence[int] = 
     SM (``per_sm``, on the card: each instantiation's measured occupancy).
     ``lanczos_update`` allocates ``repro_update_blocks(n)`` (``update_blocks``,
     on the card: the library's own function) and launches ``update_blocks(n)``
-    blocks, at most ``kMaxUpdateBlocks``."""
+    blocks, at most ``kMaxUpdateBlocks``.  ``sizes``: the value element
+    sizes swept."""
     from ..kernels.spmv_ell import MAX_BLOCKS_PER_SM, ell_launch_plan, ell_max_blocks
 
     out: List[Finding] = []
@@ -362,7 +367,7 @@ def check_partials(*, rows: Sequence[int] = ROW_COUNTS, widths: Sequence[int] = 
                                        f"{MAX_BLOCKS_PER_SM} its partials are sized for",
                                context="spmv_ell_alpha"))
     most = max([MAX_BLOCKS_PER_SM, *occ.values()])
-    for size in (2, 4, 8):
+    for size in sizes:
         for width in widths:
             lanes, path = ell_launch_plan(width, size, True)
             for r in rows:
@@ -485,18 +490,31 @@ def format_attrs(attrs: Iterable[dict]) -> str:
 # ------------------------------------------------------------------ run
 
 
-def run(device="cpu") -> Findings:
-    """The sweep: K001, K002 and K004 everywhere; on ``device="cuda"`` also
-    K003 and the occupancy and ``repro_update_blocks`` parts of K002 from the
-    built library."""
+def run(device="cuda", *, rows: Union[int, Sequence[int]] = ROW_COUNTS,
+        width: Union[int, Sequence[int]] = ELL_WIDTHS, dtypes=None) -> Findings:
+    """The sweep: K001, K002 and K004 everywhere; on the card (the default;
+    ``device="cpu"`` for the host) also K003 and the occupancy and
+    ``repro_update_blocks`` parts of K002 from the built library.
+
+    ``rows`` and ``width`` (one or several) are the row counts and ELL widths
+    the lane plans and partial buffers are checked at, ``dtypes`` the storage
+    dtypes whose element sizes they sweep (default: every size a kernel
+    takes), as the reference's sweep takes them."""
     import torch
 
+    from .._device import resolve_device
+
+    on_card = resolve_device(device).type == "cuda"
+    rows = (rows,) if isinstance(rows, int) else tuple(rows)
+    widths = (width,) if isinstance(width, int) else tuple(width)
+    sizes = (2, 4, 8) if dtypes is None else tuple(
+        sorted({torch.empty((), dtype=dt).element_size() for dt in dtypes}))
     findings: List[Finding] = []
     findings += check_launch_constants()
-    findings += check_lane_plans()
+    findings += check_lane_plans(widths=widths, rows=rows, sizes=sizes)
     findings += check_index_bounds()
     per_sm, update_blocks = None, None
-    if torch.device(device).type == "cuda":
+    if on_card:
         from ..kernels import build
 
         attrs = read_kernel_attrs()
@@ -504,7 +522,8 @@ def run(device="cpu") -> Findings:
         per_sm = {a["name"]: a["occupancy"] for a in attrs
                   if a["name"].startswith("spmv_ell_alpha_kernel")}
         update_blocks = build.load().repro_update_blocks
-    findings += check_partials(per_sm=per_sm, update_blocks=update_blocks)
+    findings += check_partials(rows=rows, widths=widths, per_sm=per_sm,
+                               update_blocks=update_blocks, sizes=sizes)
     for path in sorted(CSRC.glob("*.cu*")):
         findings += check_atomics(path.read_text(encoding="utf-8"), _rel(path.name))
     findings += check_cross_block()

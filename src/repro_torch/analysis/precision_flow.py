@@ -28,7 +28,8 @@ the reference's one-device ``shard_map``.
 
 The counts of a session's own solve are what ``REPRO_PRECISION_MEASURE=1``
 surfaces as ``partition["spmv"]["precision"]["ops_by_dtype_measured"]``
-(:func:`measure_session_ops`).
+(:func:`measure_solve`; :func:`measure_session_ops` counts one solve of an
+operator, as the reference's does).
 """
 
 from __future__ import annotations
@@ -62,6 +63,7 @@ __all__ = [
     "trace_phases",
     "measure_ops_by_dtype",
     "measure_session_ops",
+    "measure_solve",
     "check_run",
     "check_policy",
     "run",
@@ -321,11 +323,21 @@ def _build_runs(pol: PrecisionPolicy, engine: str, mode: str, *, n: int, m: int,
     return phases, full, pr.n, nnz_exec
 
 
+def _mode(mode: str, fused: Optional[bool]) -> str:
+    """The update mode: ``mode``, or the reference's ``fused=`` flag when
+    given (True: "fused", False: "unfused")."""
+    if fused is None:
+        return mode
+    return "fused" if fused else "unfused"
+
+
 def trace_phases(policy, engine: str = "single", *, mode: str = "unfused", n: int = 64,
                  m: int = 8, k: int = 4, reorth: str = "full", jacobi: str = "host",
-                 device="cuda") -> Dict[str, Dict[str, int]]:
+                 device="cuda", fused: Optional[bool] = None) -> Dict[str, Dict[str, int]]:
     """{phase: ops per dtype} of one (policy, engine, mode), each phase's
-    callable run once on sample operands."""
+    callable run once on sample operands.  ``fused=`` takes the reference's
+    spelling of ``mode``."""
+    mode = _mode(mode, fused)
     phases, _, _, _ = _build_runs(_policy(policy), engine, mode, n=n, m=m, k=k,
                                   reorth=reorth, jacobi=jacobi, device=device)
     return phases
@@ -333,9 +345,11 @@ def trace_phases(policy, engine: str = "single", *, mode: str = "unfused", n: in
 
 def measure_ops_by_dtype(policy, engine: str = "single", *, mode: str = "unfused",
                          n: int = 64, m: int = 8, k: int = 4, reorth: str = "full",
-                         jacobi: str = "host", device="cuda") -> Dict[str, int]:
-    """Measured element ops per dtype of one whole solve."""
-    _, full, _, _ = _build_runs(_policy(policy), engine, mode, n=n, m=m, k=k,
+                         jacobi: str = "host", device="cuda",
+                         fused: Optional[bool] = None) -> Dict[str, int]:
+    """Measured element ops per dtype of one whole solve (``fused=``: as in
+    :func:`trace_phases`)."""
+    _, full, _, _ = _build_runs(_policy(policy), engine, _mode(mode, fused), n=n, m=m, k=k,
                                 reorth=reorth, jacobi=jacobi, device=device)
     return full.ops_by_dtype()
 
@@ -374,11 +388,14 @@ def check_run(policy, counter: OpCounter, *, n: int, nnz: int, m: int, k: int,
 
 def check_policy(policy, engine: str = "single", *, mode: str = "unfused", n: int = 64,
                  m: int = 8, k: int = 4, reorth: str = "full", jacobi: str = "host",
-                 parity_ratio: float = 8.0, device="cuda") -> Tuple[Findings, Dict[str, int]]:
+                 parity_ratio: float = 8.0, device="cuda",
+                 fused: Optional[bool] = None) -> Tuple[Findings, Dict[str, int]]:
     """All four precision rules for one (policy, engine, mode): P003 per
     phase, then :func:`check_run` on the whole solve.  Returns
-    ``(findings, measured_ops_by_dtype)``."""
+    ``(findings, measured_ops_by_dtype)``.  ``fused=``: as in
+    :func:`trace_phases`."""
     pol = _policy(policy)
+    mode = _mode(mode, fused)
     ctx = f"{pol.name}/{engine}/{mode}"
     phases, full, n_model, nnz_exec = _build_runs(pol, engine, mode, n=n, m=m, k=k,
                                                   reorth=reorth, jacobi=jacobi, device=device)
@@ -390,13 +407,19 @@ def check_policy(policy, engine: str = "single", *, mode: str = "unfused", n: in
     return findings, full.ops_by_dtype()
 
 
-def run(rungs: Iterable[str] = RUNGS, engines: Iterable[str] = ENGINES, device="cuda",
-        **kw) -> Findings:
-    """The sweep: every rung x engine x the update modes the engine resolves."""
+def run(rungs: Iterable[str] = RUNGS, engines: Iterable[str] = ENGINES,
+        modes: Optional[Iterable] = None, device="cuda", **kw) -> Findings:
+    """The sweep: every rung x engine x the update modes the engine resolves,
+    or, with ``modes``, those of them that are named (mode names, or the
+    reference's ``fused`` flags: False for "unfused", True for "fused")."""
+    wanted = None if modes is None else {
+        m if isinstance(m, str) else _mode("unfused", bool(m)) for m in modes}
     findings: List[Finding] = []
     for name in rungs:
         for eng in engines:
             for mode in ENGINE_MODES[eng]:
+                if wanted is not None and mode not in wanted:
+                    continue
                 fs, _ = check_policy(POLICIES[name], eng, mode=mode, device=device, **kw)
                 findings.extend(fs)
     return findings
@@ -405,10 +428,29 @@ def run(rungs: Iterable[str] = RUNGS, engines: Iterable[str] = ENGINES, device="
 # ------------------------------------------------------ session integration
 
 
-def measure_session_ops(solve: Callable, *args, **kwargs):
+def measure_solve(solve: Callable, *args, **kwargs):
     """Run a session's own solve under the op counter (behind
     ``REPRO_PRECISION_MEASURE``): ``(result, ops_by_dtype_measured)``.  The
     counter only observes: the result has the same bits as an uncounted run."""
     with OpCounter() as counter:
         out = solve(*args, **kwargs)
     return out, counter.ops_by_dtype()
+
+
+def measure_session_ops(policy, operator, *, backend: str, m: int, k: int, reorth: str,
+                        jacobi: str = "host") -> Dict[str, int]:
+    """``ops_by_dtype_measured`` of one solve of a session's ``operator``
+    under ``policy``, as the reference's: ``m`` Lanczos steps and the Ritz
+    step of ``k`` pairs (``backend="restarted"``: one restart cycle of ``m``,
+    reorthogonalized in full as the restarted engine always is)."""
+    pol = _policy(policy)
+    with OpCounter() as counter:
+        if backend == "restarted":
+            from ..core.restarted import solve_restarted
+
+            solve_restarted(operator, k, pol, m=m, max_restarts=1)
+        else:
+            from ..core.eigensolver import solve_fixed
+
+            solve_fixed(operator, k, pol, reorth=reorth, num_iters=m, jacobi=jacobi)
+    return counter.ops_by_dtype()

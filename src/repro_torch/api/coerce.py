@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..configs import env as envcfg
 from ..core.operators import CallableOperator, DenseOperator, LinearOperator
 from ..sparse.diskcsr import DiskCSR, diskcsr_fingerprint, is_diskcsr, open_diskcsr
@@ -128,7 +129,7 @@ def coerce_input(
     *,
     n: Optional[int] = None,
     storage_dtype=torch.float32,
-    device="cpu",
+    device="cuda",
     fingerprint: Optional[str] = None,
     want_fingerprint: bool = False,
 ) -> CoercedInput:
@@ -140,6 +141,7 @@ def coerce_input(
     already known (the session cache probes before coercing), or
     ``want_fingerprint=True`` to compute it here (scipy inputs, whose digest
     is of the converted CSR)."""
+    device = resolve_device(device)
     if isinstance(a, LinearOperator):
         return CoercedInput(operator=a, csr=None, n=int(a.n))
 

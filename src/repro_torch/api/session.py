@@ -67,6 +67,7 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..configs import env as envcfg
 from ..core.distributed import PreparedShards, ShardComm, prepare_sharded, solve_sharded
 from ..core.eigensolver import (
@@ -145,19 +146,6 @@ _AUTO_PLAN_POLICY = "FFF"
 # lanes, so neither package imports the other's plans.
 _EXPORT_SCHEMA = 1
 _PACKAGE = "repro_torch"
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device; a CUDA device must be visible."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={str(device)!r} but no CUDA device is visible; pass device='cpu' "
-            "to run the plain versions on the host"
-        )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev
 
 
 def policy_key(policy: Union[str, PrecisionPolicy]) -> str:
@@ -1028,9 +1016,9 @@ class EigenSession:
         which changes no bit of its result."""
         if not envcfg.get_bool("REPRO_PRECISION_MEASURE"):
             return solve(*args, **kwargs), None
-        from ..analysis.precision_flow import measure_session_ops
+        from ..analysis.precision_flow import measure_solve
 
-        return measure_session_ops(solve, *args, **kwargs)
+        return measure_solve(solve, *args, **kwargs)
 
     def _finish(self, q: _NormQuery, prep: _Prepared, built: bool, *, eigenvalues, eigenvectors,
                 residuals, evals_f64, iterations, restarts, timings, partition, tridiag,

@@ -29,6 +29,7 @@ from .precision import (
     PHASES,
     POLICIES,
     PrecisionPolicy,
+    assert_phase_count_parity,
     auto_ladder,
     phase_op_counts,
 )

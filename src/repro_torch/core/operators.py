@@ -18,6 +18,7 @@ from typing import Callable, Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..analysis.op_count import host_scope
 from ..kernels.engine import SpmvEngine
 from ..sparse.diskcsr import DiskCSR
@@ -164,7 +165,10 @@ class CallableOperator(LinearOperator):
 
     fn: Callable
     n: int
-    device: str = "cpu"
+    device: str = "cuda"
+
+    def __post_init__(self):
+        self.device = str(resolve_device(self.device))
 
     def matvec(self, x, accum_dtype=None):
         y = self.fn(x)
@@ -335,7 +339,7 @@ def make_operator(csr: CSR, impl: str = "coo", dtype=torch.float32,
     if engine is None:
         if impl not in _IMPLS:
             raise ValueError(f"unknown operator impl {impl!r}; expected one of {_IMPLS}")
-        dev = torch.device(device if device is not None else "cuda")
+        dev = resolve_device(device)
         if impl == "coo":
             return SparseOperator(to_device_coo(csr, dtype=dtype, device=dev), impl="coo")
         if impl in ("ell", "ell_kernel"):
@@ -467,8 +471,8 @@ class ChunkedOperator(LinearOperator):
         self.n = csr.n
         self._dtype = dtype
         self.engine = engine
-        self.device = torch.device(device if device is not None else
-                                   (engine.device if engine is not None else "cuda"))
+        self.device = resolve_device(device if device is not None else
+                                     (engine.device if engine is not None else "cuda"))
         self.stage_depth = max(0, int(stage_depth))
         self.spmv_format = engine.format if engine is not None else "coo"
         if self.spmv_format in ("bsr", "hybrid"):

@@ -26,6 +26,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..sparse.formats import CSR, padded_col_map
 
 __all__ = ["PartitionedMatrix", "nnz_balanced_splits", "partition_matrix"]
@@ -96,7 +97,7 @@ def partition_matrix(
     with_coo: bool = True,
     splits: Optional[np.ndarray] = None,
     shards: Optional[Sequence[int]] = None,
-    device="cpu",
+    device="cuda",
 ) -> PartitionedMatrix:
     """Build the paper's nnz-balanced partition as padded COO shards.
 
@@ -108,6 +109,7 @@ def partition_matrix(
     all).  ``nnz_align`` pads each shard's triplets to a common multiple
     (the reference's 128 is a TPU lane count; the port's layouts pad to 8).
     """
+    device = resolve_device(device)
     n = csr.n
     if splits is None:
         splits = nnz_balanced_splits(csr.indptr, num_shards)

@@ -111,6 +111,9 @@ class PrecisionPolicy:
         """Identity: float64 is always available in PyTorch."""
         return self
 
+    def short(self) -> str:
+        return self.name
+
 
 FFF = PrecisionPolicy("FFF", torch.float32, torch.float32, torch.float32)
 FDF = PrecisionPolicy("FDF", torch.float32, torch.float64, torch.float32)

@@ -3,7 +3,7 @@ the public wrappers (``ops``) and the SpMV engine (``engine``).  Importing
 this package builds nothing: the CUDA library is built at first launch."""
 
 from . import engine, ops, ref
-from .engine import SpmvEngine, choose_format, make_engine
+from .engine import SpmvEngine, choose_format, make_engine, select_tiles
 
 __all__ = [
     "engine",
@@ -12,4 +12,5 @@ __all__ = [
     "SpmvEngine",
     "choose_format",
     "make_engine",
+    "select_tiles",
 ]

@@ -666,6 +666,9 @@ class SpmvStats:
     hyb_overhead: float = 0.0
     hyb_tail_frac: float = 0.0
 
+    def as_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
 
 def hybrid_quantile() -> float:
     return _env_float("REPRO_SPMV_HYBRID_Q", HYBRID_QUANTILE)
@@ -854,17 +857,22 @@ class SpmvEngine:
         holds ``n_cols`` columns (default ``nbr * BS``)."""
         return kops.bsr_matvec(val, bcol, x, self.accum_dtype, n_cols)
 
-    def hybrid_matvec(self, mat, x) -> torch.Tensor:
-        """Hub-split SpMV on a ``DeviceHybrid``: the ELL kernel over the
-        capped part plus a deterministic segmented sum over the row-ordered
-        tail.  Returns (n_rows,) in the accum dtype."""
-        from ..sparse.formats import segment_sum
+    def hybrid_matvec(self, val, col, tail_row=None, tail_col=None, tail_val=None, x=None,
+                      n_rows=None) -> torch.Tensor:
+        """Hub-split SpMV: the ELL kernel over the capped part plus a
+        deterministic segmented sum over the row-ordered tail.  Returns
+        (n_rows,) in the accum dtype.
 
-        acc = self.accum_dtype
-        y = self.ell_matvec(mat.ell_val, mat.ell_col, x)[: mat.n_rows]
-        t = mat.tail_nnz
-        prod = mat.tail_val[:t].to(acc) * x.index_select(0, mat.tail_col[:t]).to(acc)
-        return y + segment_sum(prod, mat.tail_offsets)
+        Takes a ``DeviceHybrid`` and ``x`` (``hybrid_matvec(mat, x)``) or the
+        reference's arrays ``(val, col, tail_row, tail_col, tail_val, x,
+        n_rows)``: a row-sorted tail with its zero padding behind it."""
+        from ..sparse.formats import DeviceHybrid, hybrid_from_arrays
+
+        if isinstance(val, DeviceHybrid):
+            mat, x = val, col
+        else:
+            mat = hybrid_from_arrays(val, col, tail_row, tail_col, tail_val, n_rows)
+        return mat.matvec(x, accum_dtype=self.accum_dtype)
 
     def spmv(self, mat, x, accum_dtype=None) -> torch.Tensor:
         """SpMV on a device container (DeviceCOO/ELL/BSR/Hybrid)."""

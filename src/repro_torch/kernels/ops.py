@@ -101,10 +101,14 @@ def spmv_ell_packed(val, scale, base, dcol, x, n_rows: int, accum_dtype=None) ->
     return packed_ell_matvec(val, scale, base, dcol, x, acc)[:n_rows]
 
 
-def spmv_bsr(mat, x, accum_dtype=None) -> torch.Tensor:
-    """SpMV on a ``DeviceBSR``; ``(n_rows,)`` in the accum dtype."""
+def spmv_bsr(blocked, x, accum_dtype=None) -> torch.Tensor:
+    """SpMV on a ``DeviceBSR``, or on the reference's ``(val, bcol,
+    n_rows)`` tuple of a square matrix; ``(n_rows,)`` in the accum dtype."""
     acc = accum_dtype or torch.float32
-    return bsr_matvec(mat.val, mat.bcol, x, acc, mat.n_cols)[: mat.n_rows]
+    if isinstance(blocked, tuple):
+        val, bcol, n_rows = blocked
+        return bsr_matvec(val, bcol, x, acc, x.shape[0])[:n_rows]
+    return bsr_matvec(blocked.val, blocked.bcol, x, acc, blocked.n_cols)[: blocked.n_rows]
 
 
 def spmv_ell_alpha(mat, x, v, accum_dtype=None):

@@ -23,6 +23,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from .._device import resolve_device
 from ..distributed.sharding import (
     current_ctx,
     from_local,
@@ -254,10 +255,11 @@ def project_kv_only(p, cfg: ModelConfig, x: torch.Tensor):
     return k, v
 
 
-def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device="cpu",
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None, device="cuda",
                lead: Tuple[int, ...] = ()) -> AttnCache:
     """An empty cache of ``max_len`` slots (``lead`` stacks independent
     caches on leading axes: the layer stack)."""
+    device = resolve_device(device)
     dtype = dtype or (torch.int8 if cfg.kv_cache_dtype == "int8" else cfg.compute_dtype)
     kv, hd = cfg.n_kv_heads, cfg.hd
     lead = tuple(lead)

@@ -15,6 +15,7 @@ from typing import Any, Optional, Tuple
 
 import torch
 
+from .._device import resolve_device
 from ..core import tree as _tree
 
 __all__ = [
@@ -188,8 +189,8 @@ def apply_rope(x: torch.Tensor, pos: torch.Tensor, theta: float,
 
 
 def make_positions(batch: int, seq: int, offset=0, mrope: bool = False,
-                   device="cpu") -> torch.Tensor:
-    p = torch.arange(seq, dtype=torch.int32, device=device)[None, :] + offset
+                   device="cuda") -> torch.Tensor:
+    p = torch.arange(seq, dtype=torch.int32, device=resolve_device(device))[None, :] + offset
     p = p.expand(batch, seq)
     if mrope:
         return p[None].expand(3, batch, seq)

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from .._device import resolve_device
 from ..core import tree as _tree
 from ..distributed.sharding import as_dtensor, from_local, hint, settle, to_local
 from .attention import (
@@ -643,10 +644,11 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
-def params_from_numpy(tree, device="cpu"):
+def params_from_numpy(tree, device="cuda"):
     """A tree of NumPy arrays (dicts and lists, as ``jax.device_get`` gives
     the reference's params) as the port's tree of tensors on ``device``,
     element for element."""
+    device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -26,6 +26,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from .._device import resolve_device
 from ..distributed.sharding import hint
 from .common import Leaf, ModelConfig, dense_init
 
@@ -118,8 +119,9 @@ def rglru_block(p, cfg: ModelConfig, x: torch.Tensor):
     return hint(y, "batch", "seq", "act_embed"), state
 
 
-def init_rglru_state(cfg: ModelConfig, batch: int, device="cpu",
+def init_rglru_state(cfg: ModelConfig, batch: int, device="cuda",
                      lead: Tuple[int, ...] = ()) -> RGLRUState:
+    device = resolve_device(device)
     w, lead = cfg.lru_width or cfg.d_model, tuple(lead)
     return RGLRUState(
         h=torch.zeros(lead + (batch, w), dtype=torch.float32, device=device),

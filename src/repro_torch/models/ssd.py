@@ -18,6 +18,7 @@ from typing import NamedTuple, Tuple
 import torch
 import torch.nn.functional as F
 
+from .._device import resolve_device
 from ..distributed.sharding import hint, keep_layout, split_last
 from .common import Leaf, ModelConfig, dense_init, rms_norm
 from .rglru import _causal_conv  # the same depthwise causal conv
@@ -139,8 +140,9 @@ def ssd_block(p, cfg: ModelConfig, u: torch.Tensor):
     return out, SSDState(h=hf, conv=conv_tail)
 
 
-def init_ssd_state(cfg: ModelConfig, batch: int, device="cpu",
+def init_ssd_state(cfg: ModelConfig, batch: int, device="cuda",
                    lead: Tuple[int, ...] = ()) -> SSDState:
+    device = resolve_device(device)
     _, nh, hp, n, conv_dim = _dims(cfg)
     lead = tuple(lead)
     return SSDState(

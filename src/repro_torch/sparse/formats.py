@@ -35,6 +35,8 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from .._device import resolve_device
+
 __all__ = [
     "CSR",
     "DeviceCOO",
@@ -54,6 +56,7 @@ __all__ = [
     "shard_to_blocked_ell",
     "shard_to_hybrid",
     "shard_hybrid_container",
+    "hybrid_from_arrays",
     "from_reference",
     "conversion_count",
     "count_conversions",
@@ -101,6 +104,9 @@ class CSR:
         import scipy.sparse as sp
 
         return sp.csr_matrix((self.data, self.indices, self.indptr), shape=self.shape)
+
+    def toarray(self) -> np.ndarray:
+        return self.to_scipy().toarray()
 
 
 def csr_from_coo(
@@ -152,6 +158,10 @@ class DeviceCOO:
     n_rows: int
     n_cols: int
 
+    @property
+    def nnz(self) -> int:
+        return int(self.val.shape[0])
+
     def matvec(self, x: torch.Tensor, accum_dtype=None) -> torch.Tensor:
         """``A @ x`` for ``x`` of shape ``(n,)``, or ``A @ X`` for an ``(n, B)``
         block: one segmented sum over the ``(nnz, B)`` products, so the
@@ -177,6 +187,14 @@ class DeviceELL:
     def width(self) -> int:
         return int(self.val.shape[1])
 
+    def matvec(self, x: torch.Tensor, accum_dtype=None) -> torch.Tensor:
+        """``A @ x`` in ``accum_dtype`` (default: the storage dtype, as in the
+        reference): the ``spmv_ell`` kernel on the card (``x`` in the storage
+        dtype), its plain version on the host."""
+        from ..kernels import ops  # lazy: sparse sits below kernels
+
+        return ops.spmv_ell(self, x, accum_dtype or self.val.dtype)
+
 
 @dataclasses.dataclass
 class DeviceHybrid:
@@ -201,6 +219,22 @@ class DeviceHybrid:
     def width(self) -> int:
         return int(self.ell_val.shape[1])
 
+    @property
+    def tail_slots(self) -> int:
+        return int(self.tail_val.shape[0])
+
+    def matvec(self, x: torch.Tensor, accum_dtype=None) -> torch.Tensor:
+        """``A @ x`` in ``accum_dtype`` (default: the storage dtype): the
+        ``spmv_ell`` kernel (or its plain version on the host) over the capped
+        part plus a deterministic segmented sum over the row-ordered tail."""
+        from ..kernels import ops  # lazy: sparse sits below kernels
+
+        acc = accum_dtype or self.ell_val.dtype
+        y = ops.ell_matvec(self.ell_val, self.ell_col, x, acc)[: self.n_rows]
+        t = self.tail_nnz
+        prod = self.tail_val[:t].to(acc) * x.index_select(0, self.tail_col[:t]).to(acc)
+        return y + segment_sum(prod, self.tail_offsets)
+
 
 @dataclasses.dataclass
 class DeviceBSR:
@@ -211,6 +245,21 @@ class DeviceBSR:
     bcol: torch.Tensor  # (n_block_rows, slots) int32
     n_rows: int
     n_cols: int
+
+    @property
+    def block_size(self) -> int:
+        return int(self.val.shape[2])
+
+    @property
+    def slots(self) -> int:
+        return int(self.val.shape[1])
+
+    def matvec(self, x: torch.Tensor, accum_dtype=None) -> torch.Tensor:
+        """``A @ x`` in ``accum_dtype`` (default: the storage dtype): the
+        ``spmv_bsr`` kernel on the card, its plain version on the host."""
+        from ..kernels import ops  # lazy: sparse sits below kernels
+
+        return ops.spmv_bsr(self, x, accum_dtype or self.val.dtype)
 
 
 def _tensor(a: np.ndarray, dtype, device) -> torch.Tensor:
@@ -228,7 +277,8 @@ def _row_positions(csr: CSR) -> Tuple[np.ndarray, np.ndarray]:
     return rix, pos
 
 
-def to_device_coo(csr: CSR, dtype=torch.float32, device="cpu") -> DeviceCOO:
+def to_device_coo(csr: CSR, dtype=torch.float32, device="cuda") -> DeviceCOO:
+    device = resolve_device(device)
     n = csr.n
     count_conversions()
     row = np.repeat(np.arange(n, dtype=np.int32), csr.row_nnz())
@@ -243,9 +293,10 @@ def to_device_coo(csr: CSR, dtype=torch.float32, device="cpu") -> DeviceCOO:
 
 
 def to_device_ell(
-    csr: CSR, dtype=torch.float32, row_tile: int = 8, slot_tile: int = 8, device="cpu"
+    csr: CSR, dtype=torch.float32, row_tile: int = 8, slot_tile: int = 8, device="cuda"
 ) -> DeviceELL:
     """Convert CSR to uniform-width padded ELL (kernel layout)."""
+    device = resolve_device(device)
     n = csr.n
     count_conversions()
     width = int(max(1, csr.row_nnz().max() if n else 1))
@@ -269,11 +320,12 @@ def to_device_hybrid(
     row_tile: int = 8,
     slot_tile: int = 8,
     tail_align: int = 8,
-    device="cpu",
+    device="cuda",
 ) -> DeviceHybrid:
     """Convert CSR to the hub-split hybrid layout (capped ELL + COO tail);
     the same split as the reference (``width_cap`` defaults to the
     ``quantile`` of the row lengths, aligned up to ``slot_tile``)."""
+    device = resolve_device(device)
     from ..kernels.engine import hybrid_width_cap  # lazy: sparse sits below kernels
 
     n = csr.n
@@ -322,9 +374,10 @@ def blocked_ell_from_triplets(
     block_size: int = 8,
     slots: Optional[int] = None,
     dtype=torch.float32,
-    device="cpu",
+    device="cuda",
 ) -> DeviceBSR:
     """Build a blocked-ELL layout from COO triplets (host, vectorized)."""
+    device = resolve_device(device)
     bs = block_size
     nbr = max(1, -(-n_rows // bs))
     nbc = max(1, -(-n_cols // bs))
@@ -356,8 +409,9 @@ def blocked_ell_from_triplets(
     )
 
 
-def to_device_bsr(csr: CSR, block_size: int = 8, dtype=torch.float32, device="cpu") -> DeviceBSR:
+def to_device_bsr(csr: CSR, block_size: int = 8, dtype=torch.float32, device="cuda") -> DeviceBSR:
     """Convert CSR to the blocked-ELL/BSR kernel layout."""
+    device = resolve_device(device)
     count_conversions()
     rows = np.repeat(np.arange(csr.n, dtype=np.int64), csr.row_nnz())
     return blocked_ell_from_triplets(
@@ -375,7 +429,21 @@ def _from_numpy(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def from_reference(container_arrays: Mapping, device="cpu"):
+def hybrid_from_arrays(ell_val, ell_col, tail_row, tail_col, tail_val, n_rows: int,
+                       n_cols: Optional[int] = None) -> DeviceHybrid:
+    """A :class:`DeviceHybrid` over the reference's hybrid tensors, whose
+    real tail entries come first (row-sorted) with the zero padding behind
+    them; the tail's row offsets are built on the tensors' device."""
+    nonzero = torch.nonzero(tail_val).flatten()
+    tail_n = int(nonzero[-1]) + 1 if nonzero.numel() else 0
+    rows = tail_row[:tail_n].to(torch.int64)
+    offsets = torch.searchsorted(rows, torch.arange(n_rows + 1, device=rows.device))
+    return DeviceHybrid(ell_val=ell_val, ell_col=ell_col, tail_row=tail_row, tail_col=tail_col,
+                        tail_val=tail_val, tail_offsets=offsets, tail_nnz=tail_n, n_rows=n_rows,
+                        n_cols=n_rows if n_cols is None else int(n_cols))
+
+
+def from_reference(container_arrays: Mapping, device="cuda"):
     """Port container from a reference container's arrays (as NumPy).
 
     ``container_arrays`` maps the reference dataclass's field names to
@@ -385,25 +453,13 @@ def from_reference(container_arrays: Mapping, device="cpu"):
     arrays are taken as they are (dtype, padding), so both packages compute
     on identical data.
     """
+    device = resolve_device(device)
     a = dict(container_arrays)
     t = {k: _from_numpy(np.asarray(v), device) for k, v in a.items() if k not in ("n_rows", "n_cols")}
     if "ell_val" in a:
         n = int(a.get("n_rows", t["ell_val"].shape[0]))
-        trow = np.asarray(a["tail_row"])
-        # Real tail entries come first (row-sorted); the zero padding follows.
-        nonzero = np.flatnonzero(np.asarray(a["tail_val"]))
-        tail_n = int(nonzero[-1]) + 1 if nonzero.size else 0
-        return DeviceHybrid(
-            ell_val=t["ell_val"],
-            ell_col=t["ell_col"],
-            tail_row=t["tail_row"],
-            tail_col=t["tail_col"],
-            tail_val=t["tail_val"],
-            tail_offsets=_tensor(_offsets(trow[:tail_n], n), torch.int64, device),
-            tail_nnz=tail_n,
-            n_rows=n,
-            n_cols=int(a.get("n_cols", n)),
-        )
+        return hybrid_from_arrays(t["ell_val"], t["ell_col"], t["tail_row"], t["tail_col"],
+                                  t["tail_val"], n, int(a.get("n_cols", n)))
     if "bcol" in a:
         nbr, _, bs, _ = t["val"].shape
         n = int(a.get("n_rows", nbr * bs))
@@ -477,7 +533,7 @@ def shard_to_ell(
     row_tile: int = 8,
     slot_tile: int = 8,
     shards=None,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Row-shard a CSR into stacked uniform ELL tensors.
 
@@ -488,6 +544,7 @@ def shard_to_ell(
     padding overhead.  The reference pads the width to 128 TPU lanes; with
     ``slot_tile=128`` the two give the same bytes.
     """
+    device = resolve_device(device)
     ids = _shard_list(splits, shards)
     row_nnz = csr.row_nnz()
     width = int(max(1, row_nnz.max() if row_nnz.size else 1))
@@ -514,7 +571,7 @@ def shard_to_blocked_ell(
     block_size: int = 8,
     dtype=torch.float32,
     shards=None,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[torch.Tensor, torch.Tensor, dict]:
     """Row-shard a CSR into stacked blocked-ELL tensors.
 
@@ -525,6 +582,7 @@ def shard_to_blocked_ell(
     vector.  Requires ``n_pad % block_size == 0`` (``partition_matrix(...,
     row_align=BS)``) so local block rows line up with the gathered vector.
     """
+    device = resolve_device(device)
     if n_pad % block_size:
         raise ValueError(f"n_pad={n_pad} must be a multiple of block_size={block_size}")
     g = len(splits) - 1
@@ -565,7 +623,7 @@ def shard_to_hybrid(
     slot_tile: int = 8,
     tail_align: int = 8,
     shards=None,
-    device="cpu",
+    device="cuda",
 ) -> Tuple[Tuple[torch.Tensor, ...], dict]:
     """Row-shard a CSR into stacked hybrid (capped ELL + COO tail) tensors.
 
@@ -577,6 +635,7 @@ def shard_to_hybrid(
     row order.  Plus a stats dict with the realized split.  The reference's
     split, element for element.
     """
+    device = resolve_device(device)
     from ..kernels.engine import hybrid_width_cap  # lazy: sparse sits below kernels
 
     g = len(splits) - 1

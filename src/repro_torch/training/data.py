@@ -14,6 +14,7 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
+from .._device import resolve_device
 from ..models.common import ModelConfig
 
 __all__ = ["DataConfig", "synthetic_batch", "data_stream", "BATCH_AXES"]
@@ -49,13 +50,14 @@ def _zipf_tokens(rng: np.random.Generator, shape, vocab: int, a: float) -> np.nd
 
 
 def synthetic_batch(cfg: ModelConfig, dc: DataConfig, step: int,
-                    device="cpu") -> Dict[str, torch.Tensor]:
+                    device="cuda") -> Dict[str, torch.Tensor]:
     """One batch of int32 ``tokens`` and ``labels`` on ``device``.  Planted
     structure: every token at odd position repeats a deterministic function
     of its predecessor (learnable bigrams).  ``encdec`` batches carry f32
     ``frames`` (B, S, d_model) for the encoder; ``vlm`` batches carry
     ``max(1, S // 8)`` patch embeddings, which prefix the text, with labels
     -1 over them."""
+    device = resolve_device(device)
     rng = np.random.default_rng((dc.seed * 1_000_003 + step) * 97 + dc.host_id)
     b = dc.batch // dc.num_hosts
     s = dc.seq_len
@@ -78,7 +80,8 @@ def synthetic_batch(cfg: ModelConfig, dc: DataConfig, step: int,
 
 
 def data_stream(cfg: ModelConfig, dc: DataConfig, start_step: int = 0,
-                device="cpu") -> Iterator[Dict]:
+                device="cuda") -> Iterator[Dict]:
+    device = resolve_device(device)
     step = start_step
     while True:
         yield synthetic_batch(cfg, dc, step, device=device)

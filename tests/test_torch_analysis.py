@@ -591,7 +591,7 @@ def test_cli_strict_clean_on_fast_passes(tmp_path, capsys):
     from repro_torch.analysis.__main__ import main
 
     summary = tmp_path / "summary.md"
-    rc = main(["--check", "concurrency", "--check", "config", "--strict",
+    rc = main(["--check", "concurrency", "--check", "config", "--strict", "--device", "cpu",
                "--repo-root", str(REPO_ROOT), "--summary-out", str(summary)])
     assert rc == 0
     assert "[concurrency] 0 finding(s)" in capsys.readouterr().out
@@ -604,10 +604,12 @@ def test_cli_strict_fails_on_findings(tmp_path, capsys):
     bad_root = tmp_path / "tree"
     (bad_root / "src" / "repro_torch" / "serving").mkdir(parents=True)
     (bad_root / "src" / "repro_torch" / "serving" / "bad.py").write_text(_C001_SNIPPET)
-    rc = main(["--check", "concurrency", "--strict", "--repo-root", str(bad_root)])
+    rc = main(["--check", "concurrency", "--strict", "--device", "cpu",
+               "--repo-root", str(bad_root)])
     assert rc == 1
     assert "C001" in capsys.readouterr().out
-    assert main(["--check", "concurrency", "--repo-root", str(bad_root)]) == 0  # not strict
+    assert main(["--check", "concurrency", "--device", "cpu",
+                 "--repo-root", str(bad_root)]) == 0  # not strict
 
 
 def test_cli_rejects_unknown_check():

@@ -55,7 +55,7 @@ def carried():
     for arch in ARCHS:
         jc = jax_get_config(arch, smoke=True)
         jp = jax.device_get(jax_split_tree(jm.init_model(jax.random.PRNGKey(0), jc))[0])
-        out[arch] = (jc, jp, get_config(arch, smoke=True), tm.params_from_numpy(jp))
+        out[arch] = (jc, jp, get_config(arch, smoke=True), tm.params_from_numpy(jp, device="cpu"))
     return out
 
 
@@ -157,7 +157,7 @@ def test_forward_and_loss_match_reference(carried, arch):
     jc, jp, tc, tp = carried[arch]
     seq = 32 if jc.n_experts else 40
     jb = jax_synthetic_batch(jc, JaxDataConfig(batch=2, seq_len=seq, seed=5), 0)
-    tb = synthetic_batch(tc, DataConfig(batch=2, seq_len=seq, seed=5), 0)
+    tb = synthetic_batch(tc, DataConfig(batch=2, seq_len=seq, seed=5), 0, device="cpu")
     jl, jaux = jm.forward(jp, jc, jb)
     tl, taux = tm.forward(tp, tc, tb)
     err = rel(tl.numpy(), jl)

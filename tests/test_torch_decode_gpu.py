@@ -128,7 +128,7 @@ def test_engine_on_the_card_matches_host(cuda, arch):
 def test_probe_of_a_new_family_runs_the_update_kernel(cuda, arch):
     cfg, params = _smoke(arch)
     batch = {k: v.to(cuda) for k, v in
-             synthetic_batch(cfg, DataConfig(batch=2, seq_len=32, seed=5), 0).items()}
+             synthetic_batch(cfg, DataConfig(batch=2, seq_len=32, seed=5), 0, device="cpu").items()}
     _reset()
     res = hessian_spectrum(_on(params, cuda), cfg, batch, k=4)
     launches = _launches()

@@ -239,24 +239,24 @@ def test_shard_layouts_match_reference(name, g):
 
     rv, rc, rs = ref_formats.shard_to_ell(c, splits, n_pad, dtype=jnp.float64, row_tile=8,
                                           slot_tile=8)
-    pv, pc_, ps = formats.shard_to_ell(pc, splits, n_pad, dtype=torch.float64)
+    pv, pc_, ps = formats.shard_to_ell(pc, splits, n_pad, dtype=torch.float64, device="cpu")
     np.testing.assert_array_equal(pv.numpy(), np.asarray(rv))
     np.testing.assert_array_equal(pc_.numpy(), np.asarray(rc))
     assert ps == rs
     # One shard only (what an SPMD rank converts) is that shard's slice.
-    one, _, _ = formats.shard_to_ell(pc, splits, n_pad, dtype=torch.float64, shards=(g - 1,))
+    one, _, _ = formats.shard_to_ell(pc, splits, n_pad, dtype=torch.float64, shards=(g - 1,), device="cpu")
     assert torch.equal(one[0], pv[g - 1])
 
     rb, rbc, rbs = ref_formats.shard_to_blocked_ell(c, splits, n_pad, block_size=8,
                                                     dtype=jnp.float64)
     pb, pbc, pbs = formats.shard_to_blocked_ell(pc, splits, n_pad, block_size=8,
-                                                dtype=torch.float64)
+                                                dtype=torch.float64, device="cpu")
     np.testing.assert_array_equal(pb.numpy(), np.asarray(rb))
     np.testing.assert_array_equal(pbc.numpy(), np.asarray(rbc))
     assert pbs == rbs
 
     rh, rhs = ref_formats.shard_to_hybrid(c, splits, n_pad, dtype=jnp.float64, row_tile=8)
-    ph, phs = formats.shard_to_hybrid(pc, splits, n_pad, dtype=torch.float64)
+    ph, phs = formats.shard_to_hybrid(pc, splits, n_pad, dtype=torch.float64, device="cpu")
     for got, want in zip(ph, rh):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert phs == rhs
@@ -269,7 +269,7 @@ def test_partition_and_stats_match_reference(name, g):
     import jax.numpy as jnp
 
     rpm = ref_partition(c, g, dtype=jnp.float64, row_align=8)
-    pm = partition_matrix(pc, g, dtype=torch.float64, row_align=8)
+    pm = partition_matrix(pc, g, dtype=torch.float64, row_align=8, device="cpu")
     assert (pm.n_pad, pm.num_shards, pm.n) == (rpm.n_pad, rpm.num_shards, rpm.n)
     for i in range(g):
         k = pm.nnz[i]

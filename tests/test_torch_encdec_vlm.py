@@ -61,13 +61,13 @@ def carried():
     for arch in ARCHS:
         jc = jax_get_config(arch, smoke=True)
         jp = jax.device_get(jax_split_tree(jm.init_model(jax.random.PRNGKey(0), jc))[0])
-        out[arch] = (jc, jp, get_config(arch, smoke=True), tm.params_from_numpy(jp))
+        out[arch] = (jc, jp, get_config(arch, smoke=True), tm.params_from_numpy(jp, device="cpu"))
     return out
 
 
 def _batches(jc, tc, seq=24, batch=2, seed=5, step=0):
     jb = jax_synthetic_batch(jc, JaxDataConfig(batch=batch, seq_len=seq, seed=seed), step)
-    tb = synthetic_batch(tc, DataConfig(batch=batch, seq_len=seq, seed=seed), step)
+    tb = synthetic_batch(tc, DataConfig(batch=batch, seq_len=seq, seed=seed), step, device="cpu")
     return jb, tb
 
 
@@ -133,12 +133,12 @@ def test_synthetic_batch_is_byte_equal(arch, hosts):
         for host in range(hosts):
             jd = JaxDataConfig(batch=4, seq_len=24, seed=3, num_hosts=hosts, host_id=host)
             td = DataConfig(batch=4, seq_len=24, seed=3, num_hosts=hosts, host_id=host)
-            want, got = jax_synthetic_batch(jc, jd, step), synthetic_batch(tc, td, step)
+            want, got = jax_synthetic_batch(jc, jd, step), synthetic_batch(tc, td, step, device="cpu")
             assert sorted(got) == sorted(want) == ["frames", "labels", "tokens"]
             for k in want:
                 w, g = np.asarray(want[k]), got[k].numpy()
                 assert g.dtype == w.dtype and g.tobytes() == w.tobytes(), f"{arch} {k} step {step}"
-    b = synthetic_batch(tc, DataConfig(batch=2, seq_len=24), 0)
+    b = synthetic_batch(tc, DataConfig(batch=2, seq_len=24), 0, device="cpu")
     if tc.family == "vlm":
         assert b["frames"].shape == (2, 3, tc.d_model)
         assert b["labels"].shape == (2, 27) and bool((b["labels"][:, :3] == -1).all())
@@ -368,8 +368,8 @@ def test_trainer_steps_and_probes(carried, arch):
     tcfg = TrainConfig(opt=OptConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=4),
                        ckpt_every=100, ckpt_dir=tempfile.mkdtemp(), spectral_every=2)
     tr = Trainer(tc, tcfg, tp,
-                 probe_batch_fn=lambda: synthetic_batch(tc, DataConfig(batch=2, seq_len=16, seed=2), 0))
-    hist = tr.run(data_stream(tc, DataConfig(batch=2, seq_len=16, seed=1)), num_steps=2,
+                 probe_batch_fn=lambda: synthetic_batch(tc, DataConfig(batch=2, seq_len=16, seed=2), 0, device="cpu"))
+    hist = tr.run(data_stream(tc, DataConfig(batch=2, seq_len=16, seed=1), device="cpu"), num_steps=2,
                   log_fn=lambda *_: None)
     assert len(hist) == 2 and np.isfinite(hist).all() and tr.rollbacks == 0
     ev = np.asarray(tr.spectra[2])

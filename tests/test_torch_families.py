@@ -57,7 +57,7 @@ def carried():
     for arch in FAMILIES:
         jc = jax_get_config(arch, smoke=True)
         jp = jax.device_get(jax_split_tree(jax_init_model(jax.random.PRNGKey(0), jc))[0])
-        out[arch] = (jc, jp, get_config(arch, smoke=True), params_from_numpy(jp))
+        out[arch] = (jc, jp, get_config(arch, smoke=True), params_from_numpy(jp, device="cpu"))
     return out
 
 
@@ -70,7 +70,7 @@ def _moe_case(arch, key, cf=None):
         jc, tc = (dataclasses.replace(c, capacity_factor=cf) for c in (jc, tc))
     jp = jax.device_get(jax_split_tree(jax_mlp.init_moe(jax.random.PRNGKey(key), jc))[0])
     x = np.random.default_rng(key + 4).standard_normal((2, 64, jc.d_model)).astype(np.float32)
-    return jc, jp, tc, params_from_numpy(jp), x
+    return jc, jp, tc, params_from_numpy(jp, device="cpu"), x
 
 
 @pytest.mark.parametrize("arch,cf,dropless", [
@@ -138,7 +138,7 @@ def rglru_case():
     for name in ("w_a", "w_x"):
         jp[name] = (rng.standard_normal(jp[name].shape) * 0.2).astype(np.float32)
     x = rng.standard_normal((2, 13, jc.d_model)).astype(np.float32)
-    return jc, jp, tc, params_from_numpy(jp), x
+    return jc, jp, tc, params_from_numpy(jp, device="cpu"), x
 
 
 def test_rglru_block_and_decode_match_reference(rglru_case):
@@ -151,7 +151,7 @@ def test_rglru_block_and_decode_match_reference(rglru_case):
         err = rel(got.numpy(), want)
         assert err <= 1e-5, f"rglru_block {name}: rel err {err:.3e}"
     jst = jax_rglru.init_rglru_state(jc, 2)
-    tst = rglru.init_rglru_state(tc, 2)
+    tst = rglru.init_rglru_state(tc, 2, device="cpu")
     for i in range(x.shape[1]):
         jy, jst = jax_rglru.rglru_decode_step(jp, jc, jnp.asarray(x[:, i:i + 1]), jst)
         ty, tst = rglru.rglru_decode_step(tp, tc, t(x[:, i:i + 1]), tst)
@@ -163,7 +163,7 @@ def test_rglru_decode_matches_sequence(rglru_case):
     """The reference's ``test_rglru_decode_matches_sequence`` on the port."""
     _, _, tc, tp, x = rglru_case
     y_seq, st_final = rglru.rglru_block(tp, tc, t(x))
-    st = rglru.init_rglru_state(tc, 2)
+    st = rglru.init_rglru_state(tc, 2, device="cpu")
     ys = []
     for i in range(x.shape[1]):
         y, st = rglru.rglru_decode_step(tp, tc, t(x[:, i:i + 1]), st)
@@ -247,7 +247,7 @@ def ssd_case():
     jc, tc = jax_get_config("mamba2-130m", smoke=True), get_config("mamba2-130m", smoke=True)
     jp = jax.device_get(jax_split_tree(jax_ssd.init_ssd_block(jax.random.PRNGKey(1), jc))[0])
     x = np.random.default_rng(3).standard_normal((2, 27, jc.d_model)).astype(np.float32)
-    return jc, jp, tc, params_from_numpy(jp), x
+    return jc, jp, tc, params_from_numpy(jp, device="cpu"), x
 
 
 def test_ssd_block_and_decode_match_reference(ssd_case):
@@ -258,7 +258,7 @@ def test_ssd_block_and_decode_match_reference(ssd_case):
     for name, got, want in (("y", ty, jy), ("h", tst.h, jst.h), ("conv", tst.conv, jst.conv)):
         err = rel(got.numpy(), want)
         assert err <= 1e-5, f"ssd_block {name}: rel err {err:.3e}"
-    jst, tst = jax_ssd.init_ssd_state(jc, 2), ssd.init_ssd_state(tc, 2)
+    jst, tst = jax_ssd.init_ssd_state(jc, 2), ssd.init_ssd_state(tc, 2, device="cpu")
     for i in range(6):
         jy, jst = jax_ssd.ssd_decode_step(jp, jc, jnp.asarray(x[:, i:i + 1]), jst)
         ty, tst = ssd.ssd_decode_step(tp, tc, t(x[:, i:i + 1]), tst)
@@ -271,7 +271,7 @@ def test_ssd_decode_matches_sequence(ssd_case):
     (here with a ragged length)."""
     _, _, tc, tp, x = ssd_case
     y_seq, st_final = ssd.ssd_block(tp, tc, t(x))
-    st = ssd.init_ssd_state(tc, 2)
+    st = ssd.init_ssd_state(tc, 2, device="cpu")
     ys = []
     for i in range(x.shape[1]):
         y, st = ssd.ssd_decode_step(tp, tc, t(x[:, i:i + 1]), st)
@@ -285,7 +285,7 @@ def test_ssd_decode_matches_sequence(ssd_case):
 
 def _batches(jc, tc, seq, batch=2):
     jb = jax_synthetic_batch(jc, JaxDataConfig(batch=batch, seq_len=seq, seed=5), 0)
-    tb = synthetic_batch(tc, DataConfig(batch=batch, seq_len=seq, seed=5), 0)
+    tb = synthetic_batch(tc, DataConfig(batch=batch, seq_len=seq, seed=5), 0, device="cpu")
     return jb, tb
 
 
@@ -350,8 +350,8 @@ def test_trainer_steps_and_probes(carried, arch):
     tcfg = TrainConfig(opt=OptConfig(peak_lr=1e-3, warmup_steps=1, decay_steps=4),
                        ckpt_every=100, ckpt_dir=tempfile.mkdtemp(), spectral_every=2)
     tr = Trainer(tc, tcfg, tp,  # it trains a copy
-                 probe_batch_fn=lambda: synthetic_batch(tc, DataConfig(batch=2, seq_len=32, seed=2), 0))
-    hist = tr.run(data_stream(tc, DataConfig(batch=2, seq_len=32, seed=1)), num_steps=2,
+                 probe_batch_fn=lambda: synthetic_batch(tc, DataConfig(batch=2, seq_len=32, seed=2), 0, device="cpu"))
+    hist = tr.run(data_stream(tc, DataConfig(batch=2, seq_len=32, seed=1), device="cpu"), num_steps=2,
                   log_fn=lambda *_: None)
     assert len(hist) == 2 and np.isfinite(hist).all() and tr.rollbacks == 0
     ev = np.asarray(tr.spectra[2])

@@ -95,7 +95,7 @@ def test_spmv_ell_matches_reference(pair, n):
     x_j = jnp.asarray(x_np, dtype=jdt)
     rows = ell.val.shape[0]  # one row tile: a short interpret-mode grid
     want = jax_spmv_ell(ell.val, ell.col, x_j, block_r=rows, accum_dtype=jacc, interpret=True)[:n]
-    mat = from_reference(_arrays(ell))
+    mat = from_reference(_arrays(ell), device="cpu")
     got = ops.spmv_ell(mat, _t(x_j), accum_dtype=tacc)
     assert got.dtype == tacc and got.shape == (n,)
     _close(got, want, tacc)
@@ -116,7 +116,7 @@ def test_spmv_ell_alpha_matches_reference(pair, n):
     w_want, a_want = jax_spmv_ell_alpha(
         ell.val, ell.col, x_j, v_j, block_r=rows, accum_dtype=jacc, interpret=True
     )
-    mat = from_reference(_arrays(ell))
+    mat = from_reference(_arrays(ell), device="cpu")
     w, alpha = ops.spmv_ell_alpha(mat, _t(x_j), _t(v_j)[:n], accum_dtype=tacc)
     _close(w, w_want[:n], tacc)
     terms = float(np.sum(np.abs(v_np[:n]) * np.abs(np.asarray(w_want[:n], np.float64))))
@@ -156,7 +156,7 @@ def test_spmv_bsr_matches_reference(pair, bs):
     x_np[: csr.n] = np.random.default_rng(7).standard_normal(csr.n)
     x_j = jnp.asarray(x_np, dtype=jdt)
     want = jax_spmv_bsr(bsr.val, bsr.bcol, x_j, accum_dtype=jacc, interpret=True)[: csr.n]
-    mat = from_reference(_arrays(bsr))
+    mat = from_reference(_arrays(bsr), device="cpu")
     got = ops.spmv_bsr(mat, _t(x_j)[: csr.n], accum_dtype=tacc)
     assert got.shape == (csr.n,)
     _close(got, want, tacc)

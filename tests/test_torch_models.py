@@ -55,13 +55,13 @@ def carried():
     for arch in DENSE:
         jc = jax_get_config(arch, smoke=True)
         jp = jax.device_get(jax_split_tree(jax_init_model(jax.random.PRNGKey(0), jc))[0])
-        out[arch] = (jc, jp, get_config(arch, smoke=True), params_from_numpy(jp))
+        out[arch] = (jc, jp, get_config(arch, smoke=True), params_from_numpy(jp, device="cpu"))
     return out
 
 
 def _batches(jc, tc, seq):
     jb = jax_synthetic_batch(jc, JaxDataConfig(batch=2, seq_len=seq, seed=5), 0)
-    tb = synthetic_batch(tc, DataConfig(batch=2, seq_len=seq, seed=5), 0)
+    tb = synthetic_batch(tc, DataConfig(batch=2, seq_len=seq, seed=5), 0, device="cpu")
     return jb, tb
 
 
@@ -88,7 +88,7 @@ def test_windowed_forward_matches_reference(vocab):
     jc = dataclasses.replace(jax_get_config("qwen3-0.6b", smoke=True), window=9, vocab=vocab)
     tc = dataclasses.replace(get_config("qwen3-0.6b", smoke=True), window=9, vocab=vocab)
     jp = jax.device_get(jax_split_tree(jax_init_model(jax.random.PRNGKey(2), jc))[0])
-    tp = params_from_numpy(jp)
+    tp = params_from_numpy(jp, device="cpu")
     jb, tb = _batches(jc, tc, 40)
     want = np.asarray(jax_forward(jp, jc, jb)[0])
     got = forward(tp, tc, tb)[0].detach().numpy()

@@ -45,7 +45,7 @@ def _engines(arch, cache, sc=None):
     jp = _reference_params(arch)
     sc = sc or {}
     return (JaxEngine(jc, jp, JaxServeConfig(max_len=64, **sc)),
-            Engine(tc, tm.params_from_numpy(jp), ServeConfig(max_len=64, **sc)), tc)
+            Engine(tc, tm.params_from_numpy(jp, device="cpu"), ServeConfig(max_len=64, **sc)), tc)
 
 
 def _prompt(cfg, b=2, s=29, seed=7):

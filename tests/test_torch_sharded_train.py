@@ -61,7 +61,7 @@ def setup(tmp_path_factory):
     dc = DataConfig(batch=BATCH, seq_len=SEQ, seed=0)
 
     tr = Trainer(cfg, sr.train_config(str(tmp / "unsharded"), STEPS), params)
-    losses = tr.run(data_stream(cfg, dc), num_steps=STEPS, log_every=10**9)
+    losses = tr.run(data_stream(cfg, dc, device="cpu"), num_steps=STEPS, log_every=10**9)
     port_params = [t.detach().numpy() for t in tree.leaves(tr.params)]
 
     step = jax.jit(jax_make_train_step(jc, JaxTrainConfig(opt=JaxOptConfig(warmup_steps=2,
@@ -75,10 +75,10 @@ def setup(tmp_path_factory):
 
     n = sum(t.numel() for t in tree.leaves(params))
     v0 = np.random.default_rng(3).standard_normal(n).astype(np.float32)
-    probe = hessian_spectrum(params, cfg, synthetic_batch(cfg, dc, 0), k=K, num_iters=ITERS,
+    probe = hessian_spectrum(params, cfg, synthetic_batch(cfg, dc, 0, device="cpu"), k=K, num_iters=ITERS,
                              v0=torch.from_numpy(v0))
     hvp_x = np.random.default_rng(4).standard_normal(n).astype(np.float32)
-    batch0 = synthetic_batch(cfg, dc, 0)
+    batch0 = synthetic_batch(cfg, dc, 0, device="cpu")
     hvp_want = HvpOperator(lambda p: loss_fn(p, cfg, batch0)[0], params).matvec(
         torch.from_numpy(hvp_x)).numpy()
 
@@ -176,7 +176,7 @@ def test_sequence_split_attention_gradients(setup):
     splits the queries and the keys' gradients are partial sums."""
     r = setup["runs"][(2, 2)][0]
     leaves = [p.detach().requires_grad_(True) for p in tree.leaves(setup["params"])]
-    batch = synthetic_batch(setup["cfg"], setup["dc"], 0)
+    batch = synthetic_batch(setup["cfg"], setup["dc"], 0, device="cpu")
     loss, _ = loss_fn(tree.unflatten(setup["params"], leaves), setup["cfg"], batch)
     grads = torch.autograd.grad(loss, leaves)
     assert abs(r["seq_loss"] - float(loss)) <= 1e-5 * abs(float(loss))

@@ -102,7 +102,7 @@ def test_ell_layout_matches_reference(dt):
     jdt, tdt = DTYPES[dt]
     ref = jax_generate("road", 1000, 2.1, seed=1)
     ell_j = jfmt.to_device_ell(ref, dtype=jdt)
-    ell_t = tfmt.to_device_ell(_port_csr(ref), dtype=tdt)
+    ell_t = tfmt.to_device_ell(_port_csr(ref), dtype=tdt, device="cpu")
     width = int(ref.row_nnz().max())
     # 8-slot width padding, not the TPU's 128 lanes; rows padded to 8.
     assert ell_t.val.shape == (-(-ref.n // 8) * 8, 8) and ell_t.val.dtype == tdt
@@ -116,7 +116,7 @@ def test_hybrid_layout_matches_reference(dt):
     jdt, tdt = DTYPES[dt]
     ref = jax_generate("web", 2048, 8.0, seed=7, values="normalized")
     hyb_j = jfmt.to_device_hybrid(ref, dtype=jdt, row_tile=512)
-    hyb_t = tfmt.to_device_hybrid(_port_csr(ref), dtype=tdt)
+    hyb_t = tfmt.to_device_hybrid(_port_csr(ref), dtype=tdt, device="cpu")
     assert hyb_t.width == hyb_j.width
     _assert_padded_equal(hyb_t.ell_val, hyb_j.ell_val, ref.n, hyb_t.width)
     _assert_padded_equal(hyb_t.ell_col, hyb_j.ell_col, ref.n, hyb_t.width)
@@ -133,10 +133,10 @@ def test_hybrid_layout_matches_reference(dt):
 def test_bsr_and_coo_layouts_match_reference(bs):
     ref = jax_generate("road", 529, 3.0, seed=bs, values="uniform")
     port = _port_csr(ref)
-    bsr_j, bsr_t = jfmt.to_device_bsr(ref, block_size=bs), tfmt.to_device_bsr(port, block_size=bs)
+    bsr_j, bsr_t = jfmt.to_device_bsr(ref, block_size=bs), tfmt.to_device_bsr(port, block_size=bs, device="cpu")
     np.testing.assert_array_equal(bsr_t.val.numpy(), np.asarray(bsr_j.val))
     np.testing.assert_array_equal(bsr_t.bcol.numpy(), np.asarray(bsr_j.bcol))
-    coo_j, coo_t = jfmt.to_device_coo(ref), tfmt.to_device_coo(port)
+    coo_j, coo_t = jfmt.to_device_coo(ref), tfmt.to_device_coo(port, device="cpu")
     for f in ("row", "col", "val"):
         np.testing.assert_array_equal(getattr(coo_t, f).numpy(), np.asarray(getattr(coo_j, f)))
     np.testing.assert_array_equal(coo_t.offsets.numpy(), ref.indptr)
@@ -147,15 +147,15 @@ def test_from_reference_rebuilds_the_port_layout(fmt):
     ref = jax_generate("web", 1024, 6.0, seed=2, values="normalized")
     port = _port_csr(ref)
     conv = {
-        "ell": (lambda: jfmt.to_device_ell(ref, slot_tile=8), lambda: tfmt.to_device_ell(port)),
-        "hybrid": (lambda: jfmt.to_device_hybrid(ref), lambda: tfmt.to_device_hybrid(port)),
-        "bsr": (lambda: jfmt.to_device_bsr(ref), lambda: tfmt.to_device_bsr(port)),
-        "coo": (lambda: jfmt.to_device_coo(ref), lambda: tfmt.to_device_coo(port)),
+        "ell": (lambda: jfmt.to_device_ell(ref, slot_tile=8), lambda: tfmt.to_device_ell(port, device="cpu")),
+        "hybrid": (lambda: jfmt.to_device_hybrid(ref), lambda: tfmt.to_device_hybrid(port, device="cpu")),
+        "bsr": (lambda: jfmt.to_device_bsr(ref), lambda: tfmt.to_device_bsr(port, device="cpu")),
+        "coo": (lambda: jfmt.to_device_coo(ref), lambda: tfmt.to_device_coo(port, device="cpu")),
     }[fmt]
     jc, own = conv[0](), conv[1]()
     arrays = {f.name: (np.asarray(getattr(jc, f.name)) if f.name not in ("n_rows", "n_cols")
                        else getattr(jc, f.name)) for f in dataclasses.fields(jc)}
-    got = tfmt.from_reference(arrays)
+    got = tfmt.from_reference(arrays, device="cpu")
     assert type(got) is type(own)
     for f in dataclasses.fields(own):
         a, b = getattr(got, f.name), getattr(own, f.name)
@@ -173,10 +173,10 @@ def test_from_reference_rebuilds_the_port_layout(fmt):
 def test_conversion_count_ticks_per_layout():
     port = torch_generate("road", 256, 2.1, seed=0)
     c0 = tfmt.conversion_count()
-    tfmt.to_device_ell(port)
-    tfmt.to_device_coo(port)
-    tfmt.to_device_bsr(port)
-    tfmt.to_device_hybrid(port)
+    tfmt.to_device_ell(port, device="cpu")
+    tfmt.to_device_coo(port, device="cpu")
+    tfmt.to_device_bsr(port, device="cpu")
+    tfmt.to_device_hybrid(port, device="cpu")
     assert tfmt.conversion_count() - c0 == 4
 
 

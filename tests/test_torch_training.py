@@ -86,14 +86,14 @@ def carried():
     """(reference cfg, reference params, port cfg, port params), qwen3 smoke."""
     jc = jax_get_config(ARCH, smoke=True)
     jp = jax.device_get(jax_split_tree(jax_init_model(jax.random.PRNGKey(0), jc))[0])
-    return jc, jp, get_config(ARCH, smoke=True), params_from_numpy(jp)
+    return jc, jp, get_config(ARCH, smoke=True), params_from_numpy(jp, device="cpu")
 
 
 @pytest.fixture(scope="module")
 def hvp_pair(carried):
     jc, jp, tc, tp = carried
     jb = jax_synthetic_batch(jc, JaxDataConfig(batch=2, seq_len=16, seed=5), 0)
-    tb = synthetic_batch(tc, DataConfig(batch=2, seq_len=16, seed=5), 0)
+    tb = synthetic_batch(tc, DataConfig(batch=2, seq_len=16, seed=5), 0, device="cpu")
     jop = JaxHvpOperator(lambda p: jax_loss_fn(p, jc, jb)[0], jp)
     top = HvpOperator(lambda p: loss_fn(p, tc, tb)[0], tp)
     return jop, top, tb
@@ -157,7 +157,7 @@ def test_spectral_monitor_hessian(carried):
     """The reference's ``test_spectral_monitor_hessian``, on the port:
     default FFF top-K on the HVP operator of a real model."""
     _, _, tc, tp = carried
-    batch = synthetic_batch(tc, DataConfig(batch=2, seq_len=16, seed=5), 0)
+    batch = synthetic_batch(tc, DataConfig(batch=2, seq_len=16, seed=5), 0, device="cpu")
     evals = hessian_topk(tp, tc, batch, k=3, num_iters=8)
     assert evals.shape == (3,)
     assert np.all(np.isfinite(evals))
@@ -180,7 +180,7 @@ def test_one_optimizer_step_matches_reference(carried, opt):
     g = _grads(jp, 1)
     jcfg, tcfg = JaxOptConfig(warmup_steps=2, decay_steps=10), OptConfig(warmup_steps=2,
                                                                           decay_steps=10)
-    tg = params_from_numpy(g)
+    tg = params_from_numpy(g, device="cpu")
     if opt == "adamw":
         wp, ws, wm = jax.jit(jax_adamw_update, static_argnums=3)(g, jax_init_opt_state(jp), jp,
                                                                  jcfg)
@@ -226,29 +226,29 @@ def test_synthetic_batch_is_byte_equal(arch, hosts):
         for host in range(hosts):
             jd = JaxDataConfig(batch=4, seq_len=24, seed=3, num_hosts=hosts, host_id=host)
             td = DataConfig(batch=4, seq_len=24, seed=3, num_hosts=hosts, host_id=host)
-            want, got = jax_synthetic_batch(jc, jd, step), synthetic_batch(tc, td, step)
+            want, got = jax_synthetic_batch(jc, jd, step), synthetic_batch(tc, td, step, device="cpu")
             assert sorted(got) == sorted(want)
             for k in want:
                 w, g = np.asarray(want[k]), got[k].numpy()
                 assert g.dtype == w.dtype and g.tobytes() == w.tobytes(), f"{arch} {k} step {step}"
-    stream = data_stream(tc, DataConfig(batch=2, seq_len=8), start_step=5)
+    stream = data_stream(tc, DataConfig(batch=2, seq_len=8), start_step=5, device="cpu")
     assert torch.equal(next(stream)["tokens"],
-                       synthetic_batch(tc, DataConfig(batch=2, seq_len=8), 5)["tokens"])
+                       synthetic_batch(tc, DataConfig(batch=2, seq_len=8), 5, device="cpu")["tokens"])
 
 
 def test_compression_matches_reference(carried):
     _, jp, _, _ = carried
     g = _grads(jp, 2)
-    want, got = jax_compress_tree(g), compress_tree(params_from_numpy(g))
+    want, got = jax_compress_tree(g), compress_tree(params_from_numpy(g, device="cpu"))
     for a, b in zip(np_tree(want), tree.leaves(got)):
         err = rel(b.numpy(), a)
         assert err <= 1e-6, f"compress_tree rel err {err:.3e}"
     # error feedback: three steps carry the same residuals
-    jef, tef = jax_init_ef_state(g), init_ef_state(params_from_numpy(g))
+    jef, tef = jax_init_ef_state(g), init_ef_state(params_from_numpy(g, device="cpu"))
     for step in range(3):
         gs = _grads(jp, 10 + step)
         jsent, jef = jax_ef_compress_tree(gs, jef)
-        tsent, tef = ef_compress_tree(params_from_numpy(gs), tef)
+        tsent, tef = ef_compress_tree(params_from_numpy(gs, device="cpu"), tef)
         for a, b in zip(np_tree(jsent) + np_tree(jef.residual),
                         tree.leaves(tsent) + tree.leaves(tef.residual)):
             err = float(np.abs(b.numpy() - a).max())
@@ -270,7 +270,7 @@ def test_train_loss_decreases(tiny, tmp_path):
     tc = TrainConfig(opt=OptConfig(peak_lr=3e-3, warmup_steps=5, decay_steps=40),
                      ckpt_every=100, ckpt_dir=str(tmp_path))
     tr = Trainer(cfg, tc, params)
-    hist = tr.run(data_stream(cfg, DataConfig(batch=8, seq_len=64, seed=1)), num_steps=40,
+    hist = tr.run(data_stream(cfg, DataConfig(batch=8, seq_len=64, seed=1), device="cpu"), num_steps=40,
                   log_fn=lambda *_: None)
     assert np.mean(hist[-5:]) < hist[0] - 0.5, f"loss {hist[0]:.4f} -> {np.mean(hist[-5:]):.4f}"
 
@@ -278,7 +278,7 @@ def test_train_loss_decreases(tiny, tmp_path):
 def test_grad_accumulation_matches_full_batch(tiny):
     """accum_steps=2 on batch 8 == accum_steps=1 on the same batch."""
     cfg, params = tiny
-    batch = synthetic_batch(cfg, DataConfig(batch=8, seq_len=32, seed=3), 0)
+    batch = synthetic_batch(cfg, DataConfig(batch=8, seq_len=32, seed=3), 0, device="cpu")
     p1, _, m1 = make_train_step(cfg, TrainConfig(accum_steps=1))(params, init_opt_state(params),
                                                                  batch)
     p2, _, m2 = make_train_step(cfg, TrainConfig(accum_steps=2))(params, init_opt_state(params),
@@ -332,7 +332,7 @@ def test_nan_rollback(tiny, tmp_path):
         return p2, o2, m
 
     tr.step_fn = sometimes_nan
-    hist = tr.run(data_stream(cfg, DataConfig(batch=4, seq_len=32, seed=2)), num_steps=12,
+    hist = tr.run(data_stream(cfg, DataConfig(batch=4, seq_len=32, seed=2), device="cpu"), num_steps=12,
                   log_fn=lambda *_: None)
     assert tr.rollbacks == 1
     assert tr.step == 12
@@ -344,7 +344,7 @@ def test_resume_from_checkpoint(tiny, tmp_path):
     tc = TrainConfig(opt=OptConfig(peak_lr=1e-3, warmup_steps=2, decay_steps=20),
                      ckpt_every=5, ckpt_dir=str(tmp_path), async_ckpt=False)
     tr1 = Trainer(cfg, tc, params)
-    tr1.run(data_stream(cfg, DataConfig(batch=4, seq_len=32, seed=4)), num_steps=10,
+    tr1.run(data_stream(cfg, DataConfig(batch=4, seq_len=32, seed=4), device="cpu"), num_steps=10,
             log_fn=lambda *_: None)
     tr2 = Trainer(cfg, tc, params)  # "preemption": a new trainer, the same directory
     assert tr2.try_resume()
@@ -360,8 +360,8 @@ def test_trainer_spectral_probe(tiny, tmp_path):
     dc = DataConfig(batch=2, seq_len=16, seed=6)
     tc = TrainConfig(opt=OptConfig(warmup_steps=1, decay_steps=4), spectral_every=2,
                      spectral_k=2, ckpt_dir=str(tmp_path))
-    tr = Trainer(cfg, tc, params, probe_batch_fn=lambda: synthetic_batch(cfg, dc, 10**6))
-    tr.run(data_stream(cfg, dc), num_steps=4, log_fn=lambda *_: None)
+    tr = Trainer(cfg, tc, params, probe_batch_fn=lambda: synthetic_batch(cfg, dc, 10**6, device="cpu"))
+    tr.run(data_stream(cfg, dc, device="cpu"), num_steps=4, log_fn=lambda *_: None)
     assert sorted(tr.spectra) == [2, 4]
     assert all(ev.shape == (2,) and np.isfinite(ev).all() for ev in tr.spectra.values())
 
@@ -388,7 +388,7 @@ def test_params_checkpoint_cross_read(carried, tmp_path, writer):
 def test_params_numpy_round_trip_through_own_init():
     cfg = get_config(ARCH, smoke=True)
     params = split_tree(init_model(torch.Generator().manual_seed(3), cfg))[0]
-    back = params_from_numpy(params_to_numpy(params))
+    back = params_from_numpy(params_to_numpy(params), device="cpu")
     for a, b in zip(tree.leaves(back), tree.leaves(params)):
         assert torch.equal(a, b)
 

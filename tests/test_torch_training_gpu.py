@@ -59,7 +59,7 @@ def cuda():
 def smoke():
     cfg = get_config(ARCH, smoke=True)
     params = split_tree(init_model(torch.Generator().manual_seed(1), cfg))[0]
-    batch = synthetic_batch(cfg, DataConfig(batch=2, seq_len=16, seed=5), 0)
+    batch = synthetic_batch(cfg, DataConfig(batch=2, seq_len=16, seed=5), 0, device="cpu")
     return cfg, params, batch
 
 

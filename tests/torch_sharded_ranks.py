@@ -26,7 +26,7 @@ def smoke_setup(params_np):
 
     cfg = get_config(ARCH, smoke=True)
     _, axes = split_tree(init_model(MetaGenerator(), cfg))
-    return cfg, params_from_numpy(params_np), axes
+    return cfg, params_from_numpy(params_np, device="cpu"), axes
 
 
 def train_config(ckpt_dir: str, steps: int):
@@ -146,7 +146,7 @@ def train_rank(rank: int, world: int, job: dict) -> dict:
         mesh2 = make_mesh(job["seq_mesh"], ("data", "model"), "cpu")
         with sharding_ctx(mesh2):
             batch = {k: distribute_tree(v, BATCH_AXES[k])
-                     for k, v in synthetic_batch(cfg, dc, 0).items()}
+                     for k, v in synthetic_batch(cfg, dc, 0, device="cpu").items()}
             loss, grads = _loss_and_grads(distribute_tree(params, axes), cfg, batch)
             out["seq_loss"] = float(loss.to_local())
             grads = [g.full_tensor().numpy() for g in grads]
