@@ -25,7 +25,8 @@ before the last line:
    calls; ``spmv_ell_packed`` also on the chunk that holds phase 4's widest
    row (its hub: the kernel's wide path), timed there and on the fp8 chunk;
    ``spmv_bsr`` also at BS 4 and 16 (kron matrices of ~16.8M nnz), timed
-   beside ``torch.mv`` on a BSR tensor;
+   beside ``torch.mv`` on a BSR tensor, and on the BS 8 matrix a repeat,
+   two zero slots appended and a range of block-rows alone give its bits;
 3. the main path: ``repro_torch.eigsh`` on a 4.19M-row road network
    (``generate("road", 1 << 22, 2.1)``, the size of the paper's italy_osm)
    with the defaults (FDF): ELL format, ``spmv_ell`` and ``lanczos_update``
@@ -554,9 +555,29 @@ def phase_kernels(road, block_csr) -> dict:
         if (S, A) == MAIN_PAIR:
             t_b, by = bound(nbytes(val, bsr.bcol, x) + nbr * bs * A.itemsize, 2.0 * val.numel(), A)
             rec = timed(run, plain, library_bsr(block_csr, S, x), err, t_b, by)
+            bsr_bits(val, bsr.bcol, x, A)
     rec["block_sizes"] = bsr_block_records(g)
     out["spmv_bsr"] = rec
     return out
+
+
+def bsr_bits(val, bcol, x, A) -> None:
+    """The bits ``spmv_bsr`` promises, on the main matrix: a repeat, two
+    zero slots appended to every block-row, and the middle third of the
+    block-rows launched alone give the same bits as the first call."""
+    fn = kernel_modules()["spmv_bsr"]
+    nbr, _, bs, _ = val.shape
+    y = fn(val, bcol, x, accum_dtype=A)
+    check(torch.equal(y, fn(val, bcol, x, accum_dtype=A)), "spmv_bsr: a repeat differs")
+    padded = (torch.cat([val, val.new_zeros(nbr, 2, bs, bs)], 1),
+              torch.cat([bcol, bcol.new_zeros(nbr, 2)], 1))
+    check(torch.equal(y, fn(*padded, x, accum_dtype=A)), "spmv_bsr: zero slots change the bits")
+    del padded
+    a, b = nbr // 3, 2 * nbr // 3
+    part = fn(val[a:b], bcol[a:b], x, accum_dtype=A, n_cols=x.numel())
+    check(torch.equal(y[a * bs : b * bs], part), "spmv_bsr: block-rows launched alone differ")
+    print(f"[kernels] spmv_bsr ({dname(val.dtype)}, {dname(A)}) bits: a repeat, two zero slots "
+          f"appended, block-rows [{a:,}, {b:,}) alone: equal")
 
 
 # The engine's other BSR block edges, each on kron(road of these rows,
@@ -3913,7 +3934,8 @@ def phase_device() -> str:
         if "spill" in ln and not ln.strip().startswith("0 bytes stack frame, 0 bytes spill"):
             entry = next((e for e in reversed(log[:i]) if "Compiling entry function" in e), "")
             print(f"[device]   {ln.strip()} <- {entry.strip()[:150]}")
-    for src in ("spmv_ell.cu", "lanczos_fused.cu", "spmv_ell_packed.cu", "mixed_dot.cu"):
+    for src in ("spmv_ell.cu", "lanczos_fused.cu", "spmv_ell_packed.cu", "mixed_dot.cu",
+                "spmv_bsr.cu"):
         for entry, regs_line, spill_line in kernel_resources(log, src):
             print(f"[device] {src} {entry}: {regs_line}; {spill_line}")
     return smi

@@ -9,7 +9,9 @@ rules mean nothing on the card.  The rules keep their IDs:
     a power-of-two group of lanes that divides a warp and a plan the C side
     accepts (``ell_row.cuh:ell_plan_ok``); every block is ``kThreads`` (256,
     ``common.cuh``); every grid stays within ``2^31 - 1`` blocks.  The
-    Python mirrors of the sources' launch constants must match them.
+    Python mirrors of the sources' launch constants must match them, and
+    ``spmv_bsr``'s plan table (lanes a block-row, slots a step) its mirror
+    and the kernel's rules.
   * **K002, bounds.**  Every index product a kernel forms fits the type it
     is formed in, for the largest layouts the port builds (:data:`LAYOUTS`:
     road 14.08M in core and in chunks, the ``G * n_pad`` shard vectors, BSR
@@ -62,6 +64,7 @@ __all__ = [
     "INDEX_EXPRS",
     "ell_grid",
     "check_launch_constants",
+    "check_bsr_plan",
     "check_lane_plans",
     "check_index_bounds",
     "check_partials",
@@ -151,6 +154,13 @@ def _ell_cols(L: Layout) -> int:
     return L.n_cols - 1
 
 
+def _bsr_lanes(bs: int) -> int:
+    """The most lanes a block-row of edge ``bs`` takes, over the dtypes."""
+    from ..kernels.spmv_bsr import BSR_PLAN
+
+    return max(lanes for (_, b), (lanes, _) in BSR_PLAN.items() if b == bs)
+
+
 def _update_rows() -> int:
     """The most starts one batched ``lanczos_update`` launch takes."""
     from ..kernels.lanczos_update import MAX_ROWS
@@ -176,15 +186,19 @@ INDEX_EXPRS = (
      _ell_cols),
     ("spmv_bsr", "spmv_bsr.cu",
      "const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;",
-     "long long", lambda L: _pad(L.nbr * L.bs, 256)),
-    ("spmv_bsr", "spmv_bsr.cu", "const S* blk = val + (slot * BS + r) * BS;", "long long",
-     lambda L: L.nbr * L.slots * L.bs * L.bs),
-    ("spmv_bsr", "spmv_bsr.cu", "const S* xs = x + static_cast<long long>(bcol[slot]) * BS;",
+     "long long", lambda L: _pad(L.nbr * _bsr_lanes(L.bs), 256)),
+    ("spmv_bsr", "spmv_bsr.cu", "const long long first = i * slots;", "long long",
+     lambda L: L.nbr * L.slots),
+    ("spmv_bsr", "spmv_bsr.cu", "const S* blocks = val + first * (BS * BS) + lane * P::kVec;",
+     "long long", lambda L: L.nbr * L.slots * L.bs * L.bs),
+    ("spmv_bsr", "spmv_bsr.cu", "load_ro(x + static_cast<long long>(c[u]) * BS + col0, xs[u]);",
      "long long", lambda L: L.n_cols),
     ("spmv_bsr", "spmv_bsr.cu", "const int* __restrict__ bcol", "int",
      lambda L: -(-L.n_cols // L.bs) - 1),
+    ("spmv_bsr", "spmv_bsr.cu", "y[i * BS + row0 + k * P::kRowStep + r]", "long long",
+     lambda L: L.nbr * L.bs),
     ("spmv_bsr", "spmv_bsr.cu", "spmv_bsr_kernel<S, A, BS><<<static_cast<unsigned>(blocks)",
-     "grid", lambda L: -(-L.nbr * L.bs // 256)),
+     "grid", lambda L: -(-L.nbr * _bsr_lanes(L.bs) // 256)),
     ("lanczos_update", "lanczos_update.cu", "i += stride", "long long",
      lambda L: L.rows + 1024 * 256),
     # a start's row offset and partials, at the most starts a batched launch takes
@@ -244,7 +258,8 @@ def _plan_ok(width: int, vec: int, aligned: bool, lanes: int, path: str) -> bool
 
 
 def check_launch_constants(sources: Optional[Dict[str, str]] = None) -> Findings:
-    """K001: the sources' launch constants against their Python mirrors."""
+    """K001: the sources' launch constants against their Python mirrors,
+    and ``spmv_bsr``'s launch plan against its mirror and its rules."""
     from ..kernels.spmv_ell import ROWS_IN_FLIGHT, THREADS
     from ..kernels.spmv_ell_packed import PACKED_SLOTS
 
@@ -265,7 +280,39 @@ def check_launch_constants(sources: Optional[Dict[str, str]] = None) -> Findings
         if name == "kThreads" and (mirror % WARP or not 0 < mirror <= 1024):
             out.append(Finding("K001", f"kThreads = {mirror} is not whole warps within "
                                        "1024 threads", file=_rel(src), line=_line_of(text, name)))
-    return out
+    return out + check_bsr_plan(sources)
+
+
+def _bsr_plan_ok(size: int, bs: int, lanes: int, unroll: int) -> bool:
+    """The mirror of ``csrc/spmv_bsr.cu:BsrShape``'s static_asserts: a
+    power of two of lanes within a warp, at least a row's column groups and
+    at most a block's 16-byte vectors, and at least one slot a step."""
+    vec = 16 // size
+    groups = bs // min(vec, bs)
+    return (0 < lanes <= WARP and lanes & (lanes - 1) == 0 and groups <= lanes
+            and lanes <= bs * bs // vec and unroll >= 1)
+
+
+def check_bsr_plan(sources: Optional[Dict[str, str]] = None) -> Findings:
+    """K001: ``kBsrPlan`` in ``spmv_bsr.cu`` is ``BSR_PLAN`` in
+    ``kernels/spmv_bsr.py`` entry for entry (K002 bounds the grid with the
+    mirror's lanes), and every plan is one the kernel takes."""
+    from ..kernels.spmv_bsr import BSR_PLAN
+
+    text = _source("spmv_bsr.cu", sources)
+    m = re.search(r"constexpr\s+int\s+kBsrPlan\s*\[[^\]]*\]\s*\[4\]\s*=\s*\{(.*?)\};", text,
+                  re.S)
+    entry = r"\{\s*(\d+)\s*,\s*(\d+)\s*,\s*(\d+)\s*,\s*(\d+)\s*\}"
+    rows = re.findall(entry, m.group(1)) if m else []
+    plan = {(int(s), int(b)): (int(g), int(u)) for s, b, g, u in rows}
+    where = dict(file=_rel("spmv_bsr.cu"), line=_line_of(text, "int kBsrPlan"))
+    if plan != BSR_PLAN:
+        return [Finding("K001", f"kBsrPlan {plan or 'missing'} in the source but {BSR_PLAN} in "
+                                "kernels/spmv_bsr.py BSR_PLAN", **where)]
+    return [Finding("K001", f"spmv_bsr plan of {lanes} lanes, {unroll} slots a step at "
+                            f"{size}-byte values, BS {bs}, is refused by BsrShape", **where)
+            for (size, bs), (lanes, unroll) in plan.items()
+            if not _bsr_plan_ok(size, bs, lanes, unroll)]
 
 
 # Every ELL width the engine, the tuner and the shard converters can emit:

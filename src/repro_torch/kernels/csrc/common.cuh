@@ -56,6 +56,39 @@ __device__ __forceinline__ void store(double* p, double v) { *p = v; }
 __device__ __forceinline__ void store(__half* p, float v) { *p = __float2half_rn(v); }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
+// ----------------------------------------------------------- vector loads
+// A vector of N values, as whole 16-byte loads or one 8-byte load.
+// load_stream reads values that are used once (evict-first); load_ro reads
+// through the read-only path values that other lanes read again.
+template <typename T, int N>
+__device__ __forceinline__ void load_stream(const T* p, T (&out)[N]) {
+  constexpr int B = static_cast<int>(sizeof(T)) * N;
+  static_assert(B % 8 == 0 && B <= 64, "vector of 8 to 64 bytes");
+  if constexpr (B % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < B / 16; ++i) {
+      const uint4 u = __ldcs(reinterpret_cast<const uint4*>(p) + i);
+      memcpy(reinterpret_cast<char*>(out) + 16 * i, &u, 16);
+    }
+  } else {
+    const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p));
+    memcpy(out, &u, 8);
+  }
+}
+
+template <typename T, int N>
+__device__ __forceinline__ void load_ro(const T* p, T (&out)[N]) {
+  constexpr int B = static_cast<int>(sizeof(T)) * N;
+  static_assert(B == 16 || B == 8, "one 16- or 8-byte vector");
+  if constexpr (B == 16) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+    memcpy(out, &u, 16);
+  } else {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    memcpy(out, &u, 8);
+  }
+}
+
 // ------------------------------------------------------------ reductions
 // Sum over the lanes of an aligned group of `group` lanes (a power of two
 // <= 32); the total lands in the group's first lane.  Every lane of the

@@ -39,22 +39,6 @@ enum EllPath : int { kVector = 0, kWide = 1, kScalar = 2 };  // kernels/spmv_ell
 constexpr int kRows = 4;      // rows in flight per thread on the vector path
 constexpr int kWideVecs = 4;  // 16 B vectors in flight per lane on the wide path
 
-template <typename T, int N>
-__device__ __forceinline__ void load_stream(const T* p, T (&out)[N]) {
-  constexpr int B = static_cast<int>(sizeof(T)) * N;
-  static_assert(B % 8 == 0 && B <= 64, "vector of 8 to 64 bytes");
-  if constexpr (B % 16 == 0) {
-#pragma unroll
-    for (int i = 0; i < B / 16; ++i) {
-      const uint4 u = __ldcs(reinterpret_cast<const uint4*>(p) + i);
-      memcpy(reinterpret_cast<char*>(out) + 16 * i, &u, 16);
-    }
-  } else {
-    const uint2 u = __ldcs(reinterpret_cast<const uint2*>(p));
-    memcpy(out, &u, 8);
-  }
-}
-
 template <typename S>
 __device__ __forceinline__ S gather(const S* __restrict__ x, int c) {
   return __ldg(x + c);

@@ -53,13 +53,6 @@ template <> __device__ __forceinline__ __nv_bfloat16 zero_of<__nv_bfloat16>() {
   return __float2bfloat16_rn(0.0f);
 }
 
-template <typename T, int N>
-__device__ __forceinline__ void load_ro(const T* p, T (&out)[N]) {
-  static_assert(sizeof(T) * N == 16, "one 16-byte vector");
-  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-  memcpy(out, &u, 16);
-}
-
 template <typename A>
 __device__ __forceinline__ A magnitude(A v) {
   return v < A(0) ? -v : v;

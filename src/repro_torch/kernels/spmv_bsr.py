@@ -1,9 +1,14 @@
 """Hopper blocked-ELL (BSR) SpMV kernel (``csrc/spmv_bsr.cu``).
 
-Replaces ``src/repro/kernels/spmv_bsr.py:spmv_bsr_kernel_call``: one thread
-per output row of a block-row, plain multiply-adds over the slots.  Bound
-by bytes.  The plain version is ``ref.spmv_bsr_ref``; :func:`spmv_bsr_contract`
-declares what a launch executes.
+Replaces ``src/repro/kernels/spmv_bsr.py:spmv_bsr_kernel_call``.  Bound by
+bytes (0.5 flop a byte of f32 values: tensor cores buy nothing).  A group of
+lanes owns a block-row and reads its contiguous values as 16-byte vectors,
+neighbouring lanes on neighbouring addresses; each lane keeps one column
+group of every block, so it widens its slice of ``x`` once a slot for all
+the rows it serves, and the lanes of a row add up in one fixed shuffle tree.
+:data:`BSR_PLAN` mirrors the lanes a block-row and slots a step of each
+instantiation.  The plain version is ``ref.spmv_bsr_ref``;
+:func:`spmv_bsr_contract` declares what a launch executes.
 """
 
 from __future__ import annotations
@@ -16,7 +21,22 @@ from ..analysis.op_count import dtype_name, widened
 from . import build as _b
 
 __all__ = ["spmv_bsr_kernel_call", "spmv_bsr_contract", "check_bsr_operands",
-           "blocked_ell_from_csr"]
+           "blocked_ell_from_csr", "BSR_PLAN", "bsr_x_bytes"]
+
+# Mirror of csrc/spmv_bsr.cu kBsrPlan: (element bytes, BS) -> (lanes a
+# block-row, slots a step).
+BSR_PLAN = {
+    (4, 4): (4, 2), (4, 8): (4, 4), (4, 16): (16, 2),
+    (8, 4): (4, 2), (8, 8): (8, 2), (8, 16): (16, 1),
+    (2, 4): (2, 4), (2, 8): (4, 2), (2, 16): (8, 2),
+}
+
+
+def bsr_x_bytes(elem_size: int, bs: int) -> int:
+    """Bytes of the slice of ``x`` a lane loads a slot: a 16-byte vector, or
+    the whole ``BS``-slice where that is shorter (8 bytes at BS 4 in
+    16-bit types).  ``x`` must be aligned to it, ``val`` to 16 bytes."""
+    return min(16, bs * elem_size)
 
 
 def spmv_bsr_contract(val: torch.Tensor, x: torch.Tensor, accum_dtype):
@@ -56,6 +76,10 @@ def spmv_bsr_kernel_call(
     _b.require_cuda("spmv_bsr", val, bcol, x)
     check_bsr_operands(val, bcol, x, n_cols)
     nbr, slots, bs, _ = val.shape
+    x_align = bsr_x_bytes(x.element_size(), bs)
+    if val.data_ptr() % 16 or x.data_ptr() % x_align:
+        raise ValueError(f"spmv_bsr: val must be 16-byte aligned and x {x_align}-byte aligned, "
+                         f"got addresses {val.data_ptr():#x} and {x.data_ptr():#x}")
     y = torch.empty(nbr * bs, dtype=accum_dtype, device=val.device)
     rc = _b.load().repro_spmv_bsr(
         _b.dtype_code(val.dtype), _b.dtype_code(accum_dtype),

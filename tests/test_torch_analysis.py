@@ -220,6 +220,25 @@ def test_k001_red_launch_shape():
     assert kernel_check.check_launch_constants() == []
 
 
+def test_k001_red_bsr_plan(monkeypatch):
+    """``spmv_bsr``'s plan table against its Python mirror, and a plan the
+    kernel's static_asserts refuse (3 lanes: not a power of two)."""
+    from repro_torch.kernels import spmv_bsr
+
+    src = (kernel_check.CSRC / "spmv_bsr.cu").read_text()
+    edited = src.replace("{4, 16, 16, 2}", "{4, 16, 8, 2}")
+    assert edited != src
+    fs = kernel_check.check_launch_constants(sources={"spmv_bsr.cu": edited})
+    assert [f.rule for f in fs] == ["K001"] and "BSR_PLAN" in fs[0].message
+    assert kernel_check.check_bsr_plan(sources={"spmv_bsr.cu": "// rewritten"})[0].rule == "K001"
+    monkeypatch.setitem(spmv_bsr.BSR_PLAN, (4, 16), (3, 2))
+    fs = kernel_check.check_bsr_plan(sources={"spmv_bsr.cu": src.replace("{4, 16, 16, 2}",
+                                                                         "{4, 16, 3, 2}")})
+    assert [f.rule for f in fs] == ["K001"] and "refused" in fs[0].message
+    monkeypatch.undo()
+    assert kernel_check.check_bsr_plan() == []
+
+
 def test_k002_red_bounds():
     huge = kernel_check.Layout("2^31 columns", ("spmv_ell",), rows=8, width=8, n_cols=2**31 + 1)
     fs = kernel_check.check_index_bounds(layouts=[huge])
@@ -498,7 +517,7 @@ def test_contract_lanczos_update(sdt, acc, n):
 
 
 @pytest.mark.parametrize("sdt,acc", PAIRS)
-@pytest.mark.parametrize("bs,nbr", [(4, 30), (8, 12)])
+@pytest.mark.parametrize("bs,nbr", [(4, 30), (8, 12), (16, 7)])
 def test_contract_spmv_bsr(sdt, acc, bs, nbr):
     from repro_torch.kernels.spmv_bsr import spmv_bsr_contract
 

@@ -145,10 +145,13 @@ def test_lanczos_update_matches_reference(pair, n):
     assert abs(float(nrm) - float(nrm_want[0])) <= RTOL[tacc] * float(nrm_want[0])
 
 
-@pytest.mark.parametrize("pair", list(PAIRS))
-@pytest.mark.parametrize("bs", [4, 8])
+BSR_PAIRS = {**PAIRS, "f16-f32": ((jnp.float16, torch.float16), (jnp.float32, torch.float32))}
+
+
+@pytest.mark.parametrize("pair", list(BSR_PAIRS))
+@pytest.mark.parametrize("bs", [4, 8, 16])
 def test_spmv_bsr_matches_reference(pair, bs):
-    (jdt, tdt), (jacc, tacc) = PAIRS[pair]
+    (jdt, tdt), (jacc, tacc) = BSR_PAIRS[pair]
     csr = generate("road", 529, 3.0, seed=bs, values="uniform")  # 529 rows: odd
     bsr = to_device_bsr(csr, block_size=bs, dtype=jdt)
     nbr = bsr.val.shape[0]

@@ -1,5 +1,5 @@
-"""The redesigned ``spmv_ell``, ``mixed_dot``, ``spmv_ell_packed`` and
-``spmv_ell_alpha`` kernels on the card.
+"""The redesigned ``spmv_ell``, ``mixed_dot``, ``spmv_ell_packed``,
+``spmv_ell_alpha`` and ``spmv_bsr`` kernels on the card.
 
 Every test here needs a CUDA card and skips without one.  The file imports
 neither ``jax`` nor the reference package, so it also runs on a machine that
@@ -12,8 +12,9 @@ held against their plain versions (``kernels.ref``) at rtol 1e-5 under f32
 accumulation and 1e-12 under f64, relative to the largest |y| for SpMV and
 to the sum of |a_i b_i| for the dot and for alpha: the arithmetic is the
 same, only the order of the sums differs.  Repeated calls, the unpadded and
-padded dot, and ``spmv_ell_alpha``'s ``w`` and ``spmv_ell``'s ``y`` (one row
-code) must agree bit for bit.
+padded dot, ``spmv_ell_alpha``'s ``w`` and ``spmv_ell``'s ``y`` (one row
+code), and ``spmv_bsr`` with zero slots appended or on a range of its
+block-rows must agree bit for bit.
 """
 
 import pytest
@@ -22,6 +23,7 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.lanczos_fused import spmv_ell_alpha_kernel_call
 from repro_torch.kernels.mixed_dot import mixed_dot_kernel_call
+from repro_torch.kernels.spmv_bsr import bsr_x_bytes, spmv_bsr_kernel_call
 from repro_torch.kernels.spmv_ell import ell_launch_plan, spmv_ell_kernel_call
 from repro_torch.kernels.spmv_ell_packed import packed_launch_plan, spmv_ell_packed_kernel_call
 
@@ -357,3 +359,78 @@ def test_spmv_ell_alpha_ignores_padding_rows(cuda, pair, path):
     assert w.shape == (rows,)
     assert torch.equal(w, spmv_ell_kernel_call(val, col, x, accum_dtype=A))
     _alpha_close(alpha, val, col, x, v, A)
+
+
+# ------------------------------------------------------------------ spmv_bsr
+
+# (block-rows, slots): odd and one-row counts, one slot and many.
+BSR_SHAPES = ((1001, 5), (37, 1), (37, 37), (1, 3))
+
+
+def _bsr(nbr, slots, bs, n_blocks, dtype, dev, seed):
+    """A random BSR layout over a gathered vector of ``n_blocks`` block
+    columns (more than ``nbr``, as a row shard's); block-row 0's last slot
+    takes the last block column."""
+    g = torch.Generator().manual_seed(seed)
+    val = torch.randn(nbr, slots, bs, bs, generator=g, dtype=torch.float64)
+    bcol = torch.randint(0, n_blocks, (nbr, slots), generator=g, dtype=torch.int32)
+    bcol[0, -1] = n_blocks - 1
+    x = torch.randn(n_blocks * bs, generator=g, dtype=torch.float64)
+    return val.to(dtype).to(dev), bcol.to(dev), x.to(dtype).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bs", [4, 8, 16])
+@pytest.mark.parametrize("pair", list(PAIRS))
+def test_spmv_bsr_edges_and_bits(cuda, pair, bs):
+    """Each shape of ``BSR_SHAPES`` against the plain version, then the bits
+    the kernel promises: a repeat, two zero slots appended to every
+    block-row, and a range of block-rows launched alone give the same bits."""
+    S, A = PAIRS[pair]
+    for nbr, slots in BSR_SHAPES:
+        n_blocks = nbr + 7
+        val, bcol, x = _bsr(nbr, slots, bs, n_blocks, S, cuda, seed=nbr + slots + bs)
+        n_cols = n_blocks * bs
+
+        def run(v, c):
+            return spmv_bsr_kernel_call(v, c, x, accum_dtype=A, n_cols=n_cols)
+
+        y = run(val, bcol)
+        want = ref.spmv_bsr_ref(val, bcol, x, A)
+        assert y.dtype == A and y.shape == want.shape == (nbr * bs,)
+        err = float((y.double() - want.double()).abs().max())
+        assert err <= RTOL[A] * max(float(want.double().abs().max()), 1e-300), (nbr, slots)
+        assert torch.equal(y, run(val, bcol))
+        padded = (torch.cat([val, torch.zeros(nbr, 2, bs, bs, dtype=S, device=cuda)], 1),
+                  torch.cat([bcol, torch.zeros(nbr, 2, dtype=torch.int32, device=cuda)], 1))
+        assert torch.equal(y, run(*padded)), (nbr, slots, "zero slots")
+        a, b = nbr // 3, max(nbr // 3 + 1, 2 * nbr // 3)
+        assert torch.equal(y[a * bs : b * bs], run(val[a:b], bcol[a:b])), (nbr, slots, "range")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pair", list(PAIRS))
+def test_spmv_bsr_refuses_strided_and_misaligned(cuda, pair):
+    """The kernel reads ``val`` as 16-byte vectors and ``x`` in slices of
+    ``bsr_x_bytes``: a non-contiguous operand, or a base one element past
+    such a boundary, raises; ``x`` one whole block further on runs."""
+    S, A = PAIRS[pair]
+    for bs in (4, 8, 16):
+        nbr, slots = 40, 4
+        val, bcol, x = _bsr(nbr, slots, bs, nbr, S, cuda, seed=bs)
+        for args in ((val.transpose(2, 3), bcol, x), (val, bcol.t().contiguous().t(), x),
+                     (val, bcol, torch.stack([x, x], 1)[:, 0])):
+            with pytest.raises(ValueError, match="contiguous"):
+                spmv_bsr_kernel_call(*args, accum_dtype=A)
+        vbuf = torch.zeros(val.numel() + 1, dtype=S, device=cuda)
+        vbuf[1:].copy_(val.reshape(-1))
+        xbuf = torch.zeros(x.numel() + bs, dtype=S, device=cuda)
+        xbuf[1 : 1 + x.numel()].copy_(x)
+        val_u, x_u = vbuf[1:].view(val.shape), xbuf[1 : 1 + x.numel()]
+        assert val_u.data_ptr() % 16 and x_u.data_ptr() % bsr_x_bytes(x.element_size(), bs)
+        for args in ((val_u, bcol, x), (val, bcol, x_u)):
+            with pytest.raises(ValueError, match="aligned"):
+                spmv_bsr_kernel_call(*args, accum_dtype=A)
+        xbuf[bs:].copy_(x)  # one block on: as aligned as the buffer
+        y = spmv_bsr_kernel_call(val, bcol, xbuf[bs:], accum_dtype=A)
+        assert torch.equal(y, spmv_bsr_kernel_call(val, bcol, x, accum_dtype=A))
