@@ -27,6 +27,13 @@ before the last line:
    ``spmv_bsr`` also at BS 4 and 16 (kron matrices of ~16.8M nnz), timed
    beside ``torch.mv`` on a BSR tensor, and on the BS 8 matrix a repeat,
    two zero slots appended and a range of block-rows alone give its bits;
+   the f64 and bf16 ``spmv_bsr`` plans timed at every block edge, and the
+   ``<f32, X = f64, f64>`` kernels (an f64 ``x`` over f32 storage) of
+   ``spmv_ell`` on the road network and ``spmv_bsr`` at BS 8; before
+   those, the wrappers' operand rule: each of the seven wrappers with a
+   foreign-dtype, a strided and an offset operand, through its kernel
+   against its plain version, and each ``<S, X = A, A>`` kernel against
+   the bits of ``<S, S, A>``;
 3. the main path: ``repro_torch.eigsh`` on a 4.19M-row road network
    (``generate("road", 1 << 22, 2.1)``, the size of the paper's italy_osm)
    with the defaults (FDF): ELL format, ``spmv_ell`` and ``lanczos_update``
@@ -285,6 +292,8 @@ PAIRS = (
     (torch.float16, torch.float32),
 )
 MAIN_PAIR = (torch.float32, torch.float64)  # FDF: f32 storage, f64 accumulation
+# spmv_bsr's plans for 8- and 2-byte values (f32's are timed at MAIN_PAIR).
+BSR_PLAN_PAIRS = ((torch.float64, torch.float64), (torch.bfloat16, torch.float32))
 
 
 class CheckFailed(Exception):
@@ -518,6 +527,13 @@ def phase_kernels(road, block_csr) -> dict:
                     lib = lambda: csr_t @ x  # noqa: E731
                 rec = timed(run, plain, lib, err, t_b, by)
         out[name] = rec
+    val32 = ell.val.float()
+    out["spmv_ell"]["x_acc"] = x_acc_record(
+        "spmv_ell", lambda x: fns["spmv_ell"](val32, ell.col, x, accum_dtype=MAIN_PAIR[1]),
+        lambda x: ref.spmv_ell_ref(val32, ell.col, x, MAIN_PAIR[1]), x64,
+        nbytes(val32, ell.col, x64) + rows * MAIN_PAIR[1].itemsize, 2.0 * road.nnz,
+        f"road n={road.n:,}")
+    del val32
 
     # lanczos_update at the main path's vector length; FDF carries f64 vectors.
     n = road.n
@@ -545,20 +561,58 @@ def phase_kernels(road, block_csr) -> dict:
     nbr, slots, bs, _ = bsr.val.shape
     print(f"[kernels] BSR layout {nbr} x {slots} x {bs} x {bs} (n={block_csr.n:,}, nnz={block_csr.nnz:,})")
     xb64 = torch.randn(nbr * bs, generator=g, dtype=torch.float64, device=dev)
-    rec = None
+    rec, plans = None, {}
     for S, A in PAIRS:
         val, x = bsr.val.to(S), xb64.to(S)
         run = lambda: fns["spmv_bsr"](val, bsr.bcol, x, accum_dtype=A)  # noqa: E731
         plain = lambda: ref.spmv_bsr_ref(val, bsr.bcol, x, A)  # noqa: E731
         err = close(run(), plain(), RTOL[A])
         print(f"[kernels] spmv_bsr ({dname(S)}, {dname(A)}): max_abs_err {err:.3e} ok")
+        t_b, by = bound(nbytes(val, bsr.bcol, x) + nbr * bs * A.itemsize, 2.0 * val.numel(), A)
         if (S, A) == MAIN_PAIR:
-            t_b, by = bound(nbytes(val, bsr.bcol, x) + nbr * bs * A.itemsize, 2.0 * val.numel(), A)
             rec = timed(run, plain, library_bsr(block_csr, S, x), err, t_b, by)
             bsr_bits(val, bsr.bcol, x, A)
+        elif (S, A) in BSR_PLAN_PAIRS:
+            plans[f"{dname(S)}, {dname(A)}"] = plan_record(run, plain, err, t_b, by,
+                                                           f"({dname(S)}, {dname(A)}) BS {bs}")
+    rec["plans"] = plans
+    val = bsr.val.float()
+    rec["x_acc"] = x_acc_record(
+        "spmv_bsr", lambda x: fns["spmv_bsr"](val, bsr.bcol, x, accum_dtype=MAIN_PAIR[1]),
+        lambda x: ref.spmv_bsr_ref(val, bsr.bcol, x, MAIN_PAIR[1]), xb64,
+        nbytes(val, bsr.bcol, xb64) + nbr * bs * MAIN_PAIR[1].itemsize, 2.0 * val.numel(),
+        f"BS {bs}, {nbr:,} x {slots} block-rows")
+    del val
     rec["block_sizes"] = bsr_block_records(g)
     out["spmv_bsr"] = rec
     return out
+
+
+def x_acc_record(name, run_x, plain_x, x64, moved: int, flops: float, what: str) -> dict:
+    """The ``<f32, X = f64, f64>`` instantiation of a gathering kernel at
+    phase 2's shape: an f64 ``x`` over FDF's f32 storage (the accum dtype:
+    the wrapper hands such an ``x`` on as it is).  Held to the plain
+    version, to the bits of ``<f32, f32, f64>`` on ``x`` rounded to f32
+    (the same products in the same order), and timed."""
+    A = MAIN_PAIR[1]
+    err = close(run_x(x64), plain_x(x64), RTOL[A])
+    x32 = x64.float()
+    check(torch.equal(run_x(x32.double()), run_x(x32)),
+          f"{name} <f32, f64, f64>: not the bits of <f32, f32, f64> on an f32-exact x")
+    t_b, by = bound(moved, flops, A)
+    rec = timed(lambda: run_x(x64), lambda: plain_x(x64), None, err, t_b, by)
+    print(f"[kernels] {name} <f32, X = f64, f64> ({what}): max_abs_err {err:.3e}; bits of "
+          f"<f32, f32, f64> on an f32-exact x; device {rec['device_ms']:.4f} ms, series "
+          f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms")
+    return rec
+
+
+def plan_record(run, plain, err, t_b, by, label: str) -> dict:
+    """A ``spmv_bsr`` plan other than f32's, timed (no library call)."""
+    rec = timed(run, plain, None, err, t_b, by)
+    print(f"[kernels] spmv_bsr plan {label}: device {rec['device_ms']:.4f} ms, series "
+          f"{rec['ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms")
+    return rec
 
 
 def bsr_bits(val, bcol, x, A) -> None:
@@ -602,17 +656,21 @@ def bsr_block_records(g) -> dict:
         bsr = to_device_bsr(csr, block_size=bs, dtype=torch.float64, device=dev)
         nbr, slots, _, _ = bsr.val.shape
         xb64 = torch.randn(nbr * bs, generator=g, dtype=torch.float64, device=dev)
-        rec = None
+        rec, plans = None, {}
         for S, A in PAIRS:
             val, x = bsr.val.to(S), xb64.to(S)
             run = lambda: fn(val, bsr.bcol, x, accum_dtype=A)  # noqa: E731
             plain = lambda: ref.spmv_bsr_ref(val, bsr.bcol, x, A)  # noqa: E731
             err = close(run(), plain(), RTOL[A])
+            t_b, by = bound(nbytes(val, bsr.bcol, x) + nbr * bs * A.itemsize,
+                            2.0 * val.numel(), A)
             if (S, A) == MAIN_PAIR:
-                t_b, by = bound(nbytes(val, bsr.bcol, x) + nbr * bs * A.itemsize,
-                                2.0 * val.numel(), A)
                 rec = timed(run, plain, library_bsr(csr, S, x, bs), err, t_b, by)
                 rec.update(n=csr.n, nnz=csr.nnz, layout=f"{nbr} x {slots} x {bs} x {bs}")
+            elif (S, A) in BSR_PLAN_PAIRS:
+                plans[f"{dname(S)}, {dname(A)}"] = plan_record(
+                    run, plain, err, t_b, by, f"({dname(S)}, {dname(A)}) BS {bs}")
+        rec["plans"] = plans
         lib = ("none" if rec["library_ms"] is None else
                f"device {rec['library_device_ms']:.4f} ms, series {rec['library_ms']:.4f} ms")
         print(f"[kernels] spmv_bsr BS={bs} {rec['layout']} (n={csr.n:,}, nnz={csr.nnz:,}; every "
@@ -2169,11 +2227,11 @@ def phase_distributed(data, path, chunk_res, smi) -> dict:
 # The instantiation of each kernel the main path (FDF: f32 storage, f64
 # accumulation) runs; its resources join the kernel's record.
 MAIN_INSTANTIATION = {
-    "spmv_ell": "spmv_ell_kernel<float, double>",
+    "spmv_ell": "spmv_ell_kernel<float, float, double>",
     "lanczos_update": "lanczos_update_kernel<double, double>",
     "lanczos_update_multi": "lanczos_update_kernel<double, double>",  # the same kernel, B rows
-    "spmv_ell_alpha": "spmv_ell_alpha_kernel<float, double>",
-    "spmv_bsr": "spmv_bsr_kernel<float, double, 8>",
+    "spmv_ell_alpha": "spmv_ell_alpha_kernel<float, float, double>",
+    "spmv_bsr": "spmv_bsr_kernel<float, float, double, 8>",
     "spmv_ell_packed": "spmv_ell_packed_kernel<__nv_bfloat16, int, float, double>",
     "mixed_dot": "mixed_dot_kernel<float, double>",
 }
@@ -2362,7 +2420,7 @@ def phase_analysis(data, smi) -> dict:
     attrs = {m.group(1): {"registers": int(m.group(2)), "shared_bytes": int(m.group(3)),
                           "local_bytes": int(m.group(4)), "occupancy": int(m.group(5))}
              for m in _ATTRS_RE.finditer(out.stdout)}
-    check(len(attrs) == 60, f"the resource report lists {len(attrs)} instantiations, not 60")
+    check(len(attrs) == 75, f"the resource report lists {len(attrs)} instantiations, not 75")
     records = {}
     for name, inst in MAIN_INSTANTIATION.items():
         check(inst in attrs, f"no resources reported for {inst}")
@@ -3986,9 +4044,36 @@ def make_data() -> dict:
     return {**mats, "tiny_road": tiny_road, "v": v}
 
 
+def phase_operand_rule() -> None:
+    """Phase 2, the wrappers' operand rule (``kernels.ops.conform``): each
+    of the seven wrappers with an operand in a foreign dtype, a strided one
+    and one a single element into its buffer goes through its kernel (one
+    launch, no plain version on the card) within the accum dtype's
+    tolerance of the plain version; each ``<S, X = A, A>`` instantiation
+    gives the bits of ``<S, S, A>`` on an ``x`` that ``S`` holds
+    (``repro_torch.testing.operands``)."""
+    from repro_torch.testing.operands import gather_bits, rule_cases, run_rule_case
+
+    t0 = time.perf_counter()
+    try:
+        cases = rule_cases("cuda")
+        for c in cases:
+            err = run_rule_case(c)
+            print(f"[kernels] rule: {c.wrapper} ({c.variant}) through {c.kernel}: one launch, "
+                  f"no plain version on the card, error {err:.3e} of its scale (<= {c.rtol[0]:.0e})")
+        bits = gather_bits("cuda")
+    except AssertionError as exc:
+        raise CheckFailed(f"operand rule: {exc}") from exc
+    for line in bits:
+        print(f"[kernels] rule bits: {line}")
+    print(f"[kernels] rule: {len(cases)} calls of {len({c.wrapper for c in cases})} wrappers "
+          f"and {len(bits)} bit checks passed in {time.perf_counter() - t0:.1f} s")
+
+
 def phase_kernel_records(data) -> dict:
     """Phase 2: every kernel against its plain version; the records of the
     ``{"kernels": [...]}`` line, less the launch counts."""
+    phase_operand_rule()
     records = phase_kernels(data["road"], data["block"])
     records.update(phase_kernels_chunked(data["central"], data["tiny_road"], data["web"]))
     records["spmv_ell"]["chunk"] = records.pop("spmv_ell_chunk")

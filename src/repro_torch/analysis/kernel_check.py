@@ -197,7 +197,7 @@ INDEX_EXPRS = (
      lambda L: -(-L.n_cols // L.bs) - 1),
     ("spmv_bsr", "spmv_bsr.cu", "y[i * BS + row0 + k * P::kRowStep + r]", "long long",
      lambda L: L.nbr * L.bs),
-    ("spmv_bsr", "spmv_bsr.cu", "spmv_bsr_kernel<S, A, BS><<<static_cast<unsigned>(blocks)",
+    ("spmv_bsr", "spmv_bsr.cu", "spmv_bsr_kernel<S, X, A, BS><<<static_cast<unsigned>(blocks)",
      "grid", lambda L: -(-L.nbr * _bsr_lanes(L.bs) // 256)),
     ("lanczos_update", "lanczos_update.cu", "i += stride", "long long",
      lambda L: L.rows + 1024 * 256),

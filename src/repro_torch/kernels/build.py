@@ -87,12 +87,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "repro_spmv_ell": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
+    "repro_spmv_ell": (_I, [_I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
     "repro_spmv_ell_alpha": (
-        _I, [_I, _I, _P, _P, _P, _P, _L, _P, _P, _L, _P, _L, _I, _I, _I, _I, _P]
+        _I, [_I, _I, _I, _P, _P, _P, _P, _L, _P, _P, _L, _P, _L, _I, _I, _I, _I, _P]
     ),
     "repro_lanczos_update": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P]),
-    "repro_spmv_bsr": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _I, _P]),
+    "repro_spmv_bsr": (_I, [_I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P]),
     "repro_spmv_ell_packed": (
         _I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]
     ),

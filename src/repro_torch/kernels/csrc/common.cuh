@@ -4,7 +4,10 @@
 // in, A the dtype products are accumulated in.  The C entry points take the
 // pair as two dtype codes (DT_* below, mirrored in kernels/build.py) and
 // return a cudaError_t as int: 0 on success, the launch error otherwise, and
-// ERR_UNSUPPORTED_DTYPES for a pair that is not instantiated.
+// ERR_UNSUPPORTED_DTYPES for a pair that is not instantiated.  The kernels
+// that gather a vector x beside their stored values (spmv_ell,
+// spmv_ell_alpha, spmv_bsr) take x's dtype X as a third code
+// (dispatch_gather).
 //
 // Everything here has internal linkage (anonymous namespace), so the four
 // translation units link into one shared library without sharing kernel
@@ -79,10 +82,13 @@ __device__ __forceinline__ void load_stream(const T* p, T (&out)[N]) {
 template <typename T, int N>
 __device__ __forceinline__ void load_ro(const T* p, T (&out)[N]) {
   constexpr int B = static_cast<int>(sizeof(T)) * N;
-  static_assert(B == 16 || B == 8, "one 16- or 8-byte vector");
-  if constexpr (B == 16) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
-    memcpy(out, &u, 16);
+  static_assert(B == 8 || (B % 16 == 0 && B <= 64), "one 8-byte vector or 16-byte vectors");
+  if constexpr (B % 16 == 0) {
+#pragma unroll
+    for (int i = 0; i < B / 16; ++i) {
+      const uint4 u = __ldg(reinterpret_cast<const uint4*>(p) + i);
+      memcpy(reinterpret_cast<char*>(out) + 16 * i, &u, 16);
+    }
   } else {
     const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
     memcpy(out, &u, 8);
@@ -150,6 +156,27 @@ int dispatch_pair(int sdt, int adt, Args... args) {
   if (sdt == DT_F64 && adt == DT_F64) return F<double, double>::run(args...);
   if (sdt == DT_BF16 && adt == DT_F32) return F<__nv_bfloat16, float>::run(args...);
   if (sdt == DT_F16 && adt == DT_F32) return F<__half, float>::run(args...);
+  return ERR_UNSUPPORTED_DTYPES;
+}
+
+// Calls F<S, X, A>::run(args...) for the (storage, gather, accum) triples of
+// the kernels that gather x: X = S for each pair of dispatch_pair, and X = A
+// for the three pairs where S is not A (an x that kernels/ops.py widened to
+// the accum dtype, exactly, as the reference widens every gathered value).
+template <template <typename, typename, typename> class F, typename... Args>
+int dispatch_gather(int sdt, int xdt, int adt, Args... args) {
+  if (xdt == sdt) {
+    if (sdt == DT_F32 && adt == DT_F32) return F<float, float, float>::run(args...);
+    if (sdt == DT_F32 && adt == DT_F64) return F<float, float, double>::run(args...);
+    if (sdt == DT_F64 && adt == DT_F64) return F<double, double, double>::run(args...);
+    if (sdt == DT_BF16 && adt == DT_F32)
+      return F<__nv_bfloat16, __nv_bfloat16, float>::run(args...);
+    if (sdt == DT_F16 && adt == DT_F32) return F<__half, __half, float>::run(args...);
+  } else if (xdt == adt) {
+    if (sdt == DT_F32 && adt == DT_F64) return F<float, double, double>::run(args...);
+    if (sdt == DT_BF16 && adt == DT_F32) return F<__nv_bfloat16, float, float>::run(args...);
+    if (sdt == DT_F16 && adt == DT_F32) return F<__half, float, float>::run(args...);
+  }
   return ERR_UNSUPPORTED_DTYPES;
 }
 

@@ -1,8 +1,9 @@
 // The ELL row code shared by spmv_ell (csrc/spmv_ell.cu), spmv_ell_alpha
 // (csrc/lanczos_fused.cu) and spmv_ell_packed (csrc/spmv_ell_packed.cu).
 //
-// Row-major ELL (rows, width) of val (S) and int32 col; x is gathered
-// through L2 and the read-only path (the whole of x at 4.2M rows is 17 MB
+// Row-major ELL (rows, width) of val (S) and int32 col; x (X: S, or the
+// accum dtype A where the wrapper widened it) is gathered through L2 and the
+// read-only path (the whole of x at 4.2M rows is 17 MB
 // in f32, inside the 50 MB L2).  Three row paths, picked by the wrapper
 // from the shapes (kernels/spmv_ell.py:ell_launch_plan) and checked here
 // (ell_plan_ok):
@@ -39,8 +40,8 @@ enum EllPath : int { kVector = 0, kWide = 1, kScalar = 2 };  // kernels/spmv_ell
 constexpr int kRows = 4;      // rows in flight per thread on the vector path
 constexpr int kWideVecs = 4;  // 16 B vectors in flight per lane on the wide path
 
-template <typename S>
-__device__ __forceinline__ S gather(const S* __restrict__ x, int c) {
+template <typename X>
+__device__ __forceinline__ X gather(const X* __restrict__ x, int c) {
   return __ldg(x + c);
 }
 
@@ -52,9 +53,9 @@ __device__ __forceinline__ A butterfly(A v, int lanes) {
   return v;
 }
 
-template <typename S, typename A, typename E>
+template <typename S, typename X, typename A, typename E>
 __device__ __forceinline__ void vector_rows(const S* __restrict__ val, const int* __restrict__ col,
-                                            const S* __restrict__ x, E& e, long long rows,
+                                            const X* __restrict__ x, E& e, long long rows,
                                             int width, int lanes) {
   constexpr int V = 16 / sizeof(S);
   const int lane = threadIdx.x & (lanes - 1);
@@ -79,7 +80,7 @@ __device__ __forceinline__ void vector_rows(const S* __restrict__ val, const int
       }
       if (lane == 0 && r < rows) pre[j] = e.load(r);
     }
-    S xs[kRows][V];
+    X xs[kRows][V];
 #pragma unroll
     for (int j = 0; j < kRows; ++j)
 #pragma unroll
@@ -98,9 +99,9 @@ __device__ __forceinline__ void vector_rows(const S* __restrict__ val, const int
   }
 }
 
-template <typename S, typename A, typename E>
+template <typename S, typename X, typename A, typename E>
 __device__ __forceinline__ void wide_rows(const S* __restrict__ val, const int* __restrict__ col,
-                                          const S* __restrict__ x, E& e, long long rows,
+                                          const X* __restrict__ x, E& e, long long rows,
                                           int width) {
   constexpr int V = 16 / sizeof(S);
   const int lane = threadIdx.x & 31;
@@ -124,7 +125,7 @@ __device__ __forceinline__ void wide_rows(const S* __restrict__ val, const int* 
           load_stream(cr + q * V, c[w]);
         }
       }
-      S xs[kWideVecs][V];
+      X xs[kWideVecs][V];
 #pragma unroll
       for (int w = 0; w < kWideVecs; ++w)
 #pragma unroll
@@ -141,9 +142,9 @@ __device__ __forceinline__ void wide_rows(const S* __restrict__ val, const int* 
   }
 }
 
-template <typename S, typename A, typename E>
+template <typename S, typename X, typename A, typename E>
 __device__ __forceinline__ void scalar_rows(const S* __restrict__ val, const int* __restrict__ col,
-                                            const S* __restrict__ x, E& e, long long rows,
+                                            const X* __restrict__ x, E& e, long long rows,
                                             int width, int lanes) {
   const int lane = threadIdx.x & (lanes - 1);
   const int step = kThreads / lanes;
@@ -165,16 +166,16 @@ __device__ __forceinline__ void scalar_rows(const S* __restrict__ val, const int
 }
 
 // Every row of the ELL through the planned path, each handed to `e`.
-template <typename S, typename A, typename E>
+template <typename S, typename X, typename A, typename E>
 __device__ __forceinline__ void ell_rows(const S* __restrict__ val, const int* __restrict__ col,
-                                         const S* __restrict__ x, E& e, long long rows, int width,
+                                         const X* __restrict__ x, E& e, long long rows, int width,
                                          int lanes, int path) {
   if (path == kVector)
-    vector_rows<S, A>(val, col, x, e, rows, width, lanes);
+    vector_rows<S, X, A>(val, col, x, e, rows, width, lanes);
   else if (path == kWide)
-    wide_rows<S, A>(val, col, x, e, rows, width);
+    wide_rows<S, X, A>(val, col, x, e, rows, width);
   else
-    scalar_rows<S, A>(val, col, x, e, rows, width, lanes);
+    scalar_rows<S, X, A>(val, col, x, e, rows, width, lanes);
 }
 
 // A launch plan the row code can run: `lanes` a power of two <= 32; the

@@ -44,20 +44,20 @@ struct AlphaStore {
   }
 };
 
-template <typename S, typename A>
+template <typename S, typename X, typename A>
 __global__ void __launch_bounds__(kThreads)
     spmv_ell_alpha_kernel(const S* __restrict__ val, const int* __restrict__ col,
-                          const S* __restrict__ x, const A* __restrict__ v, long long nv,
+                          const X* __restrict__ x, const A* __restrict__ v, long long nv,
                           A* __restrict__ w, A* __restrict__ partials, long long rows, int width,
                           int lanes, int path) {
   __shared__ A scratch[kThreads / 32];
   AlphaStore<A> e{w, v, nv, A(0)};
-  ell_rows<S, A>(val, col, x, e, rows, width, lanes, path);
+  ell_rows<S, X, A>(val, col, x, e, rows, width, lanes, path);
   const A total = block_sum(e.contrib, scratch);
   if (threadIdx.x == 0) partials[blockIdx.x] = total;
 }
 
-template <typename S, typename A>
+template <typename S, typename X, typename A>
 struct SpmvEllAlpha {
   static int run(const void* val, const void* col, const void* x, const void* v, long long nv,
                  void* w, void* partials, long long n_partials, void* alpha, long long rows,
@@ -65,12 +65,12 @@ struct SpmvEllAlpha {
     const uintptr_t bases = reinterpret_cast<uintptr_t>(val) | reinterpret_cast<uintptr_t>(col);
     if (!ell_plan_ok(width, 16 / sizeof(S), bases, lanes, path, sms) || nv < 0 || nv > rows)
       return static_cast<int>(cudaErrorInvalidValue);
-    static const int per_sm = blocks_per_sm(spmv_ell_alpha_kernel<S, A>);
+    static const int per_sm = blocks_per_sm(spmv_ell_alpha_kernel<S, X, A>);
     const long long blocks = rows == 0 ? 0 : ell_grid(rows, lanes, path, sms, per_sm);
     if (blocks > n_partials) return static_cast<int>(cudaErrorInvalidValue);
     if (blocks > 0) {
-      spmv_ell_alpha_kernel<S, A><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-          static_cast<const S*>(val), static_cast<const int*>(col), static_cast<const S*>(x),
+      spmv_ell_alpha_kernel<S, X, A><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+          static_cast<const S*>(val), static_cast<const int*>(col), static_cast<const X*>(x),
           static_cast<const A*>(v), nv, static_cast<A*>(w), static_cast<A*>(partials), rows,
           width, lanes, path);
       const int err = static_cast<int>(cudaGetLastError());
@@ -84,18 +84,24 @@ struct SpmvEllAlpha {
 
 }  // namespace
 
-extern "C" int repro_spmv_ell_alpha(int sdt, int adt, const void* val, const void* col,
+// xdt: x's dtype, the storage dtype sdt or the accum dtype adt (dispatch_gather).
+extern "C" int repro_spmv_ell_alpha(int sdt, int xdt, int adt, const void* val, const void* col,
                                     const void* x, const void* v, long long nv, void* w,
                                     void* partials, long long n_partials, void* alpha,
                                     long long rows, int width, int lanes, int path, int sms,
                                     void* stream) {
-  return dispatch_pair<SpmvEllAlpha>(sdt, adt, val, col, x, v, nv, w, partials, n_partials, alpha,
-                                     rows, width, lanes, path, sms,
-                                     static_cast<cudaStream_t>(stream));
+  return dispatch_gather<SpmvEllAlpha>(sdt, xdt, adt, val, col, x, v, nv, w, partials,
+                                       n_partials, alpha, rows, width, lanes, path, sms,
+                                       static_cast<cudaStream_t>(stream));
 }
 
-#define SPMV_ELL_ALPHA_KERNELS(X)                                                        \
-  X(spmv_ell_alpha_kernel<float, float>) X(spmv_ell_alpha_kernel<float, double>)          \
-  X(spmv_ell_alpha_kernel<double, double>) X(spmv_ell_alpha_kernel<__nv_bfloat16, float>) \
-  X(spmv_ell_alpha_kernel<__half, float>)
+#define SPMV_ELL_ALPHA_KERNELS(K)                                  \
+  K(spmv_ell_alpha_kernel<float, float, float>)                    \
+  K(spmv_ell_alpha_kernel<float, float, double>)                   \
+  K(spmv_ell_alpha_kernel<double, double, double>)                 \
+  K(spmv_ell_alpha_kernel<__nv_bfloat16, __nv_bfloat16, float>)    \
+  K(spmv_ell_alpha_kernel<__half, __half, float>)                  \
+  K(spmv_ell_alpha_kernel<float, double, double>)                  \
+  K(spmv_ell_alpha_kernel<__nv_bfloat16, float, float>)            \
+  K(spmv_ell_alpha_kernel<__half, float, float>)
 REPRO_KERNEL_TABLE(repro_kernels_spmv_ell_alpha, SPMV_ELL_ALPHA_KERNELS)

@@ -35,6 +35,12 @@
 //   add their partial sums in one fixed shuffle tree (group_sum): no shared
 //   memory, no atomics.
 //
+// - x's dtype X is a template parameter of its own: S, or the accum dtype A
+//   where S is not A (kernels/ops.py widens a foreign x to A once, the
+//   value each product would have widened it to).  The plan stays S's (it
+//   tiles val); a lane's x slice is kXw values of X, one or two 16-byte
+//   loads (kernels/spmv_bsr.py:bsr_x_bytes gives the alignment).
+//
 // Deterministic: a lane sums its slots in storage order and the tree is
 // fixed by the dtype and BS, so a row's bits depend only on its own
 // block-row's stored slots: not on the grid, on zero slots appended, or on
@@ -83,10 +89,10 @@ __device__ __forceinline__ void load_cols(const int* __restrict__ cols, int s, i
   for (int u = 0; u < U; ++u) c[u] = s + u < slots ? __ldcs(cols + s + u) : 0;
 }
 
-template <typename S, typename A, int BS>
+template <typename S, typename X, typename A, int BS>
 __global__ void __launch_bounds__(kThreads)
     spmv_bsr_kernel(const S* __restrict__ val, const int* __restrict__ bcol,
-                    const S* __restrict__ x, A* __restrict__ y, long long nbr, int slots) {
+                    const X* __restrict__ x, A* __restrict__ y, long long nbr, int slots) {
   using P = BsrShape<S, BS>;
   constexpr int U = P::kUnroll;
   const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
@@ -102,7 +108,7 @@ __global__ void __launch_bounds__(kThreads)
     load_cols(cols, 0, slots, c);
     for (int s0 = 0; s0 < slots; s0 += U, blocks += U * BS * BS) {
       S v[U][P::kVecs][P::kVec];
-      S xs[U][P::kXw];
+      X xs[U][P::kXw];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         if (s0 + u < slots) {
@@ -140,25 +146,25 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename S, typename A, int BS>
+template <typename S, typename X, typename A, int BS>
 int launch_bsr(const void* val, const void* bcol, const void* x, void* y, long long nbr, int slots,
                cudaStream_t stream) {
   const long long blocks = ceil_div(nbr * BsrShape<S, BS>::kLanes, kThreads);
-  spmv_bsr_kernel<S, A, BS><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const S*>(val), static_cast<const int*>(bcol), static_cast<const S*>(x),
+  spmv_bsr_kernel<S, X, A, BS><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      static_cast<const S*>(val), static_cast<const int*>(bcol), static_cast<const X*>(x),
       static_cast<A*>(y), nbr, slots);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename S, typename A>
+template <typename S, typename X, typename A>
 struct SpmvBsr {
   static int run(const void* val, const void* bcol, const void* x, void* y, long long nbr,
                  int slots, int bs, cudaStream_t stream) {
     if (nbr == 0) return 0;
     switch (bs) {
-      case 4: return launch_bsr<S, A, 4>(val, bcol, x, y, nbr, slots, stream);
-      case 8: return launch_bsr<S, A, 8>(val, bcol, x, y, nbr, slots, stream);
-      case 16: return launch_bsr<S, A, 16>(val, bcol, x, y, nbr, slots, stream);
+      case 4: return launch_bsr<S, X, A, 4>(val, bcol, x, y, nbr, slots, stream);
+      case 8: return launch_bsr<S, X, A, 8>(val, bcol, x, y, nbr, slots, stream);
+      case 16: return launch_bsr<S, X, A, 16>(val, bcol, x, y, nbr, slots, stream);
       default: return ERR_UNSUPPORTED_BLOCK;
     }
   }
@@ -166,26 +172,37 @@ struct SpmvBsr {
 
 }  // namespace
 
-extern "C" int repro_spmv_bsr(int sdt, int adt, const void* val, const void* bcol, const void* x,
-                              void* y, long long nbr, int slots, int bs, void* stream) {
-  return dispatch_pair<SpmvBsr>(sdt, adt, val, bcol, x, y, nbr, slots, bs,
-                                static_cast<cudaStream_t>(stream));
+// xdt: x's dtype, the storage dtype sdt or the accum dtype adt (dispatch_gather).
+extern "C" int repro_spmv_bsr(int sdt, int xdt, int adt, const void* val, const void* bcol,
+                              const void* x, void* y, long long nbr, int slots, int bs,
+                              void* stream) {
+  return dispatch_gather<SpmvBsr>(sdt, xdt, adt, val, bcol, x, y, nbr, slots, bs,
+                                  static_cast<cudaStream_t>(stream));
 }
 
-#define SPMV_BSR_KERNELS(X)                    \
-  X(spmv_bsr_kernel<float, float, 4>)          \
-  X(spmv_bsr_kernel<float, float, 8>)          \
-  X(spmv_bsr_kernel<float, float, 16>)         \
-  X(spmv_bsr_kernel<float, double, 4>)         \
-  X(spmv_bsr_kernel<float, double, 8>)         \
-  X(spmv_bsr_kernel<float, double, 16>)        \
-  X(spmv_bsr_kernel<double, double, 4>)        \
-  X(spmv_bsr_kernel<double, double, 8>)        \
-  X(spmv_bsr_kernel<double, double, 16>)       \
-  X(spmv_bsr_kernel<__nv_bfloat16, float, 4>)  \
-  X(spmv_bsr_kernel<__nv_bfloat16, float, 8>)  \
-  X(spmv_bsr_kernel<__nv_bfloat16, float, 16>) \
-  X(spmv_bsr_kernel<__half, float, 4>)         \
-  X(spmv_bsr_kernel<__half, float, 8>)         \
-  X(spmv_bsr_kernel<__half, float, 16>)
+#define SPMV_BSR_KERNELS(K)                                    \
+  K(spmv_bsr_kernel<float, float, float, 4>)                   \
+  K(spmv_bsr_kernel<float, float, float, 8>)                   \
+  K(spmv_bsr_kernel<float, float, float, 16>)                  \
+  K(spmv_bsr_kernel<float, float, double, 4>)                  \
+  K(spmv_bsr_kernel<float, float, double, 8>)                  \
+  K(spmv_bsr_kernel<float, float, double, 16>)                 \
+  K(spmv_bsr_kernel<double, double, double, 4>)                \
+  K(spmv_bsr_kernel<double, double, double, 8>)                \
+  K(spmv_bsr_kernel<double, double, double, 16>)               \
+  K(spmv_bsr_kernel<__nv_bfloat16, __nv_bfloat16, float, 4>)   \
+  K(spmv_bsr_kernel<__nv_bfloat16, __nv_bfloat16, float, 8>)   \
+  K(spmv_bsr_kernel<__nv_bfloat16, __nv_bfloat16, float, 16>)  \
+  K(spmv_bsr_kernel<__half, __half, float, 4>)                 \
+  K(spmv_bsr_kernel<__half, __half, float, 8>)                 \
+  K(spmv_bsr_kernel<__half, __half, float, 16>)                \
+  K(spmv_bsr_kernel<float, double, double, 4>)                 \
+  K(spmv_bsr_kernel<float, double, double, 8>)                 \
+  K(spmv_bsr_kernel<float, double, double, 16>)                \
+  K(spmv_bsr_kernel<__nv_bfloat16, float, float, 4>)           \
+  K(spmv_bsr_kernel<__nv_bfloat16, float, float, 8>)           \
+  K(spmv_bsr_kernel<__nv_bfloat16, float, float, 16>)          \
+  K(spmv_bsr_kernel<__half, float, float, 4>)                  \
+  K(spmv_bsr_kernel<__half, float, float, 8>)                  \
+  K(spmv_bsr_kernel<__half, float, float, 16>)
 REPRO_KERNEL_TABLE(repro_kernels_spmv_bsr, SPMV_BSR_KERNELS)

@@ -21,6 +21,11 @@
 // ptxas -v (sm_90a, CUDA 12.8; chip_smoke.py phase 1): 80 registers for
 // <float, float> and <float, double>, 64 for <double, double>, 128 for the
 // bf16 and f16 storage (eight columns a lane); no stack frame, no spills.
+//
+// Instantiations <S, X, A>: x in the storage dtype (X = S) for the five
+// policy pairs, and x already in the accum dtype (X = A) where S is not A:
+// the wrapper widens a foreign x to A once (kernels/ops.py), the same
+// value every product would have widened it to.
 #include "ell_row.cuh"
 
 namespace {
@@ -34,15 +39,15 @@ struct StoreY {
   __device__ __forceinline__ void store(long long r, A acc, Pre) const { __stcs(y + r, acc); }
 };
 
-template <typename S, typename A>
+template <typename S, typename X, typename A>
 __global__ void __launch_bounds__(kThreads)
-    spmv_ell_kernel(const S* __restrict__ val, const int* __restrict__ col, const S* __restrict__ x,
+    spmv_ell_kernel(const S* __restrict__ val, const int* __restrict__ col, const X* __restrict__ x,
                     A* __restrict__ y, long long rows, int width, int lanes, int path) {
   StoreY<A> e{y};
-  ell_rows<S, A>(val, col, x, e, rows, width, lanes, path);
+  ell_rows<S, X, A>(val, col, x, e, rows, width, lanes, path);
 }
 
-template <typename S, typename A>
+template <typename S, typename X, typename A>
 struct SpmvEll {
   static int run(const void* val, const void* col, const void* x, void* y, long long rows,
                  int width, int lanes, int path, int sms, cudaStream_t stream) {
@@ -50,10 +55,10 @@ struct SpmvEll {
     const uintptr_t bases = reinterpret_cast<uintptr_t>(val) | reinterpret_cast<uintptr_t>(col);
     if (!ell_plan_ok(width, 16 / sizeof(S), bases, lanes, path, sms))
       return static_cast<int>(cudaErrorInvalidValue);
-    static const int per_sm = blocks_per_sm(spmv_ell_kernel<S, A>);
+    static const int per_sm = blocks_per_sm(spmv_ell_kernel<S, X, A>);
     const long long blocks = ell_grid(rows, lanes, path, sms, per_sm);
-    spmv_ell_kernel<S, A><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-        static_cast<const S*>(val), static_cast<const int*>(col), static_cast<const S*>(x),
+    spmv_ell_kernel<S, X, A><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        static_cast<const S*>(val), static_cast<const int*>(col), static_cast<const X*>(x),
         static_cast<A*>(y), rows, width, lanes, path);
     return static_cast<int>(cudaGetLastError());
   }
@@ -61,17 +66,23 @@ struct SpmvEll {
 
 }  // namespace
 
-extern "C" int repro_spmv_ell(int sdt, int adt, const void* val, const void* col, const void* x,
-                              void* y, long long rows, int width, int lanes, int path, int sms,
-                              void* stream) {
-  return dispatch_pair<SpmvEll>(sdt, adt, val, col, x, y, rows, width, lanes, path, sms,
-                                static_cast<cudaStream_t>(stream));
+// xdt: x's dtype, the storage dtype sdt or the accum dtype adt (dispatch_gather).
+extern "C" int repro_spmv_ell(int sdt, int xdt, int adt, const void* val, const void* col,
+                              const void* x, void* y, long long rows, int width, int lanes,
+                              int path, int sms, void* stream) {
+  return dispatch_gather<SpmvEll>(sdt, xdt, adt, val, col, x, y, rows, width, lanes, path, sms,
+                                  static_cast<cudaStream_t>(stream));
 }
 
-#define SPMV_ELL_KERNELS(X)                                                  \
-  X(spmv_ell_kernel<float, float>) X(spmv_ell_kernel<float, double>)          \
-  X(spmv_ell_kernel<double, double>) X(spmv_ell_kernel<__nv_bfloat16, float>) \
-  X(spmv_ell_kernel<__half, float>)
+#define SPMV_ELL_KERNELS(K)                                  \
+  K(spmv_ell_kernel<float, float, float>)                    \
+  K(spmv_ell_kernel<float, float, double>)                   \
+  K(spmv_ell_kernel<double, double, double>)                 \
+  K(spmv_ell_kernel<__nv_bfloat16, __nv_bfloat16, float>)    \
+  K(spmv_ell_kernel<__half, __half, float>)                  \
+  K(spmv_ell_kernel<float, double, double>)                  \
+  K(spmv_ell_kernel<__nv_bfloat16, float, float>)            \
+  K(spmv_ell_kernel<__half, float, float>)
 REPRO_KERNEL_TABLE(repro_kernels_spmv_ell, SPMV_ELL_KERNELS)
 
 extern "C" const char* repro_error_string(int code) {

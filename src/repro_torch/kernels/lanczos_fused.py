@@ -31,17 +31,17 @@ def spmv_ell_alpha_kernel_call(
 ):
     """``w = ELL(val, col) @ x`` and ``alpha = <v, w>`` on the card.
 
-    ``x`` is the gather source (storage dtype); ``v`` the alpha operand in
+    ``x`` is the gather source (the storage dtype or ``accum_dtype``, as
+    :func:`.spmv_ell.spmv_ell_kernel_call`'s); ``v`` the alpha operand in
     ``accum_dtype``, of length ``<= rows_pad`` (rows past it count as
     padding).  Returns ``(w (rows_pad,), alpha 0-d)`` in ``accum_dtype``.
     """
     _b.require_cuda("spmv_ell_alpha", val, col, x, v)
     if val.dim() != 2 or col.shape != val.shape or col.dtype != torch.int32:
         raise ValueError(f"spmv_ell_alpha: bad ELL layout val {tuple(val.shape)} col {col.dtype}")
-    if x.dtype != val.dtype or v.dtype != accum_dtype:
-        raise TypeError(
-            f"spmv_ell_alpha: x {x.dtype} must match val {val.dtype}, v {v.dtype} the accum dtype"
-        )
+    if x.dtype not in (val.dtype, accum_dtype) or v.dtype != accum_dtype:
+        raise TypeError(f"spmv_ell_alpha: x {x.dtype} must be val's {val.dtype} or the accum "
+                        f"dtype {accum_dtype}, v {v.dtype} the accum dtype")
     rows, width = val.shape
     if v.shape[0] > rows:
         raise ValueError(f"spmv_ell_alpha: v length {v.shape[0]} > padded rows {rows}")
@@ -54,7 +54,7 @@ def spmv_ell_alpha_kernel_call(
                            device=val.device)
     alpha = torch.empty(1, dtype=accum_dtype, device=val.device)
     rc = _b.load().repro_spmv_ell_alpha(
-        _b.dtype_code(val.dtype), _b.dtype_code(accum_dtype),
+        _b.dtype_code(val.dtype), _b.dtype_code(x.dtype), _b.dtype_code(accum_dtype),
         _b.ptr(val), _b.ptr(col), _b.ptr(x), _b.ptr(v), v.shape[0],
         _b.ptr(w), _b.ptr(partials), partials.numel(), _b.ptr(alpha),
         rows, width, lanes, ELL_PATHS[path], sms, _b.stream_of(val),

@@ -33,9 +33,11 @@ BSR_PLAN = {
 
 
 def bsr_x_bytes(elem_size: int, bs: int) -> int:
-    """Bytes of the slice of ``x`` a lane loads a slot: a 16-byte vector, or
-    the whole ``BS``-slice where that is shorter (8 bytes at BS 4 in
-    16-bit types).  ``x`` must be aligned to it, ``val`` to 16 bytes."""
+    """The alignment ``x`` needs, from its own element size: a lane loads
+    its slice of ``x`` as 16-byte vectors (two where an ``x`` widened to the
+    accum dtype makes the slice 32 bytes), or as the whole ``BS``-slice
+    where that is shorter (8 bytes at BS 4 in 16-bit types).  ``val`` must
+    be aligned to 16 bytes."""
     return min(16, bs * elem_size)
 
 
@@ -50,19 +52,23 @@ def spmv_bsr_contract(val: torch.Tensor, x: torch.Tensor, accum_dtype):
 
 
 def check_bsr_operands(val: torch.Tensor, bcol: torch.Tensor, x: torch.Tensor,
-                       n_cols: Optional[int] = None) -> None:
+                       n_cols: Optional[int] = None, accum_dtype=None) -> None:
     """Raise on operands the kernel does not take.  ``x`` holds the
     matrix's ``n_cols`` columns zero-padded to whole ``BS``-blocks: ``nbr *
     BS`` for a square matrix (the default), ``G * n_pad`` for a row shard of
     the distributed layout, whose block columns index the all-gathered
-    vector.  A shorter ``x`` would let the kernel read past its end."""
+    vector.  A shorter ``x`` would let the kernel read past its end.  ``x``
+    is in ``val``'s dtype or, where ``accum_dtype`` is given, in that (the
+    ``<S, X = A, A>`` instantiations)."""
     if val.dim() != 4 or bcol.shape != val.shape[:2] or bcol.dtype != torch.int32:
         raise ValueError(f"spmv_bsr: bad layout val {tuple(val.shape)} bcol {tuple(bcol.shape)}")
     nbr, _, bs, _ = val.shape
     n_cols = nbr * bs if n_cols is None else int(n_cols)
     want = -(-n_cols // bs) * bs
-    if x.dtype != val.dtype or x.dim() != 1 or x.shape[0] != want:
-        raise ValueError(f"spmv_bsr: x must be a {val.dtype} vector of {want} entries ({n_cols} "
+    dtypes = (val.dtype,) if accum_dtype in (None, val.dtype) else (val.dtype, accum_dtype)
+    if x.dtype not in dtypes or x.dim() != 1 or x.shape[0] != want:
+        kinds = " or ".join(str(dt) for dt in dtypes)
+        raise ValueError(f"spmv_bsr: x must be a {kinds} vector of {want} entries ({n_cols} "
                          f"columns in whole {bs}-blocks), got {x.dtype} {tuple(x.shape)}")
 
 
@@ -74,7 +80,7 @@ def spmv_bsr_kernel_call(
     columns in whole blocks (see :func:`check_bsr_operands`; the caller
     zero-pads).  Returns ``(nbr * BS,)``."""
     _b.require_cuda("spmv_bsr", val, bcol, x)
-    check_bsr_operands(val, bcol, x, n_cols)
+    check_bsr_operands(val, bcol, x, n_cols, accum_dtype)
     nbr, slots, bs, _ = val.shape
     x_align = bsr_x_bytes(x.element_size(), bs)
     if val.data_ptr() % 16 or x.data_ptr() % x_align:
@@ -82,7 +88,7 @@ def spmv_bsr_kernel_call(
                          f"got addresses {val.data_ptr():#x} and {x.data_ptr():#x}")
     y = torch.empty(nbr * bs, dtype=accum_dtype, device=val.device)
     rc = _b.load().repro_spmv_bsr(
-        _b.dtype_code(val.dtype), _b.dtype_code(accum_dtype),
+        _b.dtype_code(val.dtype), _b.dtype_code(x.dtype), _b.dtype_code(accum_dtype),
         _b.ptr(val), _b.ptr(bcol), _b.ptr(x), _b.ptr(y),
         nbr, slots, bs, _b.stream_of(val),
     )

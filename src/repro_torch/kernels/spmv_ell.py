@@ -87,8 +87,9 @@ def ell_max_blocks(rows: int, lanes: int, path: str, sms: int) -> int:
 def spmv_ell_contract(val: torch.Tensor, x: torch.Tensor, accum_dtype):
     """The ops one launch executes: a multiply and an add in ``accum_dtype``
     for each of the ``rows_pad x width`` slots (padding included), with
-    ``val`` and ``x`` widened from the storage dtype in registers when it
-    is not the accum dtype.  Returns ``(ops_by_dtype, conversions)``."""
+    ``val`` and ``x`` each widened in registers where its dtype is not the
+    accum dtype (an ``x`` the wrapper already widened is not widened
+    again).  Returns ``(ops_by_dtype, conversions)``."""
     return ({dtype_name(accum_dtype): 2 * val.numel()},
             widened(accum_dtype, val.dtype, x.dtype))
 
@@ -107,20 +108,22 @@ def spmv_ell_kernel_call(
 ) -> torch.Tensor:
     """``y = ELL(val, col) @ x`` in ``accum_dtype`` on the card; ``(rows_pad,)``.
 
-    ``val`` and ``x`` share the storage dtype; ``col`` is int32 and every
-    index must lie inside ``x``.
+    ``x`` is in the storage dtype of ``val`` or in ``accum_dtype`` (the
+    ``<S, X = A, A>`` instantiations); ``col`` is int32 and every index must
+    lie inside ``x``.
     """
     _b.require_cuda("spmv_ell", val, col, x)
     if val.dim() != 2 or col.shape != val.shape or col.dtype != torch.int32:
         raise ValueError(f"spmv_ell: bad ELL layout val {tuple(val.shape)} col {col.dtype}")
-    if x.dtype != val.dtype:
-        raise TypeError(f"spmv_ell: x dtype {x.dtype} != val dtype {val.dtype}")
+    if x.dtype not in (val.dtype, accum_dtype):
+        raise TypeError(f"spmv_ell: x dtype {x.dtype} is neither val's {val.dtype} nor the "
+                        f"accum dtype {accum_dtype}")
     rows, width = val.shape
     aligned = (val.data_ptr() | col.data_ptr()) % 16 == 0
     lanes, path = ell_launch_plan(width, val.element_size(), aligned)
     y = torch.empty(rows, dtype=accum_dtype, device=val.device)
     rc = _b.load().repro_spmv_ell(
-        _b.dtype_code(val.dtype), _b.dtype_code(accum_dtype),
+        _b.dtype_code(val.dtype), _b.dtype_code(x.dtype), _b.dtype_code(accum_dtype),
         _b.ptr(val), _b.ptr(col), _b.ptr(x), _b.ptr(y),
         rows, width, lanes, ELL_PATHS[path], sm_count(val.device), _b.stream_of(val),
     )

@@ -377,9 +377,11 @@ def test_spmv_ell_alpha_partials_sized_from_grid(rows, width, dt, sms, monkeypat
                                torch.zeros(rows - 3, dtype=torch.float64),
                                accum_dtype=torch.float64)
     args = seen["args"]
+    assert args[:3] == (build.dtype_code(dt), build.dtype_code(dt),
+                        build.dtype_code(torch.float64))  # storage, x, accum
     lanes, path = ell_launch_plan(width, val.element_size(), True)
-    assert args[12:16] == (width, lanes, spmv_ell_module.ELL_PATHS[path], sms)
-    partials, n_partials = args[8], args[9]
+    assert args[13:17] == (width, lanes, spmv_ell_module.ELL_PATHS[path], sms)
+    partials, n_partials = args[9], args[10]
     assert partials.dtype == torch.float64 and partials.numel() == n_partials
     assert n_partials == ell_max_blocks(rows, lanes, path, sms) <= sms * 8
     step = 256 // (32 if path == "wide" else lanes) * (4 if path == "vector" else 1)

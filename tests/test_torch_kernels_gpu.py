@@ -14,7 +14,10 @@ to the sum of |a_i b_i| for the dot and for alpha: the arithmetic is the
 same, only the order of the sums differs.  Repeated calls, the unpadded and
 padded dot, ``spmv_ell_alpha``'s ``w`` and ``spmv_ell``'s ``y`` (one row
 code), and ``spmv_bsr`` with zero slots appended or on a range of its
-block-rows must agree bit for bit.
+block-rows must agree bit for bit.  The wrappers' operand rule
+(``kernels.ops.conform``): every wrapper with a foreign dtype, a strided
+and an offset operand goes through its kernel, within the same tolerances
+of its plain version (``repro_torch.testing.operands``).
 """
 
 import pytest
@@ -26,6 +29,7 @@ from repro_torch.kernels.mixed_dot import mixed_dot_kernel_call
 from repro_torch.kernels.spmv_bsr import bsr_x_bytes, spmv_bsr_kernel_call
 from repro_torch.kernels.spmv_ell import ell_launch_plan, spmv_ell_kernel_call
 from repro_torch.kernels.spmv_ell_packed import packed_launch_plan, spmv_ell_packed_kernel_call
+from repro_torch.testing.operands import RULE_WRAPPERS, gather_bits, rule_cases, run_rule_case
 
 RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 # (storage, accum) pairs of the precision policies.
@@ -434,3 +438,28 @@ def test_spmv_bsr_refuses_strided_and_misaligned(cuda, pair):
         xbuf[bs:].copy_(x)  # one block on: as aligned as the buffer
         y = spmv_bsr_kernel_call(val, bcol, xbuf[bs:], accum_dtype=A)
         assert torch.equal(y, spmv_bsr_kernel_call(val, bcol, x, accum_dtype=A))
+
+
+# ------------------------------------------------------------ the operand rule
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("wrapper", RULE_WRAPPERS)
+def test_operand_rule_on_the_card(cuda, wrapper):
+    """Each wrapper of ``kernels.ops`` takes an operand in a dtype its
+    kernel does not pair with the others, a strided one and one a single
+    element into its buffer: its kernel launches once a call, no plain
+    version runs on the card, and the result is its plain version's within
+    the accum dtype's tolerance."""
+    cases = [c for c in rule_cases(cuda) if c.wrapper == wrapper]
+    assert {c.variant for c in cases} >= {"dtype", "strided", "offset"}
+    for case in cases:
+        run_rule_case(case)
+
+
+@pytest.mark.gpu
+def test_gather_instantiations_match_the_storage_ones_bit_for_bit(cuda):
+    """Every ``<S, X = A, A>`` instantiation of ``spmv_ell`` (each path),
+    ``spmv_ell_alpha`` and ``spmv_bsr`` (each block edge) gives the bits of
+    ``<S, S, A>`` on an ``x`` that ``S`` holds exactly."""
+    assert len(gather_bits(cuda)) == 3 * (3 * 3 + 1 + 3)
