@@ -5,8 +5,10 @@ on one NVIDIA card, or the comparison of two such files.
 The inputs come from seeds (NumPy): the main path's ELL layout
 (``generate("road", 1 << 22, 2.1, seed=0)``, width 8) for every
 (storage, accum) pair of the precision policies, and random layouts of
-1,003 rows and widths 520 and 37, which take the kernel's wide and scalar
-paths.  Two versions of the row code must give the same bytes.  From the
+8,192 rows of width 520 and 1,003 rows of width 37, which take the
+kernel's wide path (enough wide rows to fill a 132-SM card; fewer take the
+split path) and its scalar path.  Two versions of the row code must give
+the same bytes.  From the
 root of a checkout:
 
     python3 bench_torch/ell_bits.py --src OTHER/src --out a.json  # another checkout's kernels
@@ -45,10 +47,10 @@ def digests() -> dict:
     road = generate("road", 1 << 22, 2.1, seed=0)
     main = to_device_ell(road, dtype=torch.float64, device=dev)
     layouts = {"road 4194304 x 8": (main.val, main.col, rng.standard_normal(road.n))}
-    for width in (520, 37):
-        val = rng.standard_normal((1003, width))
-        col = rng.integers(0, 2000, (1003, width), dtype=np.int32)
-        layouts[f"random 1003 x {width}"] = (torch.as_tensor(val, device=dev),
+    for rows, width in ((8192, 520), (1003, 37)):
+        val = rng.standard_normal((rows, width))
+        col = rng.integers(0, 2000, (rows, width), dtype=np.int32)
+        layouts[f"random {rows} x {width}"] = (torch.as_tensor(val, device=dev),
                                              torch.as_tensor(col, device=dev),
                                              rng.standard_normal(2000))
     out = {}

@@ -22,8 +22,12 @@ before the last line:
    bound; ``spmv_ell`` also on one 261,816-row chunk of phase 8;
    ``spmv_ell_alpha``'s ``w`` equals ``spmv_ell``'s ``y`` bit for bit at the
    main path's shape for every pair, and alpha has the same bits on five
-   calls; ``spmv_ell_packed`` also on the chunk that holds phase 4's widest
-   row (its hub: the kernel's wide path), timed there and on the fp8 chunk;
+   calls; both ELL kernels (``spmv_ell`` in f32, ``spmv_ell_packed`` in bf16
+   and fp8) on the chunk that holds phase 4's widest row (its hub) and on
+   the top chunk of the degree-ordered kron graph (251 x 25,232), which
+   take the kernels' split path, each timed there (``spmv_ell`` beside
+   cuSPARSE's CSR product of the same rows), and ``spmv_ell_packed`` on the
+   fp8 chunk;
    ``spmv_bsr`` also at BS 4 and 16 (kron matrices of ~16.8M nnz), timed
    beside ``torch.mv`` on a BSR tensor, and on the BS 8 matrix a repeat,
    two zero slots appended and a range of block-rows alone give its bits;
@@ -59,7 +63,13 @@ before the last line:
    ``spmv_ell_packed`` ``num_chunks * k`` times and stay within the
    reference tests' bounds of f32 staging; fp8 on
    ``generate("road", 1 << 20, 2.1)`` (``chunk_nnz = 1 << 18``) matches the
-   same chunked solve on the host at rel 1e-9;
+   same chunked solve on the host at rel 1e-9; (b) the chunked default
+   call on ``generate("kron", 262,144, 16.0)`` with its rows ordered by
+   degree (data preparation in numpy): ``format="auto"`` picks ELL, its
+   first chunks hold few wide rows and take the split path (launches
+   counted by path against the chunks' plans); f32 staging within rel 1e-9
+   of the host's chunked solve from the same ``v0``, bf16 staging within
+   8e-3 of f32 staging; wall and the card's split of a warm solve;
 10. the restarted backend and the session's query layer, full width: (a)
    ``repro_torch.eigsh(road 4.19M, k=8, tol=1e-6)`` (FDF) runs
    ``backend="restarted"`` on ELL, ``spmv_ell`` launched ``iterations``
@@ -292,6 +302,7 @@ PAIRS = (
     (torch.float16, torch.float32),
 )
 MAIN_PAIR = (torch.float32, torch.float64)  # FDF: f32 storage, f64 accumulation
+KRON_ROWS = 1 << 18  # the degree-ordered kron graph of phases 2 and 9(b)
 # spmv_bsr's plans for 8- and 2-byte values (f32's are timed at MAIN_PAIR).
 BSR_PLAN_PAIRS = ((torch.float64, torch.float64), (torch.bfloat16, torch.float32))
 
@@ -774,11 +785,12 @@ def ell_chunk(csr, r0: int, r1: int):
     return ell.val.numpy(), ell.col.numpy()
 
 
-def phase_kernels_chunked(big, small, web) -> dict:
+def phase_kernels_chunked(big, small, web, kron) -> dict:
     """Phase 2, the chunked path's kernels: ``spmv_ell_packed`` on a real
-    chunk of phase 8's matrix (int32 deltas), on a one-chunk road network
-    whose deltas fit int16 and on the rows of phase 4's hub, for both value
-    dtypes and every (storage, accum) pair; ``mixed_dot`` at
+    chunk of phase 8's matrix (int32 deltas) and on a one-chunk road network
+    whose deltas fit int16, for both value dtypes and every (storage, accum)
+    pair; both ELL kernels' split path on the rows of phase 4's hub and on
+    the degree-ordered kron graph's top chunk; ``mixed_dot`` at
     n = 4,194,304."""
     from repro_torch.core.operators import chunk_row_bounds
     from repro_torch.kernels import ops, ref
@@ -813,8 +825,17 @@ def phase_kernels_chunked(big, small, web) -> dict:
     print(f"[kernels] spmv_ell_packed fp8 chunk (int32, f32, f64): device {f8['device_ms']:.4f} "
           f"ms, series {f8['ms']:.4f} ms, bound {f8['bound_ms']:.4f} ms, plain "
           f"{f8['plain_ms']:.4f} ms")
-    rec["hub"] = packed_hub_check(web, g)
+    # Few wide rows (the split path): the chunk holding the web graph's hub
+    # (its widest row and the 7 after it) and the top chunk of the
+    # degree-ordered kron graph (phase 9(b)'s first chunk).
+    hub = int(web.row_nnz().argmax())
+    hub_recs = split_chunk_check(web, hub, min(hub + 8, web.n), g, "hub chunk")
+    r0k, r1k = chunk_row_bounds(kron.indptr, kron.n, 1 << 20)[0]
+    kron_recs = split_chunk_check(kron, r0k, r1k, g, "kron top chunk")
+    rec["hub"] = {m: hub_recs[m] for m in ("bf16", "fp8")}
+    rec["kron_top"] = {m: kron_recs[m] for m in ("bf16", "fp8")}
     out["spmv_ell_packed"] = rec
+    out["spmv_ell_hub"], out["spmv_ell_kron_top"] = hub_recs["spmv_ell"], kron_recs["spmv_ell"]
     out["spmv_ell_chunk"] = chunk_ell_record(big, (r0, r1), chunks["int32"][0], g)
 
     n = 1 << 22
@@ -854,48 +875,103 @@ def packed_record(val, col, packed, run, plain, err, S, A) -> dict:
     return timed(run, plain, None, err, t_b, by)
 
 
-def packed_hub_check(web, g) -> dict:
-    """``spmv_ell_packed`` on a packed chunk that holds the web graph's widest
-    row (its hub): rows ``[hub, hub + 8)``, the width the hub's nnz padded
-    to 8, which takes the kernel's wide path; bf16 and fp8, every pair,
-    against the plain version.  The hub's row sums a million products that
-    cancel, so the error of the sum order is held to ``RTOL`` of the largest
-    row sum of |products|, not of |y|.  Returns {mode: the timed record at
-    FDF's pair}."""
-    from repro_torch.kernels import ref
+def wide_record(launch, operands, A, y, terms: float) -> dict:
+    """The same chunk through the kernel's wide path (a warp a row: the
+    plan every such chunk had before the split path), forced through the
+    module's ``launch``: its result against the split path's, and its
+    device time (not a launch of the main path: the wrapper's counts do
+    not move)."""
+    wide = lambda: launch(*operands, A, (32, "wide", 0))  # noqa: E731
+    close(wide(), y, RTOL[A], scale=terms)
+    return {"wide_device_ms": device_ms(wide)}
+
+
+def split_chunk_check(csr, r0: int, r1: int, g, label: str) -> dict:
+    """Rows ``[r0, r1)`` of ``csr`` as a chunk of few wide rows, which takes
+    the kernels' split path: ``spmv_ell`` on the chunk's f32 ELL and
+    ``spmv_ell_packed`` on its bf16 and fp8 packing (int32 deltas), every
+    (storage, accum) pair against the plain version.  A wide row sums many
+    products that cancel, so the error of the sum order is held to ``RTOL``
+    of the largest row sum of |products|, not of |y|.  Returns {"spmv_ell",
+    "bf16", "fp8": the timed record at FDF's pair}, each with the device
+    time of the same chunk on the wide path; ``spmv_ell``'s has cuSPARSE's
+    CSR product of the same rows (f32) as its yardstick."""
+    from repro_torch.kernels import ref, spmv_ell, spmv_ell_packed
+    from repro_torch.kernels.spmv_ell import ell_launch_plan, sm_count
     from repro_torch.kernels.spmv_ell_packed import pack_ell_chunk, packed_launch_plan
 
-    fn = kernel_modules()["spmv_ell_packed"]
+    fns = kernel_modules()
     dev = torch.device("cuda")
-    hub = int(web.row_nnz().argmax())
-    val, col = ell_chunk(web, hub, min(hub + 8, web.n))
-    x64 = torch.randn(web.n, generator=g, dtype=torch.float64, device=dev)
-    recs = {}
+    sms = sm_count(dev)
+    val_np, col_np = ell_chunk(csr, r0, r1)
+    x64 = torch.randn(csr.n, generator=g, dtype=torch.float64, device=dev)
+    out = {}
+    val32, col = (torch.as_tensor(t, device=dev) for t in (val_np, col_np))
+    rows, width = val32.shape
+    lo, hi = int(csr.indptr[r0]), int(csr.indptr[r1])
+    csr_t = torch.sparse_csr_tensor(
+        torch.as_tensor((csr.indptr[r0 : r1 + 1] - lo).astype(np.int32), device=dev),
+        torch.as_tensor(csr.indices[lo:hi].astype(np.int32), device=dev),
+        torch.as_tensor(csr.data[lo:hi], dtype=torch.float32, device=dev),
+        size=(r1 - r0, csr.n),
+    )
+    for S, A in PAIRS:
+        val, x = val32.to(S), x64.to(S)
+        plan = ell_launch_plan(width, val.element_size(), True, rows, sms)
+        check(plan[1] == "split", f"{label} {rows} x {width} ({dname(S)}) planned {plan}")
+        terms = ref.spmv_ell_ref(val.double().abs(), col, x.double().abs(), torch.float64)
+        run = lambda: fns["spmv_ell"](val, col, x, accum_dtype=A)  # noqa: E731
+        plain = lambda: ref.spmv_ell_ref(val, col, x, A)  # noqa: E731
+        y = run()
+        err = close(y, plain(), RTOL[A], scale=float(terms.max()))
+        check(torch.equal(y, run()), f"{label} spmv_ell ({dname(S)}, {dname(A)}): bits differ")
+        print(f"[kernels] spmv_ell {label} {rows} x {width:,} ({dname(S)}, {dname(A)}, split "
+              f"path, segment {plan[2]} slots): max_abs_err {err:.3e} (sum |products| "
+              f"{float(terms.max()):.3e}); a repeat gives its bits ok")
+        if (S, A) == MAIN_PAIR:
+            close(csr_t @ x, y[: r1 - r0], RTOL[torch.float32], scale=float(terms.max()))
+            touched = int(torch.unique(col[val != 0]).numel())
+            t_b, by = bound(nbytes(val, col) + touched * x.element_size() + rows * A.itemsize,
+                            2.0 * int((val != 0).sum()), A)
+            out["spmv_ell"] = rec = timed(run, plain, lambda: csr_t @ x, err, t_b, by)
+            rec.update(rows=rows, width=width, plan=list(plan),
+                       **wide_record(spmv_ell.launch, (val, col, x), A, y, float(terms.max())))
+            print(f"[kernels] spmv_ell {label} (f32, f64, split path): device "
+                  f"{rec['device_ms']:.4f} ms ({t_b / rec['device_ms']:.1%} of its bound), series "
+                  f"{rec['ms']:.4f} ms, bound {t_b:.4f} ms, plain {rec['plain_ms']:.4f} ms; the "
+                  f"wide path (the parent's plan) {rec['wide_device_ms']:.4f} ms "
+                  f"({rec['wide_device_ms'] / rec['device_ms']:.1f}x); cuSPARSE CSR f32 on its "
+                  f"{r1 - r0:,} rows: device {rec['library_device_ms']:.4f} ms, series "
+                  f"{rec['library_ms']:.4f} ms")
+    del val32, csr_t
     for mode in ("bf16", "fp8"):
-        packed = [t.to(dev) for t in pack_ell_chunk(val, col, mode)]
-        rows, width = packed[0].shape
-        aligned = (packed[0].data_ptr() | packed[3].data_ptr()) % 16 == 0
-        path = packed_launch_plan(width, packed[3].element_size(), aligned)[1]
-        check(path == "wide", f"hub chunk {rows} x {width} planned {path}, expected wide")
+        packed = [t.to(dev) for t in pack_ell_chunk(val_np, col_np, mode)]
         idx = dname(packed[3].dtype)
+        plan = packed_launch_plan(width, packed[3].element_size(), True, rows, sms)
+        check(plan[1] == "split", f"{label} {rows} x {width} ({mode}) planned {plan}")
         for S, A in PAIRS:
             x = x64.to(S)
             terms = ref.spmv_ell_packed_ref(packed[0].double().abs(), *packed[1:],
                                             x.double().abs(), torch.float64)
-            want = ref.spmv_ell_packed_ref(*packed, x, A)
-            err = close(fn(*packed, x, accum_dtype=A), want, RTOL[A], scale=float(terms.max()))
-            print(f"[kernels] spmv_ell_packed hub rows {hub:,}+{rows} x {width:,} ({mode}, {idx}, "
-                  f"{dname(S)}, {dname(A)}, {path} path): max_abs_err {err:.3e} (sum |products| "
-                  f"{float(terms.max()):.3e}) ok")
+            run = lambda: fns["spmv_ell_packed"](*packed, x, accum_dtype=A)  # noqa: E731
+            plain = lambda: ref.spmv_ell_packed_ref(*packed, x, A)  # noqa: E731
+            y = run()
+            err = close(y, plain(), RTOL[A], scale=float(terms.max()))
+            check(torch.equal(y, run()), f"{label} spmv_ell_packed ({mode}): bits differ")
+            print(f"[kernels] spmv_ell_packed {label} {rows} x {width:,} ({mode}, {idx}, "
+                  f"{dname(S)}, {dname(A)}, split path, segment {plan[2]} slots): max_abs_err "
+                  f"{err:.3e} (sum |products| {float(terms.max()):.3e}); a repeat gives its bits ok")
             if (S, A) == MAIN_PAIR:
-                run = lambda: fn(*packed, x, accum_dtype=A)  # noqa: E731
-                plain = lambda: ref.spmv_ell_packed_ref(*packed, x, A)  # noqa: E731
-                recs[mode] = packed_record(val, col, packed, run, plain, err, S, A)
-                r = recs[mode]
-                print(f"[kernels] spmv_ell_packed hub ({mode}, f32, f64, {path} path): device "
-                      f"{r['device_ms']:.4f} ms, series {r['ms']:.4f} ms, bound "
-                      f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
-    return recs
+                out[mode] = r = packed_record(val_np, col_np, packed, run, plain, err, S, A)
+                r.update(rows=rows, width=width, plan=list(plan),
+                         **wide_record(spmv_ell_packed.launch, (*packed, x), A, y,
+                                       float(terms.max())))
+                print(f"[kernels] spmv_ell_packed {label} ({mode}, f32, f64, split path): device "
+                      f"{r['device_ms']:.4f} ms ({r['bound_ms'] / r['device_ms']:.1%} of its "
+                      f"bound), series {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms, plain "
+                      f"{r['plain_ms']:.4f} ms; the wide path (the parent's plan) "
+                      f"{r['wide_device_ms']:.4f} ms ({r['wide_device_ms'] / r['device_ms']:.1f}x)")
+    return out
 
 
 def chunk_ell_record(big, rows_range, chunk, g) -> dict:
@@ -1220,6 +1296,75 @@ def phase_packed(road, v0, path, f32_res, smi) -> dict:
     err = check_eigs("fp8 small", gpu, cpu, 1e-9)
     print(f"[packed] fp8 on road n={small.n:,} (chunk_nnz 1 << 18, {gpu.partition['num_chunks']} "
           f"chunks): card vs host chunked solve max rel err {err:.3e} (<= 1e-9); host {cwall:.2f} s")
+    return out
+
+
+def reset_paths() -> None:
+    from repro_torch.kernels import spmv_ell, spmv_ell_packed
+
+    for fn in (spmv_ell.spmv_ell_kernel_call, spmv_ell_packed.spmv_ell_packed_kernel_call):
+        fn.paths = dict.fromkeys(fn.paths, 0)
+
+
+def read_paths(kernel: str) -> dict:
+    return dict(kernel_modules()[kernel].paths)
+
+
+def phase_kron_split(kron, v, smi) -> dict:
+    """Phase 9(b): the chunked default call (``format="auto"``) on the
+    degree-ordered kron graph, whose first chunks hold few wide rows: ELL is
+    picked, and those chunks take the kernels' split path.  f32 staging
+    (``spmv_ell``) against the host's chunked solve from the same ``v0``
+    (rel 1e-9, FDF), bf16 staging (``spmv_ell_packed``) against f32 staging
+    (8e-3, the reference tests' bound); launches counted by path against
+    the plans of the operator's chunks; wall and the card's split of one
+    warm solve."""
+    import repro_torch
+    from repro_torch.core.operators import chunk_row_bounds, chunk_rows_pad
+    from repro_torch.kernels.spmv_ell import ell_launch_plan, sm_count
+    from repro_torch.kernels.spmv_ell_packed import packed_launch_plan
+
+    t_phase = time.perf_counter()
+    sms = sm_count(torch.device("cuda"))
+    row_nnz = kron.row_nnz()
+    shapes = [(chunk_rows_pad(r1 - r0), -(-int(row_nnz[r0:r1].max()) // 8) * 8)
+              for r0, r1 in chunk_row_bounds(kron.indptr, kron.n, 1 << 20)]
+    kw = {"backend": "chunked"}
+    out, f32_res = {}, None
+    for mode, kernel, plan in (("f32", "spmv_ell", lambda r, w: ell_launch_plan(w, 4, True, r, sms)),
+                               ("bf16", "spmv_ell_packed",
+                                lambda r, w: packed_launch_plan(w, 4, True, r, sms))):
+        reset_paths()
+        res, wall, launches = solve(kron, "cuda", v, staging=mode, **kw)
+        paths = read_paths(kernel)
+        check_chunked(f"kron {mode}", res, launches, kernel, mode)
+        split_chunks = sum(plan(r, w)[1] == "split" for r, w in shapes)
+        check(res.partition["num_chunks"] == len(shapes), f"kron {mode}: chunks "
+              f"{res.partition['num_chunks']}, expected {len(shapes)}")
+        check(paths["split"] == split_chunks * K and sum(paths.values()) == len(shapes) * K,
+              f"kron {mode}: launches by path {paths}, expected {split_chunks * K} split of "
+              f"{len(shapes) * K}")
+        sess = repro_torch.prepare(kron, device="cuda", staging=mode, **kw)
+        sess.eigsh(K, v0=v)  # warm-up: windows allocated, pinned
+        split = device_split(sess, v)
+        print(f"[kron] eigsh(kron by degree n={kron.n:,} nnz={kron.nnz:,}, k={K}, "
+              f"backend=chunked, staging={mode}) format={res.spmv_format} chunks "
+              f"{len(shapes)} ({', '.join(f'{r} x {w}' for r, w in shapes)}); {kernel} launches "
+              f"by path {paths} ({paths['split']} split of {sum(paths.values())}); cold wall "
+              f"{wall:.3f} s; warm wall {split['wall_ms']:.1f} ms, host staging "
+              f"{split['stage_ms']:.1f} ms, on the card: H2D {split['h2d_ms']:.2f} ms, SpMV "
+              f"{split['spmv_ms']:.2f} ms, other {split['other_ms']:.2f} ms; on {smi}")
+        if mode == "f32":
+            f32_res = res
+            host, hwall, _ = solve(kron, "cpu", v, staging=mode, **kw)
+            err = check_eigs("kron f32", res, host, 1e-9)
+            print(f"[kron] f32 staging vs the host's chunked solve (same v0, {hwall:.2f} s): max "
+                  f"rel err {err:.3e} (<= 1e-9)")
+        else:
+            err = check_eigs("kron bf16", res, f32_res, 8e-3)
+            print(f"[kron] bf16 staging vs f32 staging: max rel err {err:.3e} (<= 8e-3)")
+        out[mode] = {"paths": paths, "wall_s": wall, "device_split": split, "err": err}
+    print(f"[kron] phase 9(b) took {time.perf_counter() - t_phase:.1f} s on {smi}")
     return out
 
 
@@ -2420,7 +2565,7 @@ def phase_analysis(data, smi) -> dict:
     attrs = {m.group(1): {"registers": int(m.group(2)), "shared_bytes": int(m.group(3)),
                           "local_bytes": int(m.group(4)), "occupancy": int(m.group(5))}
              for m in _ATTRS_RE.finditer(out.stdout)}
-    check(len(attrs) == 75, f"the resource report lists {len(attrs)} instantiations, not 75")
+    check(len(attrs) == 103, f"the resource report lists {len(attrs)} instantiations, not 103")
     records = {}
     for name, inst in MAIN_INSTANTIATION.items():
         check(inst in attrs, f"no resources reported for {inst}")
@@ -4034,14 +4179,31 @@ def make_data() -> dict:
     block = to_port_csr(sp.kron(small.to_scipy(), sp.csr_matrix((b + b.T) / 2)))
     central = generate("road", 14_081_816, 2.4, seed=0)  # road_central's row count
     tiny_road = generate("road", 1 << 15, 2.1, seed=0)  # one chunk, int16 deltas
+    kron = degree_ordered_kron()
     rng = np.random.default_rng(0)
     mats = {"road": road, "web": web, "block": block, "central": central}
     v = {k: rng.standard_normal(m.n) for k, m in mats.items()}
+    v["kron"] = np.random.default_rng(4).standard_normal(kron.n)
     print(f"[data] road n={road.n:,} nnz={road.nnz:,}; web n={web.n:,} nnz={web.nnz:,}; "
           f"block n={block.n:,} nnz={block.nnz:,}; central road n={central.n:,} "
-          f"nnz={central.nnz:,} max row {int(central.row_nnz().max())}; "
+          f"nnz={central.nnz:,} max row {int(central.row_nnz().max())}; kron by degree "
+          f"n={kron.n:,} nnz={kron.nnz:,} max row {int(kron.row_nnz().max())}; "
           f"generated in {time.perf_counter() - t0:.1f} s")
-    return {**mats, "tiny_road": tiny_road, "v": v}
+    return {**mats, "tiny_road": tiny_road, "kron": kron, "v": v}
+
+
+def degree_ordered_kron():
+    """``generate("kron", 262,144, 16.0, seed=0)`` (the kron family of the
+    paper's suite) with rows and columns ordered by degree, descending (P A
+    P^T, a stable sort): a common preprocessing of power-law graphs, which
+    puts the hub rows together, so the chunked ``format="auto"`` picks ELL
+    and the first chunks hold few wide rows.  Data preparation, in numpy:
+    neither package orders rows."""
+    from repro_torch.sparse import generate
+
+    a = generate("kron", KRON_ROWS, 16.0, seed=0)
+    perm = np.argsort(-a.row_nnz(), kind="stable")
+    return to_port_csr(a.to_scipy()[perm][:, perm])
 
 
 def phase_operand_rule() -> None:
@@ -4075,8 +4237,10 @@ def phase_kernel_records(data) -> dict:
     ``{"kernels": [...]}`` line, less the launch counts."""
     phase_operand_rule()
     records = phase_kernels(data["road"], data["block"])
-    records.update(phase_kernels_chunked(data["central"], data["tiny_road"], data["web"]))
-    records["spmv_ell"]["chunk"] = records.pop("spmv_ell_chunk")
+    records.update(phase_kernels_chunked(data["central"], data["tiny_road"], data["web"],
+                                         data["kron"]))
+    for part in ("chunk", "hub", "kron_top"):
+        records["spmv_ell"][part] = records.pop(f"spmv_ell_{part}")
     for name in KERNEL_ORDER:
         r = records[name]
         lib = ("" if r["library_ms"] is None else
@@ -4154,6 +4318,7 @@ def main() -> int:
               f"bytes in {time.perf_counter() - t0:.1f} s")
         chunk_res, chunk_launches, dot_launches = phase_chunked(central, v_central, path, smi)
         packed_launches = phase_packed(central, v_central, path, chunk_res, smi)
+        phase_kron_split(data["kron"], data["v"]["kron"], smi)
 
         # ---- phase 7: warm wall times
         import repro_torch as rt

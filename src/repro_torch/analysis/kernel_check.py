@@ -5,9 +5,11 @@ rules mean nothing on the card.  The rules keep their IDs:
 
   * **K001, launch shape.**  For every ELL width, storage dtype, alignment
     and row count that the engine, the tuner and the shard converters can
-    emit, ``lane_plan`` / ``ell_launch_plan`` / ``packed_launch_plan`` give
-    a power-of-two group of lanes that divides a warp and a plan the C side
-    accepts (``ell_row.cuh:ell_plan_ok``); every block is ``kThreads`` (256,
+    emit, at every row count on an H100's 132 SMs, ``lane_plan`` /
+    ``ell_launch_plan`` / ``packed_launch_plan`` give a power-of-two group
+    of lanes that divides a warp and a plan the C side accepts
+    (``ell_row.cuh:ell_plan_ok``, the split path's segment included); every
+    block is ``kThreads`` (256,
     ``common.cuh``); every grid stays within ``2^31 - 1`` blocks.  The
     Python mirrors of the sources' launch constants must match them, and
     ``spmv_bsr``'s plan table (lanes a block-row, slots a step) its mirror
@@ -97,6 +99,12 @@ CROSS_BLOCK = {
     "spmv_ell_alpha": ("lanczos_fused.cu", "partials[blockIdx.x] = total",
                        "launch_reduce_partials"),
     "mixed_dot": ("mixed_dot.cu", "publish(partials + tile, acc)", "walk_tiles"),
+    # the split path: a partial a segment, each row's summed by a block of
+    # the fixed-order pass
+    "spmv_ell (split)": ("spmv_ell.cu", "split_rows<S, X, A>(val, col, x, partials",
+                         "launch_reduce_partials"),
+    "spmv_ell_packed (split)": ("spmv_ell_packed.cu", "if (lane == 0) partials[t] = acc",
+                                "launch_reduce_partials"),
 }
 _FIXED_ORDER_PASS = ("common.cuh", "reduce_partials_kernel")
 
@@ -136,6 +144,8 @@ LAYOUTS = (
            rows=261_816, width=8, n_cols=_CENTRAL),
     Layout("web 1M, the hub chunk", ("spmv_ell", "spmv_ell_packed"),
            rows=8, width=_pad(1_047_670, 8), n_cols=1 << 20),
+    Layout("kron 262,144 by degree, the top chunk", ("spmv_ell", "spmv_ell_packed"),
+           rows=_pad(251, 8), width=25_232, n_cols=1 << 18),
     Layout("road 14.08M, a G = 4 row shard", _ELL_KERNELS + ("lanczos_update",),
            rows=_SHARD4, width=8, n_cols=4 * _SHARD4),
     Layout("kron 0.5M BSR", ("spmv_bsr",), nbr=1 << 16, slots=8, bs=8, n_cols=1 << 19),
@@ -176,6 +186,22 @@ INDEX_EXPRS = (
      lambda L: L.rows * L.width),
     ("spmv_ell", "ell_row.cuh", "xs[j][s] = gather(x, c[j][s]);", "int", _ell_cols),
     ("spmv_ell", "spmv_ell.cu", "long long rows, int width", "int", lambda L: L.width),
+    # the split path: segment offsets within a row, partials and status words
+    ("spmv_ell", "ell_row.cuh", "const long long q0 = seg * 32 * seg_vecs + lane;", "long long",
+     lambda L: L.width),
+    ("spmv_ell", "ell_row.cuh", "const long long units = rows * segs;", "long long",
+     lambda L: L.rows * L.width),
+    ("spmv_ell", "spmv_ell.cu", "stream, static_cast<int>(rows));", "int", lambda L: L.rows),
+    ("spmv_ell_packed", "spmv_ell_packed.cu",
+     "const long long q0 = static_cast<long long>(seg) * 32 * seg_vecs + lane;", "long long",
+     lambda L: L.width),
+    ("spmv_ell_packed", "spmv_ell_packed.cu", "const int segs = static_cast<int>(split_segs(",
+     "int", lambda L: L.width // 32),
+    ("spmv_ell_packed", "spmv_ell_packed.cu", "(1 + tiles) * sizeof(unsigned long long)",
+     "long long", lambda L: 8 * (1 + L.rows * L.width)),
+    ("spmv_ell_packed", "spmv_ell_packed.cu",
+     "xs[w][s] = gather(x, static_cast<int>(start) + cols[h + w][s]);", "int", _ell_cols),
+
     ("spmv_ell_alpha", "lanczos_fused.cu", "long long rows, int width", "int", lambda L: L.width),
     ("spmv_ell_packed", "spmv_ell_packed.cu",
      "const long long off = r * width + static_cast<long long>(lane) * kSlots;", "long long",
@@ -234,24 +260,30 @@ def _line_of(text: str, needle: str) -> int:
 def ell_grid(rows: int, lanes: int, path: str, sms: int, per_sm: int,
              rows_in_flight: Optional[int] = None) -> int:
     """Blocks of one launch of the ELL row code: the mirror of
-    ``csrc/ell_row.cuh:ell_grid``."""
+    ``csrc/ell_row.cuh:ell_grid`` (on the split path ``rows`` counts rows x
+    segments)."""
     from ..kernels.spmv_ell import ROWS_IN_FLIGHT, THREADS
 
     rif = ROWS_IN_FLIGHT if rows_in_flight is None else rows_in_flight
-    step = THREADS // WARP if path == "wide" else THREADS // lanes
+    step = THREADS // WARP if path in ("wide", "split") else THREADS // lanes
     per_block = step * rif if path == "vector" else step
     return min(-(-rows // per_block), sms * per_sm)
 
 
-def _plan_ok(width: int, vec: int, aligned: bool, lanes: int, path: str) -> bool:
+def _plan_ok(width: int, vec: int, aligned: bool, lanes: int, path: str,
+             seg_vecs: int = 0) -> bool:
     """The mirror of ``csrc/ell_row.cuh:ell_plan_ok``."""
+    from ..kernels.spmv_ell import SPLIT_VECS
+
     if lanes < 1 or lanes > WARP or lanes & (lanes - 1):
+        return False
+    if (path == "split") != (seg_vecs != 0) or not 0 <= seg_vecs <= SPLIT_VECS:
         return False
     if path == "scalar":
         return True
-    if path not in ("vector", "wide") or width % vec or not aligned:
+    if path not in ("vector", "wide", "split") or width % vec or not aligned:
         return False
-    return lanes == WARP if path == "wide" else lanes * vec >= width
+    return lanes * vec >= width if path == "vector" else lanes == WARP
 
 
 # ----------------------------------------------------------------- K001
@@ -260,13 +292,17 @@ def _plan_ok(width: int, vec: int, aligned: bool, lanes: int, path: str) -> bool
 def check_launch_constants(sources: Optional[Dict[str, str]] = None) -> Findings:
     """K001: the sources' launch constants against their Python mirrors,
     and ``spmv_bsr``'s launch plan against its mirror and its rules."""
-    from ..kernels.spmv_ell import ROWS_IN_FLIGHT, THREADS
-    from ..kernels.spmv_ell_packed import PACKED_SLOTS
+    from ..kernels.spmv_ell import ROWS_IN_FLIGHT, SPLIT_VECS, THREADS, WIDE_VECS
+    from ..kernels.spmv_ell_packed import PACKED_SLOTS, SPLIT_TILE
 
     wants = (
         ("common.cuh", "kThreads", THREADS, "kernels/spmv_ell.py THREADS"),
         ("ell_row.cuh", "kRows", ROWS_IN_FLIGHT, "kernels/spmv_ell.py ROWS_IN_FLIGHT"),
+        ("ell_row.cuh", "kSplitVecs", SPLIT_VECS, "kernels/spmv_ell.py SPLIT_VECS"),
+        ("ell_row.cuh", "kWideVecs", WIDE_VECS, "kernels/spmv_ell.py WIDE_VECS"),
         ("spmv_ell_packed.cu", "kSlots", PACKED_SLOTS, "kernels/spmv_ell_packed.py PACKED_SLOTS"),
+        ("spmv_ell_packed.cu", "kTileSegs", SPLIT_TILE,
+         "kernels/spmv_ell_packed.py SPLIT_TILE"),
     )
     out: List[Finding] = []
     for src, name, mirror, where in wants:
@@ -325,13 +361,15 @@ ROW_COUNTS = (0, 1, 7, 8, 9, 255, 256, 257, 4096, 261_816, 1 << 22, _SHARD4, _CE
 def check_lane_plans(plan: Optional[Callable] = None, *, widths: Sequence[int] = ELL_WIDTHS,
                      rows: Sequence[int] = ROW_COUNTS, sms: int = H100_SMS,
                      sizes: Sequence[int] = (2, 4, 8)) -> Findings:
-    """K001 over every (width, element size, alignment): the plan's lanes
-    divide a warp, the C side accepts the plan, and the grid of every row
-    count stays within ``2^31 - 1`` blocks.  ``plan`` defaults to the
-    kernels' own (``ell_launch_plan`` for 2-, 4- and 8-byte values, then
+    """K001 over every (width, element size, alignment, row count): the
+    plan's lanes divide a warp, the C side accepts the plan (the split
+    path's segment included), and the grid stays within ``2^31 - 1``
+    blocks.  ``plan(width, size, aligned, rows, sms)`` returns ``(lanes,
+    path, slots a split segment)`` and defaults to the kernels' own
+    (``ell_launch_plan`` for 2-, 4- and 8-byte values, then
     ``packed_launch_plan`` for 2- and 4-byte deltas); ``sizes`` keeps the
     value and delta element sizes swept."""
-    from ..kernels.spmv_ell import MAX_BLOCKS_PER_SM, ell_launch_plan
+    from ..kernels.spmv_ell import MAX_BLOCKS_PER_SM, ell_launch_plan, split_segs
     from ..kernels.spmv_ell_packed import PACKED_SLOTS, packed_launch_plan
 
     if plan is not None:
@@ -345,21 +383,26 @@ def check_lane_plans(plan: Optional[Callable] = None, *, widths: Sequence[int] =
         bad = 0
         for width in widths:
             for aligned in (True, False):
-                lanes, path = fn(width, size, aligned)
-                ctx = f"{kernel}/{size}B/w{width}/{'aligned' if aligned else 'unaligned'}"
-                problem = None
-                if not (1 <= lanes <= WARP and lanes & (lanes - 1) == 0):
-                    problem = f"{lanes} lanes a row do not divide a warp"
-                elif not _plan_ok(width, vec, aligned, lanes, path):
-                    problem = f"plan ({lanes} lanes, {path}) is refused by ell_plan_ok"
-                else:
-                    grid = max(ell_grid(r, lanes, path, sms, MAX_BLOCKS_PER_SM) for r in rows)
-                    if grid > MAX_GRID_X:
-                        problem = f"grid of {grid} blocks exceeds 2^31 - 1"
-                if problem is not None:
-                    bad += 1
-                    if bad <= 3:  # a systematic fault needs three examples, not thousands
-                        out.append(Finding("K001", problem, context=ctx))
+                for r in rows:
+                    lanes, path, seg = fn(width, size, aligned, r, sms)
+                    ctx = (f"{kernel}/{size}B/w{width}/rows{r}/"
+                           f"{'aligned' if aligned else 'unaligned'}")
+                    seg_vecs, whole = divmod(seg, WARP * vec)
+                    problem = None
+                    if not (1 <= lanes <= WARP and lanes & (lanes - 1) == 0):
+                        problem = f"{lanes} lanes a row do not divide a warp"
+                    elif whole or not _plan_ok(width, vec, aligned, lanes, path, seg_vecs):
+                        problem = (f"plan ({lanes} lanes, {path}, segment {seg}) is refused by "
+                                   "ell_plan_ok")
+                    else:
+                        units = r * split_segs(width, vec, seg_vecs) if path == "split" else r
+                        grid = ell_grid(units, lanes, path, sms, MAX_BLOCKS_PER_SM)
+                        if grid > MAX_GRID_X:
+                            problem = f"grid of {grid} blocks exceeds 2^31 - 1"
+                    if problem is not None:
+                        bad += 1
+                        if bad <= 3:  # a systematic fault needs three examples, not thousands
+                            out.append(Finding("K001", problem, context=ctx))
     return out
 
 
@@ -404,7 +447,7 @@ def check_partials(*, rows: Sequence[int] = ROW_COUNTS, widths: Sequence[int] = 
     on the card: the library's own function) and launches ``update_blocks(n)``
     blocks, at most ``kMaxUpdateBlocks``.  ``sizes``: the value element
     sizes swept."""
-    from ..kernels.spmv_ell import MAX_BLOCKS_PER_SM, ell_launch_plan, ell_max_blocks
+    from ..kernels.spmv_ell import MAX_BLOCKS_PER_SM, ell_max_blocks, lane_plan
 
     out: List[Finding] = []
     occ = dict(per_sm or {})
@@ -416,7 +459,7 @@ def check_partials(*, rows: Sequence[int] = ROW_COUNTS, widths: Sequence[int] = 
     most = max([MAX_BLOCKS_PER_SM, *occ.values()])
     for size in sizes:
         for width in widths:
-            lanes, path = ell_launch_plan(width, size, True)
+            lanes, path = lane_plan(width, 16 // size, True)  # alpha's plan: never split
             for r in rows:
                 grid = ell_grid(r, lanes, path, sms, most)
                 have = max(1, ell_max_blocks(r, lanes, path, sms))

@@ -38,6 +38,7 @@ __all__ = [
     "dtype_code",
     "index_code",
     "ptr",
+    "ptr_or_null",
     "stream_of",
     "require_cuda",
 ]
@@ -87,14 +88,14 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
-    "repro_spmv_ell": (_I, [_I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]),
+    "repro_spmv_ell": (_I, [_I, _I, _I, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P]),
     "repro_spmv_ell_alpha": (
         _I, [_I, _I, _I, _P, _P, _P, _P, _L, _P, _P, _L, _P, _L, _I, _I, _I, _I, _P]
     ),
     "repro_lanczos_update": (_I, [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P]),
     "repro_spmv_bsr": (_I, [_I, _I, _I, _P, _P, _P, _P, _L, _I, _I, _P]),
     "repro_spmv_ell_packed": (
-        _I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _P]
+        _I, [_I, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I, _I, _I, _P]
     ),
     "repro_mixed_dot": (_I, [_I, _I, _P, _P, _P, _P, _L, _I, _I, _P]),
     "repro_update_blocks": (_L, [_L]),
@@ -220,6 +221,11 @@ def index_code(dt: torch.dtype) -> int:
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
+
+
+def ptr_or_null(t) -> ctypes.c_void_p:
+    """:func:`ptr`, or a null pointer for ``None`` (scratch a path does not use)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

@@ -4,7 +4,7 @@
 // Row-major ELL (rows, width) of val (S) and int32 col; x (X: S, or the
 // accum dtype A where the wrapper widened it) is gathered through L2 and the
 // read-only path (the whole of x at 4.2M rows is 17 MB
-// in f32, inside the 50 MB L2).  Three row paths, picked by the wrapper
+// in f32, inside the 50 MB L2).  Four row paths, picked by the wrapper
 // from the shapes (kernels/spmv_ell.py:ell_launch_plan) and checked here
 // (ell_plan_ok):
 // - vector: a lane reads 16 B of val (V = 16 / sizeof(S) slots: 4 in f32,
@@ -15,8 +15,22 @@
 //   flight: it issues all its val and col vectors, then all its x gathers,
 //   and only then any arithmetic.  Blocks walk row tiles with a grid
 //   stride over a grid sized from the SM count and the kernel's occupancy.
-// - wide (more than 32 vectors a row: hybrid bulk, hub chunks): a warp per
-//   row walks its 16 B vectors, kWideVecs of them in flight per lane.
+// - wide (more than 32 vectors a row: hybrid bulk, and spmv_ell_alpha's
+//   every wide row): a warp per row walks its 16 B vectors, kWideVecs of
+//   them in flight per lane.
+// - split (more than 32 x kWideVecs vectors a row, under 4 rows a SM: the
+//   hub chunks of power-law graphs; spmv_ell and spmv_ell_packed only,
+//   never spmv_ell_alpha; kernels/spmv_ell.py:split_plan): the row is cut into
+//   segments of 32 lanes x seg_vecs vectors, one warp a segment, so an
+//   8-row chunk runs thousands of warps where the wide path ran 8.  Bound
+//   by bytes, as the others: the segment's loads all go out before its
+//   gathers.  Each segment writes its partial sum to a (rows, segs) scratch
+//   array, and a second small launch (common.cuh: reduce_partials_kernel,
+//   a block a row) sums each row's partials in a fixed order: no atomics
+//   and no float atomics, the same bits on every run.  (A last-arriving
+//   segment with a counter a row would save that launch, but every segment
+//   of a row then adds to one address: about 4 ns a segment, serialized,
+//   on the card, more than the launch.)
 // - scalar (row bytes not a multiple of 16, or a base pointer that is not
 //   16-byte aligned): a group of lanes per row, one slot per lane per step.
 // val and col stream with evict-first loads (__ldcs), x goes through the
@@ -36,9 +50,10 @@
 
 namespace {
 
-enum EllPath : int { kVector = 0, kWide = 1, kScalar = 2 };  // kernels/spmv_ell.py:ELL_PATHS
-constexpr int kRows = 4;      // rows in flight per thread on the vector path
-constexpr int kWideVecs = 4;  // 16 B vectors in flight per lane on the wide path
+enum EllPath : int { kVector = 0, kWide = 1, kScalar = 2, kSplit = 3 };  // kernels/spmv_ell.py:ELL_PATHS
+constexpr int kRows = 4;       // rows in flight per thread on the vector path
+constexpr int kWideVecs = 4;   // 16 B vectors in flight per lane on the wide path (WIDE_VECS)
+constexpr int kSplitVecs = 4;  // the most 16 B vectors a lane takes in one split segment
 
 template <typename X>
 __device__ __forceinline__ X gather(const X* __restrict__ x, int c) {
@@ -178,15 +193,82 @@ __device__ __forceinline__ void ell_rows(const S* __restrict__ val, const int* _
     scalar_rows<S, X, A>(val, col, x, e, rows, width, lanes);
 }
 
+// ------------------------------------------------------------ split path
+// Segments of a split row: 32 lanes x seg_vecs vectors of `vec` slots each.
+__host__ __device__ __forceinline__ long long split_segs(int width, int vec, int seg_vecs) {
+  const long long len = 32LL * seg_vecs;  // vectors a segment
+  return (width / vec + len - 1) / len;
+}
+
+// spmv_ell's split path: warp t takes segment t % segs of row t / segs (a
+// grid stride over rows x segs), issues all its val and col vectors (lane
+// `lane` takes vectors lane, lane + 32, ... of the segment), then all its
+// gathers, then sums in slot order per lane and the butterfly, and writes
+// the segment's partial to partials[t] (= partials[r * segs + seg]).
+template <typename S, typename X, typename A>
+__device__ __forceinline__ void split_rows(const S* __restrict__ val, const int* __restrict__ col,
+                                           const X* __restrict__ x, A* __restrict__ partials,
+                                           long long rows, int width, int seg_vecs) {
+  constexpr int V = 16 / sizeof(S);
+  const int lane = threadIdx.x & 31;
+  const int nvec = width / V;
+  const long long segs = split_segs(width, V, seg_vecs);
+  const long long units = rows * segs;
+  const long long warps = static_cast<long long>(gridDim.x) * (kThreads / 32);
+  for (long long t = static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
+       t < units; t += warps) {
+    const long long r = t / segs;
+    const long long seg = t - r * segs;
+    const S* vr = val + r * width;
+    const int* cr = col + r * width;
+    const long long q0 = seg * 32 * seg_vecs + lane;
+    S v[kSplitVecs][V];
+    int c[kSplitVecs][V];
+    bool live[kSplitVecs];
+#pragma unroll
+    for (int w = 0; w < kSplitVecs; ++w) {
+      const long long q = q0 + 32 * w;
+      live[w] = w < seg_vecs && q < nvec;
+      if (live[w]) {
+        load_stream(vr + q * V, v[w]);
+        load_stream(cr + q * V, c[w]);
+      }
+    }
+    X xs[kSplitVecs][V];
+#pragma unroll
+    for (int w = 0; w < kSplitVecs; ++w)
+#pragma unroll
+      for (int s = 0; s < V; ++s)
+        if (live[w]) xs[w][s] = gather(x, c[w][s]);
+    A acc = A(0);
+#pragma unroll
+    for (int w = 0; w < kSplitVecs; ++w)
+      if (live[w])
+#pragma unroll
+        for (int s = 0; s < V; ++s) acc += to_acc<A>(v[w][s]) * to_acc<A>(xs[w][s]);
+    acc = butterfly(acc, 32);
+    if (lane == 0) partials[t] = acc;
+  }
+}
+
 // A launch plan the row code can run: `lanes` a power of two <= 32; the
-// vector and wide paths only on whole `vec`-slot vectors from 16-byte
-// aligned bases (`bases`: the OR of the streamed arrays' addresses), the
-// vector path with a lane for every vector, the wide path with a warp.
-inline bool ell_plan_ok(int width, int vec, uintptr_t bases, int lanes, int path, int sms) {
+// vector, wide and split paths only on whole `vec`-slot vectors from
+// 16-byte aligned bases (`bases`: the OR of the streamed arrays' addresses),
+// the vector path with a lane for every vector, the wide and split paths
+// with a warp, the split path's segments of 1 to kSplitVecs vectors a lane
+// (`seg_vecs`; 0 on the other paths).
+inline bool ell_plan_ok(int width, int vec, uintptr_t bases, int lanes, int path, int sms,
+                        int seg_vecs = 0) {
   if (lanes < 1 || lanes > 32 || (lanes & (lanes - 1)) || sms < 1) return false;
+  if (path == kSplit) {
+    if (seg_vecs < 1 || seg_vecs > kSplitVecs) return false;
+  } else if (seg_vecs != 0) {
+    return false;
+  }
   if (path == kScalar) return true;
-  if ((path != kVector && path != kWide) || width % vec || (bases & 15)) return false;
-  return path == kWide ? lanes == 32 : static_cast<long long>(lanes) * vec >= width;
+  if ((path != kVector && path != kWide && path != kSplit) || width % vec || (bases & 15))
+    return false;
+  return path == kVector ? static_cast<long long>(lanes) * vec >= width : lanes == 32;
 }
 
 // Blocks of `kernel` one SM holds at once (at least 1).
@@ -199,11 +281,12 @@ int blocks_per_sm(K kernel) {
 
 // Blocks of one launch: enough to cover the rows once, at most as many as
 // the card holds at once (SMs times the kernel's occupancy `per_sm`); the
-// vector path takes `rows_in_flight` rows a thread.
+// vector path takes `rows_in_flight` rows a thread, the wide path a warp a
+// row, the split path a warp a segment (`rows` counts rows x segments).
 // kernels/spmv_ell.py:ell_max_blocks mirrors it with per_sm at its most.
 inline long long ell_grid(long long rows, int lanes, int path, int sms, int per_sm,
                           int rows_in_flight = kRows) {
-  const long long step = path == kWide ? kThreads / 32 : kThreads / lanes;
+  const long long step = path == kWide || path == kSplit ? kThreads / 32 : kThreads / lanes;
   const long long per_block = path == kVector ? step * rows_in_flight : step;
   const long long need = ceil_div(rows, per_block);
   const long long most = static_cast<long long>(sms) * per_sm;

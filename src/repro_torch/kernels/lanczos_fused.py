@@ -1,9 +1,10 @@
 """Hopper fused ELL SpMV + alpha kernel (``csrc/lanczos_fused.cu``).
 
 Replaces ``src/repro/kernels/lanczos_fused.py:spmv_ell_alpha_kernel_call``.
-Two passes, both deterministic: ``spmv_ell``'s row code (the same launch
-plan, so ``w`` has ``spmv_ell``'s bits) writes ``w`` and one partial of
-``<v, w>`` per block of a grid of SMs times occupancy; one block then sums
+Two passes, both deterministic: ``spmv_ell``'s row code (its launch plan
+without the split path, which this kernel never takes: ``w`` has
+``spmv_ell``'s bits wherever ``spmv_ell`` does not split) writes ``w`` and
+one partial of ``<v, w>`` per block of a grid of SMs times occupancy; one block then sums
 the partials in a fixed order.  Bound on the card by bytes.  The plain
 version is ``ref.spmv_ell_alpha_ref``; :func:`spmv_ell_alpha_contract`
 declares what a launch executes.
@@ -14,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import build as _b
-from .spmv_ell import ELL_PATHS, ell_launch_plan, ell_max_blocks, sm_count, spmv_ell_contract
+from .spmv_ell import ELL_PATHS, ell_max_blocks, lane_plan, sm_count, spmv_ell_contract
 
 __all__ = ["spmv_ell_alpha_kernel_call", "spmv_ell_alpha_contract"]
 
@@ -46,7 +47,8 @@ def spmv_ell_alpha_kernel_call(
     if v.shape[0] > rows:
         raise ValueError(f"spmv_ell_alpha: v length {v.shape[0]} > padded rows {rows}")
     aligned = (val.data_ptr() | col.data_ptr()) % 16 == 0
-    lanes, path = ell_launch_plan(width, val.element_size(), aligned)
+    # spmv_ell's plan without the split path: wide rows always take a warp each.
+    lanes, path = lane_plan(width, 16 // val.element_size(), aligned)
     sms = sm_count(val.device)
     w = torch.empty(rows, dtype=accum_dtype, device=val.device)
     # One partial per block: the grid is at most SMs x the blocks an SM holds.

@@ -31,7 +31,7 @@ import torch
 
 from ..analysis.op_count import dtype_name, widened
 from . import build as _b
-from .spmv_ell import ELL_PATHS, lane_plan, sm_count
+from .spmv_ell import ELL_PATHS, row_plan, sm_count, split_segs
 
 __all__ = [
     "PACKED_VALUE_DTYPES",
@@ -39,6 +39,7 @@ __all__ = [
     "SCALE_BLOCK_ROWS",
     "pack_ell_chunk",
     "packed_launch_plan",
+    "launch",
     "spmv_ell_packed_kernel_call",
     "spmv_ell_packed_contract",
 ]
@@ -49,6 +50,9 @@ PACKED_VALUE_DTYPES = {"bf16": torch.bfloat16, "fp8": torch.float8_e4m3fn}
 SCALE_BLOCK_ROWS = 8
 # Slots a lane of the kernel reads as vectors (csrc/spmv_ell_packed.cu: kSlots).
 PACKED_SLOTS = 8
+# Segments a block of the split path takes a ticket (csrc/spmv_ell_packed.cu:
+# kTileSegs, a warp each): one status word a tile.
+SPLIT_TILE = 8
 
 
 def pack_ell_chunk(val: np.ndarray, col: np.ndarray, mode: str):
@@ -90,20 +94,23 @@ def pack_ell_chunk(val: np.ndarray, col: np.ndarray, mode: str):
     return val_packed, scale, base, dcol32.to(torch.int16) if fits else dcol32
 
 
-def packed_launch_plan(width: int, delta_size: int, aligned: bool) -> tuple:
-    """``(lanes per row, path)`` of one ``spmv_ell_packed`` launch.
+def packed_launch_plan(width: int, delta_size: int, aligned: bool, rows: int, sms: int) -> tuple:
+    """``(lanes per row, path, slots a split segment)`` of one
+    ``spmv_ell_packed`` launch of ``rows`` rows on a card of ``sms`` SMs.
 
     A lane reads :data:`PACKED_SLOTS` slots as whole vectors: 16 B of bf16
     or 8 B of fp8 values, 16 B of int16 or 32 B of int32 deltas.  So the
     plan is the same for both delta sizes (2 or 4 bytes; another raises):
-    width / 8 lanes a row rounded up to a power of two, a warp walking the
-    row past 32 vectors, and lane groups of one slot a step when the width
-    is not a multiple of 8 or a base of ``val`` or ``dcol`` is not 16-byte
-    aligned (``aligned`` False).  See :func:`.spmv_ell.lane_plan`.
+    width / 8 lanes a row rounded up to a power of two; past 32 vectors a
+    row, a warp walking the row, or, where such rows are too few to fill
+    the card, a warp a segment of a row (``"split"``); and lane groups of
+    one slot a step when the width is not a multiple of 8 or a base of
+    ``val`` or ``dcol`` is not 16-byte aligned (``aligned`` False).  See
+    :func:`.spmv_ell.row_plan`.
     """
     if delta_size not in (2, 4):
         raise ValueError(f"spmv_ell_packed: no kernel for {delta_size}-byte deltas")
-    return lane_plan(width, PACKED_SLOTS, aligned)
+    return row_plan(width, PACKED_SLOTS, aligned, rows, sms)
 
 
 def spmv_ell_packed_contract(val: torch.Tensor, scale: torch.Tensor, x: torch.Tensor,
@@ -145,18 +152,43 @@ def spmv_ell_packed_kernel_call(
     if base.shape != (rows, 1) or base.dtype != torch.int32:
         raise ValueError(f"spmv_ell_packed: base must be int32 ({rows}, 1), got {base.dtype} "
                          f"{tuple(base.shape)}")
-    y = torch.empty(rows, dtype=accum_dtype, device=val.device)
     aligned = (val.data_ptr() | dcol.data_ptr()) % 16 == 0
-    lanes, path = packed_launch_plan(width, dcol.element_size(), aligned)
+    plan = packed_launch_plan(width, dcol.element_size(), aligned, rows, sm_count(val.device))
+    y = launch(val, scale, base, dcol, x, accum_dtype, plan)
+    spmv_ell_packed_kernel_call.launches += 1
+    spmv_ell_packed_kernel_call.paths[plan[1]] += 1
+    return y
+
+
+def launch(val, scale, base, dcol, x, accum_dtype, plan) -> torch.Tensor:
+    """One launch of ``spmv_ell_packed`` under ``plan`` = ``(lanes, path,
+    slots a split segment)`` (:func:`packed_launch_plan`'s, or another for a
+    sweep); the operands are checked by the caller.  The split path takes a
+    ``(rows, segs)`` scratch of partials in the accum dtype and int64 words,
+    the ticket and a status word a tile of :data:`SPLIT_TILE` segments,
+    which the launch zeroes."""
+    lanes, path, seg = plan
+    rows, width = val.shape
+    y = torch.empty(rows, dtype=accum_dtype, device=val.device)
+    partials = words = None
+    seg_vecs = 0
+    if path == "split":
+        seg_vecs = seg // (32 * PACKED_SLOTS)
+        segs = split_segs(width, PACKED_SLOTS, seg_vecs)
+        partials = torch.empty((rows, segs), dtype=accum_dtype, device=val.device)
+        words = torch.empty(1 + -(-rows * segs // SPLIT_TILE), dtype=torch.int64,
+                            device=val.device)
     rc = _b.load().repro_spmv_ell_packed(
         _b.dtype_code(val.dtype), _b.index_code(dcol.dtype),
         _b.dtype_code(x.dtype), _b.dtype_code(accum_dtype),
         _b.ptr(val), _b.ptr(scale), _b.ptr(base), _b.ptr(dcol), _b.ptr(x), _b.ptr(y),
-        rows, width, lanes, ELL_PATHS[path], sm_count(val.device), _b.stream_of(val),
+        _b.ptr_or_null(partials), _b.ptr_or_null(words),
+        rows, width, lanes, ELL_PATHS[path], seg_vecs, sm_count(val.device), _b.stream_of(val),
     )
     _b.check(rc, "spmv_ell_packed")
-    spmv_ell_packed_kernel_call.launches += 1
     return y
 
 
 spmv_ell_packed_kernel_call.launches = 0
+# Launches by path (``ELL_PATHS``), beside the count: which path a run took.
+spmv_ell_packed_kernel_call.paths = dict.fromkeys(ELL_PATHS, 0)

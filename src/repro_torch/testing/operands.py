@@ -252,18 +252,22 @@ def run_rule_case(case: RuleCase) -> float:
 
 
 def gather_bits(device="cuda", seed: int = 1) -> List[str]:
-    """Each ``<S, X = A, A>`` instantiation of ``spmv_ell`` (vector, wide
-    and scalar paths), ``spmv_ell_alpha`` and ``spmv_bsr`` (BS 4, 8, 16) on
-    an ``x`` that ``S`` holds exactly, widened to ``A``, gives the bits of
+    """Each ``<S, X = A, A>`` instantiation of ``spmv_ell`` (vector, wide,
+    split and scalar paths), ``spmv_ell_alpha`` and ``spmv_bsr`` (BS 4, 8,
+    16) on an ``x`` that ``S`` holds exactly, widened to ``A``, gives the bits of
     the ``<S, S, A>`` kernel on that ``x`` in ``S``: the same products in
     the same order.  On the scalar path, whose lanes and order do not
     depend on the element size, also those of ``<A, A, A>`` on
-    ``val.to(A)``.  Returns one line a check."""
+    ``val.to(A)``.  ``spmv_ell_alpha``'s ``w`` is ``spmv_ell``'s ``y`` under
+    alpha's plan (alpha never splits).  Returns one line a check."""
     from ..kernels.lanczos_fused import spmv_ell_alpha_kernel_call
     from ..kernels.spmv_bsr import spmv_bsr_kernel_call
-    from ..kernels.spmv_ell import ell_launch_plan, spmv_ell_kernel_call
+    from ..kernels.spmv_ell import (SPLIT_ROWS_PER_SM, ell_launch_plan, lane_plan, sm_count,
+                                    spmv_ell_kernel_call)
+    from ..kernels.spmv_ell import launch as spmv_ell_launch
 
     dev = resolve_device(device)
+    sms = sm_count(dev) if dev.type == "cuda" else 132  # an H100's, off the card
     g = torch.Generator().manual_seed(seed)
     lines = []
 
@@ -273,22 +277,35 @@ def gather_bits(device="cuda", seed: int = 1) -> List[str]:
 
     for S, A in GATHER_TRIPLES:
         tag = f"<{str(S)[6:]}, X = {str(A)[6:]}, {str(A)[6:]}>"
-        for width in (8, 520, 37):  # the vector, wide and scalar paths
+        # spmv_ell's vector, wide, split and scalar paths (the wide path needs
+        # enough wide rows to fill the card: fewer split)
+        for rows, width in ((1003, 8), (SPLIT_ROWS_PER_SM * sms, 520), (251, 1040), (1003, 37)):
+            n = 4001
+            val, col = _ell(rows, width, n, g, dev)
+            val = val.to(S)
+            xs = _randn(n, S, g, dev)
+            xa = xs.to(A)
+            path = ell_launch_plan(width, val.element_size(), True, rows, sms)[1]
+            y = spmv_ell_kernel_call(val, col, xa, accum_dtype=A)
+            same(y, spmv_ell_kernel_call(val, col, xs, accum_dtype=A),
+                 f"spmv_ell {tag} {path} ({rows} x {width})")
+            if path == "scalar":
+                same(y, spmv_ell_kernel_call(val.to(A), col, xa, accum_dtype=A),
+                     f"spmv_ell {tag} scalar against <A, A, A> on val.to(A)")
+        # spmv_ell_alpha's vector, wide and scalar paths at 1,003 rows (a grid
+        # the rows bound, so every instantiation has the same one): w is
+        # spmv_ell's y under the same plan (alpha never splits)
+        for width in (8, 520, 37):
             rows, n = 1003, 4001
             val, col = _ell(rows, width, n, g, dev)
             val = val.to(S)
             xs = _randn(n, S, g, dev)
             xa = xs.to(A)
-            path = ell_launch_plan(width, val.element_size(), True)[1]
-            y = spmv_ell_kernel_call(val, col, xa, accum_dtype=A)
-            same(y, spmv_ell_kernel_call(val, col, xs, accum_dtype=A),
-                 f"spmv_ell {tag} {path} (width {width})")
-            if path == "scalar":
-                same(y, spmv_ell_kernel_call(val.to(A), col, xa, accum_dtype=A),
-                     f"spmv_ell {tag} scalar against <A, A, A> on val.to(A)")
+            lanes, path = lane_plan(width, 16 // val.element_size(), True)
             v = _randn(rows - 3, A, g, dev)
             w, alpha = spmv_ell_alpha_kernel_call(val, col, xa, v, accum_dtype=A)
-            same(w, y, f"spmv_ell_alpha {tag} {path}: w")
+            same(w, spmv_ell_launch(val, col, xa, A, (lanes, path, 0)),
+                 f"spmv_ell_alpha {tag} {path}: w")
             same(alpha, spmv_ell_alpha_kernel_call(val, col, xs, v, accum_dtype=A)[1],
                  f"spmv_ell_alpha {tag} {path}: alpha")
         for bs in (4, 8, 16):

@@ -209,10 +209,16 @@ def test_device_jacobi_ritz_accounting():
 
 
 def test_k001_red_launch_shape():
-    fs = kernel_check.check_lane_plans(plan=lambda w, s, a: (3, "vector"), widths=(8, 16))
+    fs = kernel_check.check_lane_plans(plan=lambda w, s, a, r, m: (3, "vector", 0),
+                                       widths=(8, 16))
     assert fs and all(f.rule == "K001" for f in fs)
-    fs = kernel_check.check_lane_plans(plan=lambda w, s, a: (1, "wide"), widths=(512,))
+    fs = kernel_check.check_lane_plans(plan=lambda w, s, a, r, m: (1, "wide", 0), widths=(512,))
     assert [f.rule for f in fs][:1] == ["K001"]  # the wide path takes a warp a row
+    # the split path takes a warp a segment of 1 to SPLIT_VECS whole vectors a lane
+    for seg in (0, 100, 32 * 4 * 5):
+        fs = kernel_check.check_lane_plans(plan=lambda w, s, a, r, m: (32, "split", seg),
+                                           widths=(512,), sizes=(4,))
+        assert [f.rule for f in fs][:1] == ["K001"], seg
     fs = kernel_check.check_launch_constants(
         sources={"common.cuh": "constexpr int kThreads = 200;"})
     assert [f.rule for f in fs] == ["K001"]
@@ -274,6 +280,9 @@ def test_k004_red_nondeterministic_reduction():
     fs = kernel_check.check_cross_block(sources={"lanczos_fused.cu": "// no partials"})
     assert fs and {f.rule for f in fs} == {"K004"} and all("spmv_ell_alpha" in f.message
                                                            for f in fs)
+    # the split path's row sums: a partial a segment, summed by finish_row
+    fs = kernel_check.check_cross_block(sources={"spmv_ell_packed.cu": "// no partials"})
+    assert fs and all("spmv_ell_packed (split)" in f.message for f in fs)
     assert kernel_check.check_cross_block() == []
 
 

@@ -255,6 +255,73 @@ def test_eigsh_chunked_matches_reference(policy, staging, source, disk_root):
     assert st["max_resident"] <= part["stage_depth"] + 1
 
 
+@functools.lru_cache(maxsize=None)
+def _kron_by_degree():
+    """``generate("kron", 4096, 16.0)`` with rows and columns ordered by
+    degree, descending (P A P^T, in numpy: neither package orders rows), as
+    the reference's and the port's CSR.  Its hub rows sit together, so at
+    ``KRON_CHUNK_NNZ`` the first chunks hold few wide rows (10 x 1,336 and
+    21 x 688 before padding)."""
+    a = generate("kron", 1 << 12, 16.0, seed=0)
+    perm = np.argsort(-np.diff(np.asarray(a.indptr)), kind="stable")
+    m = a.to_scipy()[perm][:, perm].tocsr()
+    m.sort_indices()
+    ref = type(a)(indptr=m.indptr.astype(np.int64), indices=m.indices.astype(np.int32),
+                  data=m.data.astype(np.float64), shape=m.shape)
+    return ref, _port_csr(ref)
+
+
+KRON_CHUNK_NNZ = 1 << 13
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_kron_eigsh(policy: str, staging: str):
+    r = repro.eigsh(_kron_by_degree()[0], K, v0=_kron_v0(), policy=policy, num_iters=ITERS,
+                    backend="chunked", format="ell", chunk_nnz=KRON_CHUNK_NNZ, staging=staging)
+    return np.asarray(r.eigenvalues, np.float64), np.asarray(r.residuals)
+
+
+def _kron_v0() -> np.ndarray:
+    return np.random.default_rng(4).standard_normal(1 << 12)
+
+
+@pytest.mark.parametrize("policy,staging", [("FDF", "f32"), ("FDF", "bf16"), ("FFF", "fp8")])
+def test_eigsh_chunked_split_chunks_match_reference(policy, staging):
+    """The degree-ordered kron graph through the chunked ELL backend: its
+    first chunks hold few wide rows, which on a card of 132 SMs take the
+    kernels' split path (``spmv_ell`` for f32 staging, ``spmv_ell_packed``
+    for bf16 and fp8: its first chunk); the solve matches the reference's
+    at the tolerances of ``test_eigsh_chunked_matches_reference``."""
+    from repro_torch.kernels.spmv_ell import ell_launch_plan
+    from repro_torch.kernels.spmv_ell_packed import packed_launch_plan
+
+    _, csr = _kron_by_degree()
+    bounds = chunk_row_bounds(csr.indptr, csr.n, KRON_CHUNK_NNZ)
+    row_nnz = csr.row_nnz()
+    shapes = [(chunk_rows_pad(r1 - r0), -(-int(row_nnz[r0:r1].max()) // 8) * 8)
+              for r0, r1 in bounds]
+    assert [(r1 - r0, int(row_nnz[r0:r1].max())) for r0, r1 in bounds[:2]] == [(10, 1336),
+                                                                                 (21, 686)]
+    # at 132 SMs: 334 and 172 f32 vectors a row split; packed, 167 vectors
+    # split and 86 (one step of the wide path) do not
+    want = ["split", "split"] if staging == "f32" else ["split", "wide"]
+    for (rows, width), path in zip(shapes[:2], want):
+        plan = (ell_launch_plan(width, 4, True, rows, 132) if staging == "f32"
+                else packed_launch_plan(width, 4, True, rows, 132))
+        assert plan[1] == path, (rows, width, plan)
+    ev_ref, res_ref = _reference_kron_eigsh(policy, staging)
+    got = repro_torch.eigsh(csr, K, v0=_kron_v0(), policy=policy, num_iters=ITERS,
+                            backend="chunked", format="ell", chunk_nnz=KRON_CHUNK_NNZ,
+                            staging=staging, device="cpu")
+    assert got.backend == "chunked" and got.spmv_format == "ell"
+    assert got.partition["num_chunks"] == len(shapes)
+    assert got.partition["spmv"]["staging"]["mode"] == staging
+    scale = np.abs(ev_ref).max()
+    np.testing.assert_allclose(got.eigenvalues.double().numpy(), ev_ref, rtol=0,
+                               atol=EIG_TOL[policy] * scale)
+    np.testing.assert_allclose(got.residuals, res_ref, rtol=0, atol=EIG_TOL[policy] * scale)
+
+
 def test_session_on_a_mapping_never_materializes(disk_root, monkeypatch):
     port_path, _ = _disk_paths(disk_root)
     disk = open_diskcsr(port_path)

@@ -38,6 +38,7 @@ from repro_torch.kernels.spmv_ell import (
     ell_group,
     ell_launch_plan,
     ell_max_blocks,
+    lane_plan,
     spmv_ell_kernel_call,
 )
 from repro_torch.kernels.spmv_ell_packed import (
@@ -287,23 +288,44 @@ def test_mixed_dot_compensation_matches_reference_exactly():
     assert pair.tolist() == [1e8, 6.0]
 
 
-# (width, element size, base aligned) -> (lanes per row, path): a lane reads
-# one 16-byte vector of 16 / element-size slots.
+# (width, element size, base aligned, rows, SMs) -> (lanes per row, path,
+# slots a split segment): a lane reads one 16-byte vector of 16 /
+# element-size slots.  The first cases at 1M rows (a card's worth of wide
+# rows) keep the wide path; the split cases follow.
+WIDE_ROWS = 1 << 20
 LAUNCH_PLANS = [
-    ((8, 4, True), (2, "vector")),     # the main path: f32 rows of 8, a lane pair a row
-    ((8, 2, True), (1, "vector")),     # bf16 / f16: one lane a row
-    ((8, 8, True), (4, "vector")),     # f64
-    ((12, 4, True), (4, "vector")),    # 3 vectors: rounded up to 4 lanes, one idle
-    ((64, 4, True), (16, "vector")),
-    ((128, 4, True), (32, "vector")),  # 32 vectors: the last width with a lane each
-    ((200, 4, True), (32, "wide")),    # 50 vectors: a warp walks the row
-    ((1024, 8, True), (32, "wide")),
-    ((37, 4, True), (32, "scalar")),   # not a whole number of vectors
-    ((12, 2, True), (16, "scalar")),
-    ((1, 4, True), (1, "scalar")),
-    ((3, 8, True), (4, "scalar")),
-    ((8, 4, False), (8, "scalar")),    # a base that is not 16-byte aligned
-    ((200, 4, False), (32, "scalar")),
+    ((8, 4, True, WIDE_ROWS, 132), (2, "vector", 0)),     # the main path: f32 rows of 8, a lane pair a row
+    ((8, 2, True, WIDE_ROWS, 132), (1, "vector", 0)),     # bf16 / f16: one lane a row
+    ((8, 8, True, WIDE_ROWS, 132), (4, "vector", 0)),     # f64
+    ((12, 4, True, WIDE_ROWS, 132), (4, "vector", 0)),    # 3 vectors: rounded up to 4 lanes, one idle
+    ((64, 4, True, WIDE_ROWS, 132), (16, "vector", 0)),
+    ((128, 4, True, WIDE_ROWS, 132), (32, "vector", 0)),  # 32 vectors: the last width with a lane each
+    ((200, 4, True, WIDE_ROWS, 132), (32, "wide", 0)),    # 50 vectors: a warp walks the row
+    ((1024, 8, True, WIDE_ROWS, 132), (32, "wide", 0)),
+    ((37, 4, True, WIDE_ROWS, 132), (32, "scalar", 0)),   # not a whole number of vectors
+    ((12, 2, True, WIDE_ROWS, 132), (16, "scalar", 0)),
+    ((1, 4, True, WIDE_ROWS, 132), (1, "scalar", 0)),
+    ((3, 8, True, WIDE_ROWS, 132), (4, "scalar", 0)),
+    ((8, 4, False, WIDE_ROWS, 132), (8, "scalar", 0)),    # a base that is not 16-byte aligned
+    ((200, 4, False, WIDE_ROWS, 132), (32, "scalar", 0)),
+    # Wide rows too few to fill 132 SMs (under 4 a SM) and longer than one
+    # step of the wide path (128 vectors) split, in segments of 32 lanes x
+    # 1-4 vectors: the largest that leaves 8 warps a SM.
+    ((1_047_672, 4, True, 1, 132), (32, "split", 512)),   # a hub row
+    ((1_047_672, 4, True, 8, 132), (32, "split", 512)),   # the hub chunk
+    ((1_047_672, 4, True, 251, 132), (32, "split", 512)),
+    ((25_232, 4, True, 1, 132), (32, "split", 128)),      # 198 segments of 1 vector a lane
+    ((25_232, 4, True, 8, 132), (32, "split", 128)),
+    ((25_232, 4, True, 251, 132), (32, "split", 512)),    # the degree-ordered kron's top chunk
+    ((25_232, 2, True, 251, 132), (32, "split", 1024)),   # bf16: 8 slots a vector
+    ((25_232, 4, True, 527, 132), (32, "split", 512)),
+    ((25_232, 4, True, 528, 132), (32, "wide", 0)),       # 4 rows a SM: the wide path again
+    ((516, 4, True, 1, 132), (32, "split", 128)),         # 129 vectors: two segments
+    ((512, 4, True, 1, 132), (32, "wide", 0)),            # 128 vectors: one wide step
+    ((200, 4, True, 5_656, 132), (32, "wide", 0)),        # the kron's 5th chunk: many short rows
+    ((264, 4, True, 8_192, 132), (32, "wide", 0)),
+    ((128, 4, True, 1, 132), (32, "vector", 0)),          # 32 vectors: still the vector path
+    ((1_047_672, 4, False, 8, 132), (32, "scalar", 0)),   # unaligned: scalar, whatever the rows
 ]
 
 
@@ -312,22 +334,36 @@ def test_spmv_ell_launch_plan(args, plan):
     assert ell_launch_plan(*args) == plan
 
 
-# (width, delta bytes, bases aligned) -> (lanes per row, path): a lane of
-# spmv_ell_packed reads 8 slots as vectors, whatever the delta size.
+# (width, delta bytes, bases aligned, rows, SMs) -> (lanes per row, path,
+# slots a split segment): a lane of spmv_ell_packed reads 8 slots as
+# vectors, whatever the delta size.
 PACKED_PLANS = [
-    ((8, 2, True), (1, "vector")),     # a chunk of a road network: one lane a row
-    ((8, 4, True), (1, "vector")),
-    ((16, 4, True), (2, "vector")),
-    ((24, 2, True), (4, "vector")),    # 3 vectors: rounded up to 4 lanes, one idle
-    ((40, 4, True), (8, "vector")),
-    ((256, 2, True), (32, "vector")),  # 32 vectors: the last width with a lane each
-    ((264, 4, True), (32, "wide")),    # 33 vectors: a warp walks the row
-    ((1_047_672, 4, True), (32, "wide")),
-    ((37, 2, True), (32, "scalar")),   # not a whole number of vectors
-    ((12, 4, True), (16, "scalar")),
-    ((4, 2, True), (4, "scalar")),
-    ((8, 4, False), (8, "scalar")),    # a base that is not 16-byte aligned
-    ((264, 2, False), (32, "scalar")),
+    ((8, 2, True, WIDE_ROWS, 132), (1, "vector", 0)),     # a chunk of a road network: one lane a row
+    ((8, 4, True, WIDE_ROWS, 132), (1, "vector", 0)),
+    ((16, 4, True, WIDE_ROWS, 132), (2, "vector", 0)),
+    ((24, 2, True, WIDE_ROWS, 132), (4, "vector", 0)),    # 3 vectors: rounded up to 4 lanes, one idle
+    ((40, 4, True, WIDE_ROWS, 132), (8, "vector", 0)),
+    ((256, 2, True, WIDE_ROWS, 132), (32, "vector", 0)),  # 32 vectors: the last width with a lane each
+    ((264, 4, True, WIDE_ROWS, 132), (32, "wide", 0)),    # 33 vectors: a warp walks the row
+    ((1_047_672, 4, True, WIDE_ROWS, 132), (32, "wide", 0)),
+    ((37, 2, True, WIDE_ROWS, 132), (32, "scalar", 0)),   # not a whole number of vectors
+    ((12, 4, True, WIDE_ROWS, 132), (16, "scalar", 0)),
+    ((4, 2, True, WIDE_ROWS, 132), (4, "scalar", 0)),
+    ((8, 4, False, WIDE_ROWS, 132), (8, "scalar", 0)),    # a base that is not 16-byte aligned
+    ((264, 2, False, WIDE_ROWS, 132), (32, "scalar", 0)),
+    # Few wide rows split: the hub chunk, the degree-ordered kron's top chunk.
+    ((1_047_672, 4, True, 1, 132), (32, "split", 768)),   # a hub row: 3 vectors a lane
+    ((1_047_672, 4, True, 8, 132), (32, "split", 1024)),  # the hub chunk
+    ((1_047_672, 2, True, 251, 132), (32, "split", 1024)),
+    ((25_232, 4, True, 1, 132), (32, "split", 256)),
+    ((25_232, 2, True, 8, 132), (32, "split", 256)),
+    ((25_232, 4, True, 251, 132), (32, "split", 1024)),   # the degree-ordered kron's top chunk
+    ((1_032, 4, True, 8, 132), (32, "split", 256)),       # 129 vectors: the wide/split edge
+    ((1_024, 4, True, 8, 132), (32, "wide", 0)),          # 128 vectors: one wide step
+    ((560, 4, True, 2_638, 132), (32, "wide", 0)),        # the kron's 4th chunk
+    ((25_232, 4, True, 528, 132), (32, "wide", 0)),       # 4 rows a SM
+    ((264, 2, True, 1, 132), (32, "wide", 0)),            # 33 vectors: one wide step
+    ((200, 4, True, 8, 132), (32, "vector", 0)),          # 25 vectors: the vector path at any rows
 ]
 
 
@@ -339,7 +375,7 @@ def test_spmv_ell_packed_launch_plan(args, plan):
 @pytest.mark.parametrize("delta_size", [1, 8])
 def test_spmv_ell_packed_launch_plan_refuses_other_deltas(delta_size):
     with pytest.raises(ValueError, match="deltas"):
-        packed_launch_plan(8, delta_size, True)
+        packed_launch_plan(8, delta_size, True, WIDE_ROWS, 132)
 
 
 # (rows, width, storage, SMs): the main path's f32 rows of 8 on a small
@@ -379,7 +415,7 @@ def test_spmv_ell_alpha_partials_sized_from_grid(rows, width, dt, sms, monkeypat
     args = seen["args"]
     assert args[:3] == (build.dtype_code(dt), build.dtype_code(dt),
                         build.dtype_code(torch.float64))  # storage, x, accum
-    lanes, path = ell_launch_plan(width, val.element_size(), True)
+    lanes, path = lane_plan(width, 16 // val.element_size(), True)  # alpha never splits
     assert args[13:17] == (width, lanes, spmv_ell_module.ELL_PATHS[path], sms)
     partials, n_partials = args[9], args[10]
     assert partials.dtype == torch.float64 and partials.numel() == n_partials

@@ -27,7 +27,13 @@ from repro_torch.kernels import ops, ref
 from repro_torch.kernels.lanczos_fused import spmv_ell_alpha_kernel_call
 from repro_torch.kernels.mixed_dot import mixed_dot_kernel_call
 from repro_torch.kernels.spmv_bsr import bsr_x_bytes, spmv_bsr_kernel_call
-from repro_torch.kernels.spmv_ell import ell_launch_plan, spmv_ell_kernel_call
+from repro_torch.kernels.spmv_ell import (
+    SPLIT_ROWS_PER_SM,
+    WIDE_VECS,
+    ell_launch_plan,
+    sm_count,
+    spmv_ell_kernel_call,
+)
 from repro_torch.kernels.spmv_ell_packed import packed_launch_plan, spmv_ell_packed_kernel_call
 from repro_torch.testing.operands import RULE_WRAPPERS, gather_bits, rule_cases, run_rule_case
 
@@ -48,6 +54,12 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels build with nvcc for sm_90a")
     return torch.device("cuda")
+
+
+def _rows(path, dev) -> int:
+    """1,003 rows (a grid that does not divide them), or for the wide path
+    enough wide rows to fill the card (fewer take the split path)."""
+    return SPLIT_ROWS_PER_SM * sm_count(dev) + 3 if path == "wide" else 1003
 
 
 def _ell(rows, width, n, dtype, dev, seed):
@@ -96,7 +108,7 @@ def test_spmv_ell_unaligned_base(cuda, pair):
     cbuf[1:].copy_(col.reshape(-1))
     val_u, col_u = vbuf[1:].view(rows, width), cbuf[1:].view(rows, width)
     assert val_u.is_contiguous() and val_u.data_ptr() % 16
-    assert ell_launch_plan(width, val_u.element_size(), False)[1] == "scalar"
+    assert ell_launch_plan(width, val_u.element_size(), False, rows, sm_count(cuda))[1] == "scalar"
     y = spmv_ell_kernel_call(val_u, col_u, x, accum_dtype=A)
     _close_ell(y, val_u, col_u, x, A)
 
@@ -106,7 +118,7 @@ def test_spmv_ell_main_path_shape(cuda):
     """The main path's layout (rows of 8 f32 slots, f64 accumulation) at a
     size that spans many grid strides."""
     val, col, x = _ell(1 << 20, 8, 1 << 20, torch.float32, cuda, seed=11)
-    assert ell_launch_plan(8, 4, True) == (2, "vector")
+    assert ell_launch_plan(8, 4, True, 1 << 20, sm_count(cuda)) == (2, "vector", 0)
     y = spmv_ell_kernel_call(val, col, x, accum_dtype=torch.float64)
     _close_ell(y, val, col, x, torch.float64)
     assert torch.equal(y, spmv_ell_kernel_call(val, col, x, accum_dtype=torch.float64))
@@ -261,9 +273,11 @@ def test_spmv_ell_packed_widths(cuda, mode, idx, width, pair):
     them): the vector path at 1, 2, 4 and 8 lanes a row, the wide path and
     the scalar path; two calls give the same bits."""
     S, A = PAIRS[pair]
-    packed, x64 = _packed(1003, width, mode, idx, cuda, seed=width)
+    rows = _rows(PACKED_WIDTHS[width], cuda)
+    packed, x64 = _packed(rows, width, mode, idx, cuda, seed=width)
     x = x64.to(S).to(cuda)
-    assert packed_launch_plan(width, packed[3].element_size(), True)[1] == PACKED_WIDTHS[width]
+    plan = packed_launch_plan(width, packed[3].element_size(), True, rows, sm_count(cuda))
+    assert plan[1] == PACKED_WIDTHS[width]
     y = spmv_ell_packed_kernel_call(*packed, x, accum_dtype=A)
     want = ref.spmv_ell_packed_ref(*packed, x, A)
     assert y.dtype == A and y.shape == want.shape
@@ -287,12 +301,130 @@ def test_spmv_ell_packed_unaligned_base(cuda, mode, idx):
         shifted.append(buf[1:].view(rows, width))
     val_u, dcol_u = shifted
     assert val_u.data_ptr() % 16 and dcol_u.data_ptr() % 16
-    assert packed_launch_plan(width, dcol_u.element_size(), False)[1] == "scalar"
+    assert packed_launch_plan(width, dcol_u.element_size(), False, rows,
+                              sm_count(cuda))[1] == "scalar"
     x = x64.to(torch.float32).to(cuda)
     args = (val_u, packed[1], packed[2], dcol_u, x)
     y = spmv_ell_packed_kernel_call(*args, accum_dtype=torch.float64)
     want = ref.spmv_ell_packed_ref(*args, torch.float64)
     assert float((y - want).abs().max()) <= 1e-12 * float(want.abs().max())
+
+
+# ------------------------------------------------------------- the split path
+
+# Few wide rows, which split on a card of 132 SMs: 1, 3 and 8 rows (a hub
+# chunk, a sharded share of one) and 251 (the degree-ordered kron's top
+# chunk), at the wide/split edge (one vector a row past a step of the wide
+# path), 25,232 and 1,047,672 slots; at most 2^26 slots a case.
+SPLIT_SHAPES = [(rows, width) for rows in (1, 3, 8, 251)
+                for width in ("edge", 25_232, 1_047_672) if (rows, width) != (251, 1_047_672)]
+
+
+def _split_width(width, slots: int) -> int:
+    return (32 * WIDE_VECS + 1) * slots if width == "edge" else width
+
+
+def _wide_ell(rows, width, n, dtype, dev, seed):
+    """Random wide ELL rows on the card, the last third of each odd row
+    padded (value 0, column 0)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    val = torch.randn(rows, width, generator=g, dtype=torch.float64, device=dev)
+    col = torch.randint(0, n, (rows, width), generator=g, dtype=torch.int32, device=dev)
+    pad = (torch.arange(rows, device=dev) % 2 == 1)[:, None] & (
+        torch.arange(width, device=dev) >= 2 * width // 3)[None, :]
+    val[pad], col[pad] = 0.0, 0
+    x = torch.randn(n, generator=g, dtype=torch.float64, device=dev)
+    return val.to(dtype), col, x.to(dtype)
+
+
+def _wide_packed(rows, width, mode, idx, dev, seed):
+    """A packed chunk of wide rows on the card, as :func:`_packed` builds one."""
+    idt, n = DELTAS[idx]
+    g = torch.Generator(device=dev).manual_seed(seed)
+    col = torch.randint(0, n, (rows, width), generator=g, device=dev).sort(dim=1).values
+    val = torch.randn(rows, width, generator=g, device=dev) * 4.0
+    pad = torch.arange(width, device=dev) >= torch.randint(1, width + 1, (rows, 1), generator=g,
+                                                           device=dev)
+    col[pad], val[pad] = 0, 0.0
+    scale = torch.rand(rows, 1, generator=g, device=dev) + 0.5
+    base = col[:, :1].to(torch.int32)
+    dcol = torch.diff(col, dim=1, prepend=col[:, :1]).to(idt)
+    x = torch.randn(n, generator=g, dtype=torch.float64, device=dev)
+    return [t.contiguous() for t in (val.to(VALUE_DTYPES[mode]), scale, base, dcol)], x
+
+
+def _close_terms(y, want, terms, acc):
+    """The hub check's rule: a row of a million products that cancel is held
+    to RTOL of the largest row sum of |products|, not of |y|."""
+    assert y.dtype == acc and y.shape == want.shape
+    err = float((y.double() - want.double()).abs().max())
+    assert err <= RTOL[acc] * max(float(terms.max()), 1e-300), (err, float(terms.max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,width", SPLIT_SHAPES)
+@pytest.mark.parametrize("pair", list(PAIRS))
+def test_spmv_ell_split_path(cuda, pair, rows, width):
+    """Few wide rows take the split path and match the plain version; two
+    launches give the same bits (a fixed order of every sum, no float
+    atomic)."""
+    S, A = PAIRS[pair]
+    width = _split_width(width, 16 // torch.empty((), dtype=S).element_size())
+    val, col, x = _wide_ell(rows, width, 1 << 20, S, cuda, seed=rows + width)
+    plan = ell_launch_plan(width, val.element_size(), True, rows, sm_count(cuda))
+    assert plan[1] == "split", plan
+    y = spmv_ell_kernel_call(val, col, x, accum_dtype=A)
+    terms = ref.spmv_ell_ref(val.double().abs(), col, x.double().abs(), torch.float64)
+    _close_terms(y, ref.spmv_ell_ref(val, col, x, A), terms, A)
+    assert torch.equal(y, spmv_ell_kernel_call(val, col, x, accum_dtype=A))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,width", SPLIT_SHAPES)
+@pytest.mark.parametrize("pair", list(PAIRS))
+@pytest.mark.parametrize("idx", list(DELTAS))
+@pytest.mark.parametrize("mode", list(VALUE_DTYPES))
+def test_spmv_ell_packed_split_path(cuda, mode, idx, pair, rows, width):
+    """Few wide packed rows take the split path (the look-back gives each
+    segment its first column) and match the plain version; two launches
+    give the same bits."""
+    S, A = PAIRS[pair]
+    width = _split_width(width, 8)
+    packed, x64 = _wide_packed(rows, width, mode, idx, cuda, seed=rows + width)
+    x = x64.to(S)
+    plan = packed_launch_plan(width, packed[3].element_size(), True, rows, sm_count(cuda))
+    assert plan[1] == "split", plan
+    y = spmv_ell_packed_kernel_call(*packed, x, accum_dtype=A)
+    terms = ref.spmv_ell_packed_ref(packed[0].double().abs(), *packed[1:], x.double().abs(),
+                                    torch.float64)
+    _close_terms(y, ref.spmv_ell_packed_ref(*packed, x, A), terms, A)
+    assert torch.equal(y, spmv_ell_packed_kernel_call(*packed, x, accum_dtype=A))
+
+
+@pytest.mark.gpu
+def test_split_path_sharded_share_of_two_rows(cuda):
+    """A sharded chunk share is the same kernels on fewer rows: rows [2, 4)
+    of an 8-row hub chunk, as views into the chunk, split and match the
+    plain version, for ``spmv_ell`` (f32, f64) and ``spmv_ell_packed`` (bf16
+    and fp8, int32 deltas)."""
+    sms = sm_count(cuda)
+    val, col, x = _wide_ell(8, 1_047_672, 1 << 20, torch.float32, cuda, seed=2)
+    share = val[2:4], col[2:4]
+    assert ell_launch_plan(1_047_672, 4, True, 2, sms)[1] == "split"
+    y = spmv_ell_kernel_call(*share, x, accum_dtype=torch.float64)
+    terms = ref.spmv_ell_ref(share[0].double().abs(), share[1], x.double().abs(), torch.float64)
+    _close_terms(y, ref.spmv_ell_ref(*share, x, torch.float64), terms, torch.float64)
+    full = spmv_ell_kernel_call(val, col, x, accum_dtype=torch.float64)
+    _close_terms(y, full[2:4], terms, torch.float64)
+    for mode in VALUE_DTYPES:
+        packed, x64 = _wide_packed(8, 1_047_672, mode, "int32", cuda, seed=3)
+        share = [t[2:4] for t in packed]
+        xs = x64.float()
+        assert packed_launch_plan(1_047_672, 4, True, 2, sms)[1] == "split"
+        y = spmv_ell_packed_kernel_call(*share, xs, accum_dtype=torch.float64)
+        terms = ref.spmv_ell_packed_ref(share[0].double().abs(), *share[1:], xs.double().abs(),
+                                        torch.float64)
+        _close_terms(y, ref.spmv_ell_packed_ref(*share, xs, torch.float64), terms, torch.float64)
 
 
 # ------------------------------------------------------------- spmv_ell_alpha
@@ -317,10 +449,10 @@ def test_spmv_ell_alpha_w_is_spmv_ell(cuda, pair, path):
     code); alpha matches the plain version and has the same bits on five
     calls."""
     S, A = PAIRS[pair]
-    width = ALPHA_WIDTHS[path]
-    val, col, x = _ell(1003, width, 2000, S, cuda, seed=width)
-    assert ell_launch_plan(width, val.element_size(), True)[1] == path
-    v = torch.randn(1003, generator=torch.Generator().manual_seed(1), dtype=torch.float64)
+    width, rows = ALPHA_WIDTHS[path], _rows(path, cuda)
+    val, col, x = _ell(rows, width, 2000, S, cuda, seed=width)
+    assert ell_launch_plan(width, val.element_size(), True, rows, sm_count(cuda))[1] == path
+    v = torch.randn(rows, generator=torch.Generator().manual_seed(1), dtype=torch.float64)
     v = v.to(A).to(cuda)
     w, alpha = spmv_ell_alpha_kernel_call(val, col, x, v, accum_dtype=A)
     assert torch.equal(w, spmv_ell_kernel_call(val, col, x, accum_dtype=A))
@@ -354,7 +486,8 @@ def test_spmv_ell_alpha_ignores_padding_rows(cuda, pair, path):
     add nothing to alpha, and ``v`` is not read past its end: ``v`` is a view
     whose storage goes on with 1e30s."""
     S, A = PAIRS[pair]
-    rows, nv = 1003, 1003 - 11
+    rows = _rows(path, cuda)
+    nv = rows - 11
     val, col, x = _ell(rows, ALPHA_WIDTHS[path], 2000, S, cuda, seed=3)
     v_full = torch.randn(rows, generator=torch.Generator().manual_seed(4), dtype=torch.float64)
     v_full[nv:] = 1e30
@@ -461,5 +594,6 @@ def test_operand_rule_on_the_card(cuda, wrapper):
 def test_gather_instantiations_match_the_storage_ones_bit_for_bit(cuda):
     """Every ``<S, X = A, A>`` instantiation of ``spmv_ell`` (each path),
     ``spmv_ell_alpha`` and ``spmv_bsr`` (each block edge) gives the bits of
-    ``<S, S, A>`` on an ``x`` that ``S`` holds exactly."""
-    assert len(gather_bits(cuda)) == 3 * (3 * 3 + 1 + 3)
+    ``<S, S, A>`` on an ``x`` that ``S`` holds exactly (the split path of
+    ``spmv_ell`` has no ``spmv_ell_alpha`` twin: alpha never splits)."""
+    assert len(gather_bits(cuda)) == 3 * (3 * 3 + 1 + 1 + 3)
