@@ -26,6 +26,7 @@ import torch
 from .._device import resolve_device
 from ..configs import env as envcfg
 from ..core.operators import CallableOperator, DenseOperator, LinearOperator
+from ..core.trace import to_host
 from ..sparse.diskcsr import DiskCSR, diskcsr_fingerprint, is_diskcsr, open_diskcsr
 from ..sparse.formats import CSR
 
@@ -43,7 +44,7 @@ class CoercedInput(NamedTuple):
 
 def _host_array(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu().numpy()
+        return to_host(a).numpy()
     return np.asarray(a)
 
 

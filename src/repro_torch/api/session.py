@@ -93,6 +93,7 @@ from ..core.operators import (
 )
 from ..core.precision import PrecisionPolicy, auto_ladder, dtype_name, phase_op_counts
 from ..core.restarted import solve_restarted
+from ..core.trace import HOST_COPY_BYTES, counting, span
 from ..kernels.engine import (
     FORMATS,
     IterationPlan,
@@ -610,27 +611,47 @@ class EigenSession:
         ``max_restarts``) and its tightest ``tol``: per-query budgets are
         advisory under batching (submit a query alone where its budget must
         bind).  Results come back in input order.
+
+        Every result's ``timings`` carry the call's ``query_s`` (from taking
+        the query lock to the return) and ``host_copy_bytes`` (what the call
+        copied from a card to the host), and its own query's spans
+        (``normalize_s``, ``v0_digest_s``, ``plan_s``, ``finish_s``; see
+        :mod:`repro_torch.core.trace`).
         """
         if not queries:
             return []
         cfg = defaults or self.cfg
+        call = {HOST_COPY_BYTES: 0.0}
         with self._query_lock:
-            raw = [_as_query(q) for q in queries]
-            self.stats["queries"] += len(raw)
-            results: List[Optional[EigenResult]] = [None] * len(raw)
-            normal: List[_NormQuery] = []
-            for i, rq in enumerate(raw):
-                requested = rq.policy if rq.policy is not None else cfg.policy
-                if is_auto_policy(requested):
-                    results[i] = self._solve_auto(rq, cfg)
-                else:
-                    normal.append(self._normalize(rq, i, cfg))
-            groups: Dict[tuple, List[_NormQuery]] = {}
-            for q in normal:
-                groups.setdefault(_norm_group_key(q), []).append(q)
-            for group in groups.values():
-                for idx, res in self._solve_group(group):
-                    results[idx] = res
+            # The range's argument is the call's first query ordinal, so
+            # one request's spans can be found together in a trace.
+            with span("repro_torch.query", call, "query_s",
+                      args=(self.stats["queries"] + 1,)), counting(call):
+                results = self._answer_locked([_as_query(q) for q in queries], cfg)
+        for res in results:
+            res.timings.update(call)
+        return results
+
+    def _answer_locked(self, raw: List[EigQuery], cfg: SolverConfig) -> List[EigenResult]:
+        self.stats["queries"] += len(raw)
+        results: List[Optional[EigenResult]] = [None] * len(raw)
+        spans: List[Dict[str, float]] = [{} for _ in raw]
+        normal: List[_NormQuery] = []
+        for i, rq in enumerate(raw):
+            requested = rq.policy if rq.policy is not None else cfg.policy
+            if is_auto_policy(requested):
+                results[i] = self._solve_auto(rq, cfg)
+            else:
+                with span("repro_torch.query.normalize", spans[i], "normalize_s"):
+                    normal.append(self._normalize(rq, i, cfg, spans[i]))
+        groups: Dict[tuple, List[_NormQuery]] = {}
+        for q in normal:
+            groups.setdefault(_norm_group_key(q), []).append(q)
+        for group in groups.values():
+            for idx, res in self._solve_group(group):
+                results[idx] = res
+        for res, own in zip(results, spans):
+            res.timings.update(own)
         return results  # type: ignore[return-value]
 
     def ensure_fingerprint(self) -> Optional[str]:
@@ -775,7 +796,8 @@ class EigenSession:
 
     # ---------------------------------------------------------- internals
 
-    def _normalize(self, q: EigQuery, idx: int, cfg: SolverConfig) -> _NormQuery:
+    def _normalize(self, q: EigQuery, idx: int, cfg: SolverConfig,
+                   spans: Optional[Dict[str, float]] = None) -> _NormQuery:
         def pick(v, dflt):
             return dflt if v is _UNSET else v
 
@@ -821,7 +843,8 @@ class EigenSession:
             raise ValueError(f"recovery must be 'none', 'raise', or 'auto'; got {recovery!r}")
         seed = int(pick(q.seed, cfg.seed))
         if q.v0 is not None:
-            digest = hashlib.blake2b(_host_array(q.v0).tobytes(), digest_size=8)
+            with span("repro_torch.query.v0_digest", spans, "v0_digest_s"):
+                digest = hashlib.blake2b(_host_array(q.v0).tobytes(), digest_size=8)
             start_key = f"v0:{digest.hexdigest()}"
         else:
             start_key = f"seed:{seed}"
@@ -926,17 +949,23 @@ class EigenSession:
 
     def _solve_group_inner(self, group: List[_NormQuery], fused_pin: Optional[bool] = None):
         backend, pol = group[0].backend, group[0].pol
-        prep, built = self._ensure(backend, pol)
+        plan: Dict[str, float] = {}
+        with span("repro_torch.query.plan", plan, "plan_s"):
+            prep, built = self._ensure(backend, pol)
         if not built:
             self.stats["cache_hits"] += 1
         starts: "OrderedDict[str, List[_NormQuery]]" = OrderedDict()
         for q in group:
             starts.setdefault(q.start_key, []).append(q)
         if backend == "restarted":
-            return self._run_restarted(starts, prep, built)
-        if backend == "distributed":
-            return self._run_distributed(starts, prep, built)
-        return self._run_fixed(starts, prep, built, backend, fused_pin=fused_pin)
+            out = self._run_restarted(starts, prep, built)
+        elif backend == "distributed":
+            out = self._run_distributed(starts, prep, built)
+        else:
+            out = self._run_fixed(starts, prep, built, backend, fused_pin=fused_pin)
+        for _, res in out:
+            res.timings.update(plan)
+        return out
 
     def _solve_group_recovering(self, group: List[_NormQuery]):
         """``recovery="auto"``: run the group, catching in-solve failures and
@@ -1023,70 +1052,73 @@ class EigenSession:
     def _finish(self, q: _NormQuery, prep: _Prepared, built: bool, *, eigenvalues, eigenvectors,
                 residuals, evals_f64, iterations, restarts, timings, partition, tridiag,
                 group_size, spmv_format=None, measured=None) -> Tuple[int, EigenResult]:
-        # Flags from the engines' f64 eigenvalues, so they agree with the
-        # restarted engine's own stopping decision.
-        lam = np.abs(np.asarray(evals_f64, dtype=np.float64))
-        converged = np.asarray(residuals) <= q.tol_eff * np.maximum(lam, 1e-300)
-        t = dict(timings)
-        t["solve_s"] = float(t.get("total_s", 0.0))
-        # A building call also claims the session's unreported coercion
-        # time; a pure execute reports 0.
-        t["prepare_s"] = (prep.build_s + self._claim_init_s()) if built else 0.0
-        t["total_s"] = t["prepare_s"] + t["solve_s"]
-        if group_size > 1:
-            t["amortized_over"] = float(group_size)
-        part = dict(partition) if partition else {}
-        spmv = dict(part.get("spmv") or (
-            prep.engine.describe() if prep.engine is not None else {"format": prep.spmv_format}))
-        # The reuse contract, verified: what THIS call paid.
-        spmv["conversions"] = prep.conversions if built else 0
-        spmv["tuner_probes"] = prep.tuner_probes if built else 0
-        spmv["reused"] = not built
-        if prep.engine is not None:
-            rec = prep.engine.iteration_plan.as_dict()
-            rec["effective"] = resolve_update_mode(q.pol, plan=prep.engine.iteration_plan,
-                                                   device=self.device)
-            spmv["iteration_plan"] = rec
-        # Per-phase precision audit: the phase map this solve ran and a
-        # model count of element ops per dtype; with REPRO_PRECISION_MEASURE
-        # also the counts the op counter saw this solve execute (the
-        # reference traces its operator on the side; here the solve itself
-        # ran under the counter).  A distributed plan has the reference's note.
-        spmv["precision"] = {
-            "policy": q.pol.name,
-            "phase_map": q.pol.phase_map(),
-            "compensated": bool(q.pol.compensated),
-            "uniform": q.pol.is_uniform(),
-            "ops_by_dtype": phase_op_counts(q.pol, n=self.n, nnz=self._nnz_estimate(),
-                                            m=int(iterations), k=q.k, reorth=q.reorth),
-        }
-        if envcfg.get_bool("REPRO_PRECISION_MEASURE"):
-            spmv["precision"]["ops_by_dtype_measured"] = measured if measured is not None else {
-                "error": "no single-device operator to trace (distributed plan)"}
-            spmv["precision"]["counts"] = {
-                "ops_by_dtype": "model: core.precision.phase_op_counts",
-                "ops_by_dtype_measured": "counted: analysis.op_count over this solve",
+        own: Dict[str, float] = {}
+        with span("repro_torch.query.finish", own, "finish_s"):
+            # Flags from the engines' f64 eigenvalues, so they agree with the
+            # restarted engine's own stopping decision.
+            lam = np.abs(np.asarray(evals_f64, dtype=np.float64))
+            converged = np.asarray(residuals) <= q.tol_eff * np.maximum(lam, 1e-300)
+            t = dict(timings)
+            t["solve_s"] = float(t.get("total_s", 0.0))
+            # A building call also claims the session's unreported coercion
+            # time; a pure execute reports 0.
+            t["prepare_s"] = (prep.build_s + self._claim_init_s()) if built else 0.0
+            t["total_s"] = t["prepare_s"] + t["solve_s"]
+            if group_size > 1:
+                t["amortized_over"] = float(group_size)
+            part = dict(partition) if partition else {}
+            spmv = dict(part.get("spmv") or (prep.engine.describe() if prep.engine is not None
+                                             else {"format": prep.spmv_format}))
+            # The reuse contract, verified: what THIS call paid.
+            spmv["conversions"] = prep.conversions if built else 0
+            spmv["tuner_probes"] = prep.tuner_probes if built else 0
+            spmv["reused"] = not built
+            if prep.engine is not None:
+                rec = prep.engine.iteration_plan.as_dict()
+                rec["effective"] = resolve_update_mode(q.pol, plan=prep.engine.iteration_plan,
+                                                       device=self.device)
+                spmv["iteration_plan"] = rec
+            # Per-phase precision audit: the phase map this solve ran and a
+            # model count of element ops per dtype; with REPRO_PRECISION_MEASURE
+            # also the counts the op counter saw this solve execute (the
+            # reference traces its operator on the side; here the solve itself
+            # ran under the counter).  A distributed plan has the reference's note.
+            spmv["precision"] = {
+                "policy": q.pol.name,
+                "phase_map": q.pol.phase_map(),
+                "compensated": bool(q.pol.compensated),
+                "uniform": q.pol.is_uniform(),
+                "ops_by_dtype": phase_op_counts(q.pol, n=self.n, nnz=self._nnz_estimate(),
+                                                m=int(iterations), k=q.k, reorth=q.reorth),
             }
-        part["spmv"] = spmv
-        res = EigenResult(
-            eigenvalues=eigenvalues,
-            eigenvectors=eigenvectors,
-            residuals=np.asarray(residuals, dtype=np.float64),
-            converged=converged,
-            iterations=int(iterations),
-            restarts=int(restarts),
-            k=q.k,
-            n=self.n,
-            backend=q.backend,
-            policy=q.pol.name,
-            tol=q.tol_eff,
-            num_devices=self.device_count if q.backend == "distributed" else 1,
-            partition=part,
-            timings=t,
-            spmv_format=spmv_format if spmv_format is not None else prep.spmv_format,
-            tridiag=tridiag,
-            session_reuse=not built,
-        )
+            if envcfg.get_bool("REPRO_PRECISION_MEASURE"):
+                spmv["precision"]["ops_by_dtype_measured"] = measured if measured is not None else {
+                    "error": "no single-device operator to trace (distributed plan)"}
+                spmv["precision"]["counts"] = {
+                    "ops_by_dtype": "model: core.precision.phase_op_counts",
+                    "ops_by_dtype_measured": "counted: analysis.op_count over this solve",
+                }
+            part["spmv"] = spmv
+            res = EigenResult(
+                eigenvalues=eigenvalues,
+                eigenvectors=eigenvectors,
+                residuals=np.asarray(residuals, dtype=np.float64),
+                converged=converged,
+                iterations=int(iterations),
+                restarts=int(restarts),
+                k=q.k,
+                n=self.n,
+                backend=q.backend,
+                policy=q.pol.name,
+                tol=q.tol_eff,
+                num_devices=self.device_count if q.backend == "distributed" else 1,
+                partition=part,
+                timings=t,
+                spmv_format=spmv_format if spmv_format is not None else prep.spmv_format,
+                tridiag=tridiag,
+                session_reuse=not built,
+            )
+        res.timings.update(own)
         return q.idx, res
 
     @staticmethod
@@ -1215,29 +1247,26 @@ class EigenSession:
             v1s = torch.stack([start_vector(op, pol, qs[0].v0, qs[0].seed).to(pol.compute)
                                for qs in chunk])
             dev = v1s.device
-            t0 = time.perf_counter()
-            batch, measured = self._measured(
-                lanczos_tridiag_multi, op.bound_matvec(pol), v1s, m, pol, reorth=reorth,
-                ops=prep.ops_for(pol, self.device, fused=fused_pin))
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            t_lanczos = time.perf_counter() - t0
+            sweep: Dict[str, float] = {}
+            with span("repro_torch.sweep.lanczos", sweep, "lanczos_s"):
+                batch, measured = self._measured(
+                    lanczos_tridiag_multi, op.bound_matvec(pol), v1s, m, pol, reorth=reorth,
+                    ops=prep.ops_for(pol, self.device, fused=fused_pin))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
             self.stats["sweeps"] += 1
             for s, qs in enumerate(chunk):
                 lres = LanczosResult(alpha=batch.alpha[s], beta=batch.beta[s],
                                      basis=batch.basis[s], beta_last=batch.beta_last[s])
-                t1 = time.perf_counter()
-                evals, w, evals_f64, w_f64, beta_m = ritz_decompose(lres, pol, jacobi)
-                k_max = max(q.k for q in qs)
-                evals_k, x, resid = ritz_extract(lres, evals, w, w_f64, beta_m, k_max, pol)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                t_finish = time.perf_counter() - t1
-                timings = {
-                    "lanczos_s": t_lanczos,  # shared across all starts of the batch
-                    "jacobi_s": t_finish,
-                    "total_s": t_lanczos + t_finish,
-                }
+                # lanczos_s is shared across all starts of the batch.
+                timings = dict(sweep)
+                with span("repro_torch.ritz.jacobi", timings, "jacobi_s"):
+                    evals, w, evals_f64, w_f64, beta_m = ritz_decompose(lres, pol, jacobi)
+                    k_max = max(q.k for q in qs)
+                    evals_k, x, resid = ritz_extract(lres, evals, w, w_f64, beta_m, k_max, pol)
+                    if dev.type == "cuda":
+                        torch.cuda.synchronize(dev)
+                timings["total_s"] = timings["lanczos_s"] + timings["jacobi_s"]
                 for q in qs:
                     out.append(self._finish(
                         q, prep, built,

@@ -77,6 +77,7 @@ from .lanczos import (
 )
 from .partition import PartitionedMatrix, nnz_balanced_splits, partition_matrix
 from .precision import FDF, PrecisionPolicy
+from .trace import span, to_host
 
 __all__ = [
     "DISTRIBUTED_FORMATS",
@@ -495,62 +496,61 @@ def solve_sharded(
     m = num_iters or k
     dev = torch.device(device)
 
-    t_conv0 = time.perf_counter()
-    if prepared is None:
-        prepared = prepare_sharded(csr, g, policy, spmv_format, engine=engine, device=dev,
-                                   comm=comm)
-        t_convert = prepared.convert_s
-    else:
-        t_convert = 0.0  # plan reused: this call pays no conversion
-    pm, engine, spmv_meta = prepared.pm, prepared.engine, dict(prepared.spmv_meta)
-    if pm.num_shards != g or comm.rank not in pm.shards:
-        raise ValueError(f"prepared shards {pm.shards} of {pm.num_shards} do not fit rank "
-                         f"{comm.rank} of {g}")
-    mat = prepared.mats[pm.shards.index(comm.rank)]
+    timings: dict = {}
+    with span(None, timings, "total_s"):
+        if prepared is None:
+            prepared = prepare_sharded(csr, g, policy, spmv_format, engine=engine, device=dev,
+                                       comm=comm)
+            timings["convert_s"] = prepared.convert_s
+        else:
+            timings["convert_s"] = 0.0  # plan reused: this call pays no conversion
+        pm, engine, spmv_meta = prepared.pm, prepared.engine, dict(prepared.spmv_meta)
+        if pm.num_shards != g or comm.rank not in pm.shards:
+            raise ValueError(f"prepared shards {pm.shards} of {pm.num_shards} do not fit rank "
+                             f"{comm.rank} of {g}")
+        mat = prepared.mats[pm.shards.index(comm.rank)]
 
-    if v1 is None:
-        v1 = np.random.default_rng(seed).standard_normal(csr.n)
-    v1 = v1 if isinstance(v1, torch.Tensor) else torch.as_tensor(np.asarray(v1))
-    if tuple(v1.shape) != (csr.n,):
-        raise ValueError(f"start vector has shape {tuple(v1.shape)}, expected ({csr.n},)")
-    lo, hi = pm.rows_of(comm.rank)
-    v1_local = torch.zeros(pm.n_pad, dtype=policy.compute, device=dev)
-    v1_local[: hi - lo] = v1[lo:hi].to(device=dev, dtype=policy.compute)
+        if v1 is None:
+            v1 = np.random.default_rng(seed).standard_normal(csr.n)
+        v1 = v1 if isinstance(v1, torch.Tensor) else torch.as_tensor(np.asarray(v1))
+        if tuple(v1.shape) != (csr.n,):
+            raise ValueError(f"start vector has shape {tuple(v1.shape)}, expected ({csr.n},)")
+        lo, hi = pm.rows_of(comm.rank)
+        v1_local = torch.zeros(pm.n_pad, dtype=policy.compute, device=dev)
+        v1_local[: hi - lo] = v1[lo:hi].to(device=dev, dtype=policy.compute)
 
-    t0 = time.perf_counter()
-    lres = sharded_lanczos(pm, v1_local, m, policy, reorth=reorth, engine=engine, mats=mat,
-                           comm=comm)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    if probe:
-        check_tridiag_health(lres, policy)  # reduced scalars only: every rank agrees
-    t_lanczos = time.perf_counter() - t0
-    t_collective = comm.take_seconds()
+        with span("repro_torch.sweep.lanczos", timings, "lanczos_s"):
+            lres = sharded_lanczos(pm, v1_local, m, policy, reorth=reorth, engine=engine,
+                                   mats=mat, comm=comm)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            if probe:
+                check_tridiag_health(lres, policy)  # reduced scalars only: every rank agrees
+        timings["collective_s"] = comm.take_seconds()
 
-    t1 = time.perf_counter()
-    with host_scope():  # NumPy work, as in the reference: not counted
-        alpha = lres.alpha.cpu().to(torch.float64).numpy()
-        beta = lres.beta.cpu().to(torch.float64).numpy()
-        evals, w = jacobi_eigh_host(tridiag_to_dense(alpha, beta))
-    t_jacobi = time.perf_counter() - t1
+        with span("repro_torch.ritz.jacobi", timings, "jacobi_s"):
+            with host_scope():  # NumPy work, as in the reference: not counted
+                alpha = to_host(lres.alpha).to(torch.float64).numpy()
+                beta = to_host(lres.beta).to(torch.float64).numpy()
+                evals, w = jacobi_eigh_host(tridiag_to_dense(alpha, beta))
 
-    # X = V^T W on this rank's rows, gathered, then stripped of padding.
-    t2 = time.perf_counter()
-    rzdt = policy.phase_dtype("ritz")
-    w_k = torch.as_tensor(np.ascontiguousarray(w[:, :k])).to(device=dev, dtype=rzdt)
-    # Cast before the gather: the same values, in fewer bytes on the wire.
-    x_local = (lres.basis.to(rzdt).T @ w_k).to(policy.output)
-    x = pm.unpad_vector(comm.gather_blocks(x_local))
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    t_project = time.perf_counter() - t2
+        # X = V^T W on this rank's rows, gathered, then stripped of padding.
+        with span("repro_torch.ritz.project", timings, "project_s"):
+            rzdt = policy.phase_dtype("ritz")
+            w_k = torch.as_tensor(np.ascontiguousarray(w[:, :k])).to(device=dev, dtype=rzdt)
+            # Cast before the gather: the same values, in fewer bytes on the wire.
+            x_local = (lres.basis.to(rzdt).T @ w_k).to(policy.output)
+            x = pm.unpad_vector(comm.gather_blocks(x_local))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
 
-    with host_scope():
-        beta_m = float(lres.beta_last.cpu().to(torch.float64))
-    residuals = np.abs(beta_m * np.asarray(w, dtype=np.float64)[m - 1, :k])
-    splits = pm.splits()
+        with host_scope():
+            beta_m = float(to_host(lres.beta_last).to(torch.float64))
+        residuals = np.abs(beta_m * np.asarray(w, dtype=np.float64)[m - 1, :k])
+        splits = pm.splits()
+        evals_k = torch.as_tensor(evals[:k]).to(device=dev, dtype=policy.output)
     return ShardedSolveOutput(
-        eigenvalues=torch.as_tensor(evals[:k]).to(device=dev, dtype=policy.output),
+        eigenvalues=evals_k,
         eigenvectors=x,
         residuals=residuals,
         eigenvalues_f64=np.asarray(evals[:k], dtype=np.float64),
@@ -563,14 +563,7 @@ def solve_sharded(
             "axis": axis,
             "spmv": spmv_meta,
         },
-        timings={
-            "convert_s": t_convert,
-            "lanczos_s": t_lanczos,
-            "collective_s": t_collective,
-            "jacobi_s": t_jacobi,
-            "project_s": t_project,
-            "total_s": time.perf_counter() - t_conv0,
-        },
+        timings=timings,
         spmv_format=(engine.format,) * int(g),
     )
 

@@ -9,7 +9,6 @@ selection (phase 3).  The user-facing entry point is ``repro_torch.eigsh``;
 
 from __future__ import annotations
 
-import time
 import warnings
 from typing import NamedTuple, Optional
 
@@ -21,6 +20,7 @@ from .jacobi import jacobi_eigh, jacobi_eigh_host, tridiag_to_dense
 from .lanczos import LanczosResult, check_tridiag_health, lanczos_tridiag, ops_for_operator
 from .operators import LinearOperator
 from .precision import FDF, PrecisionPolicy
+from .trace import span, to_host
 
 __all__ = [
     "EigResult",
@@ -54,7 +54,7 @@ class FixedSolveOutput(NamedTuple):
     eigenvalues_f64: np.ndarray  # (k,) float64 — before the output cast
     tridiag: LanczosResult
     iterations: int
-    timings: dict  # seconds: lanczos / jacobi / project / total
+    timings: dict  # seconds: lanczos / jacobi / project / total (core/trace.py's spans)
 
 
 def operator_device(op: LinearOperator) -> torch.device:
@@ -86,19 +86,19 @@ def ritz_decompose(lres: LanczosResult, policy: PrecisionPolicy, jacobi: str = "
     # reference, outside its traces: hidden from the op counter.
     if jacobi == "host":
         with host_scope():
-            t_host = tridiag_to_dense(lres.alpha.cpu().to(torch.float64).numpy(),
-                                      lres.beta.cpu().to(torch.float64).numpy())
+            t_host = tridiag_to_dense(to_host(lres.alpha).to(torch.float64).numpy(),
+                                      to_host(lres.beta).to(torch.float64).numpy())
             evals_f64, w_host = jacobi_eigh_host(t_host)
             evals = torch.as_tensor(evals_f64).to(device=dev, dtype=rzdt)
             w = torch.as_tensor(w_host).to(device=dev, dtype=rzdt)
     else:
         evals, w = jacobi_eigh(tridiag_to_dense(lres.alpha, lres.beta).to(rzdt))
         with host_scope():
-            evals_f64 = evals.cpu().to(torch.float64).numpy()
+            evals_f64 = to_host(evals).to(torch.float64).numpy()
     with host_scope():
         # Residual arithmetic sees W as the solver uses it: rounded through rzdt.
-        w_f64 = w.cpu().to(torch.float64).numpy()
-        beta_m = (float(lres.beta_last.cpu().to(torch.float64))
+        w_f64 = to_host(w).to(torch.float64).numpy()
+        beta_m = (float(to_host(lres.beta_last).to(torch.float64))
                   if lres.beta_last is not None else 0.0)
     return evals, w, np.asarray(evals_f64, dtype=np.float64), w_f64, beta_m
 
@@ -167,24 +167,21 @@ def solve_fixed(
     dev = operator_device(op)
     v1 = start_vector(op, policy, v1, seed)
 
-    t0 = time.perf_counter()
-    if ops is None:
-        ops = ops_for_operator(op, policy, device=dev)
-    lres = lanczos_tridiag(op.bound_matvec(policy), v1, m, policy, reorth=reorth, ops=ops,
-                           checkpoint=checkpoint)
-    _sync(dev)
-    if probe:
-        check_tridiag_health(lres, policy)
-    t_lanczos = time.perf_counter() - t0
-
-    t1 = time.perf_counter()
-    evals, w, evals_f64, w_f64, beta_m = ritz_decompose(lres, policy, jacobi)
-    t_jacobi = time.perf_counter() - t1
-
-    t2 = time.perf_counter()
-    evals_k, x, residuals = ritz_extract(lres, evals, w, w_f64, beta_m, k, policy)
-    _sync(dev)
-    t_project = time.perf_counter() - t2
+    timings: dict = {}
+    with span(None, timings, "total_s"):
+        with span("repro_torch.sweep.lanczos", timings, "lanczos_s"):
+            if ops is None:
+                ops = ops_for_operator(op, policy, device=dev)
+            lres = lanczos_tridiag(op.bound_matvec(policy), v1, m, policy, reorth=reorth,
+                                   ops=ops, checkpoint=checkpoint)
+            _sync(dev)
+            if probe:
+                check_tridiag_health(lres, policy)
+        with span("repro_torch.ritz.jacobi", timings, "jacobi_s"):
+            evals, w, evals_f64, w_f64, beta_m = ritz_decompose(lres, policy, jacobi)
+        with span("repro_torch.ritz.project", timings, "project_s"):
+            evals_k, x, residuals = ritz_extract(lres, evals, w, w_f64, beta_m, k, policy)
+            _sync(dev)
 
     return FixedSolveOutput(
         eigenvalues=evals_k,
@@ -193,12 +190,7 @@ def solve_fixed(
         eigenvalues_f64=np.asarray(evals_f64[:k], dtype=np.float64),
         tridiag=lres,
         iterations=m,
-        timings={
-            "lanczos_s": t_lanczos,
-            "jacobi_s": t_jacobi,
-            "project_s": t_project,
-            "total_s": time.perf_counter() - t0,
-        },
+        timings=timings,
     )
 
 

@@ -37,6 +37,7 @@ from ..analysis.op_count import host_scope
 from ..configs import env as envcfg
 from ..testing import faults as _faults
 from .precision import PrecisionPolicy, compensated_sum
+from .trace import to_host
 
 __all__ = [
     "LanczosResult",
@@ -88,8 +89,8 @@ def check_tridiag_health(result: LanczosResult, policy: PrecisionPolicy) -> None
 
 def _check_tridiag_health(result: LanczosResult, policy: PrecisionPolicy) -> None:
     pol = getattr(policy, "name", None) or str(policy)
-    alpha = result.alpha.detach().cpu().to(torch.float64).numpy().reshape(-1)
-    beta = result.beta.detach().cpu().to(torch.float64).numpy().reshape(-1)
+    alpha = to_host(result.alpha).to(torch.float64).numpy().reshape(-1)
+    beta = to_host(result.beta).to(torch.float64).numpy().reshape(-1)
     m = result.alpha.shape[-1]
     tiny = float(torch.finfo(policy.compute).tiny) * 1e3
     found = []  # (iteration, priority, kind, detail)
@@ -102,7 +103,7 @@ def _check_tridiag_health(result: LanczosResult, policy: PrecisionPolicy) -> Non
         j = int(np.argmax(bad))
         found.append((j % max(m - 1, 1), 0, "nonfinite", f"beta[{j % max(m - 1, 1)}]={beta[j]!r}"))
     if result.beta_last is not None:
-        bl = result.beta_last.detach().cpu().to(torch.float64).numpy().reshape(-1)
+        bl = to_host(result.beta_last).to(torch.float64).numpy().reshape(-1)
         if not np.isfinite(bl).all():
             found.append((m - 1, 0, "nonfinite", "beta_last"))
     small = beta <= tiny

@@ -25,7 +25,6 @@ the caller asked for.
 
 from __future__ import annotations
 
-import time
 import warnings
 from typing import NamedTuple, Optional
 
@@ -38,6 +37,7 @@ from .jacobi import jacobi_eigh_host
 from .lanczos import LanczosResult, NumericalBreakdown
 from .operators import LinearOperator
 from .precision import FDF, PrecisionPolicy
+from .trace import span
 
 __all__ = [
     "RestartedSolveOutput",
@@ -146,141 +146,139 @@ def solve_restarted(
     mv = op.bound_matvec(policy)
     _dot, _orth = restart_kernels(policy)
 
-    t0 = time.perf_counter()
-    if v1 is None:
-        v = torch.as_tensor(np.random.default_rng(seed).standard_normal(n))
-        v = v.to(device=dev, dtype=cdt)
-    else:
-        v1 = v1 if isinstance(v1, torch.Tensor) else torch.as_tensor(np.asarray(v1))
-        if tuple(v1.shape) != (n,):
-            raise ValueError(f"start vector has shape {tuple(v1.shape)}, expected ({n},)")
-        v = v1.to(device=dev, dtype=cdt)
-    v = v / torch.sqrt(_dot(v, v))
+    timings = {"lanczos_s": 0.0, "jacobi_s": 0.0}
+    with span(None, timings, "total_s"):
+        if v1 is None:
+            v = torch.as_tensor(np.random.default_rng(seed).standard_normal(n))
+            v = v.to(device=dev, dtype=cdt)
+        else:
+            v1 = v1 if isinstance(v1, torch.Tensor) else torch.as_tensor(np.asarray(v1))
+            if tuple(v1.shape) != (n,):
+                raise ValueError(f"start vector has shape {tuple(v1.shape)}, expected ({n},)")
+            v = v1.to(device=dev, dtype=cdt)
+        v = v / torch.sqrt(_dot(v, v))
 
-    basis = torch.zeros((m, n), dtype=sdt, device=dev)
-    basis_r = basis if rdt == sdt else torch.zeros((m, n), dtype=rdt, device=dev)
-    basis_z = basis_r if rzdt == rdt else basis  # what the Ritz projections read
-    t_hat = np.zeros((m, m))
-    nkeep = 0  # locked Ritz vectors at the head of the basis
-    s_border = np.zeros(0)  # arrow column entries for the kept block
-    evals = w = None
-    steps = 0
-    restarts = 0
-    resid = np.zeros(k)
-    beta_m = 0.0
-    breakdown_tiny = float(torch.finfo(cdt).tiny) * 1e3
-    pol_name = getattr(policy, "name", None) or str(policy)
-    t_lanczos = t_jacobi = 0.0
-
-    start_cycle = 0
-    if checkpoint is not None:
-        store, token = checkpoint
-        state = store.load(token)
-        if (state is not None and state.get("engine") == "restarted"
-                and int(state.get("n", -1)) == n and int(state.get("m", -1)) == m
-                and int(state.get("k", -1)) == k):
-            basis.copy_(state["basis"])
-            if basis_r is not basis:  # the mirror, rebuilt from the loaded rows
-                basis_r.copy_(basis)
-            t_hat = np.asarray(state["t_hat"], np.float64)
-            s_border = np.asarray(state["s_border"], np.float64)
-            v = state["v"].to(device=dev, dtype=cdt)
-            nkeep = int(state["nkeep"])
-            steps = int(state["steps"])
-            restarts = int(state["restarts"])
-            start_cycle = int(state["cycle"]) + 1
-
-    for cycle in range(start_cycle, max_restarts):
-        _faults.check_solve_crash(cycle)
-        t1 = time.perf_counter()
-        # --- fill rows nkeep..m-1 with fully re-orthogonalized Lanczos steps ---
-        beta_prev = 0.0
-        v_prev = torch.zeros((n,), dtype=cdt, device=dev)
-        for i in range(nkeep, m):
-            basis[i].copy_(v)  # rounded to the storage dtype: the SpMV's input too
-            if basis_r is not basis:
-                basis_r[i].copy_(basis[i])
-            u = mv(basis[i]).to(cdt)
-            u = _faults.tap_spmv(u, i)
-            alpha = float(_dot(v, u))
-            if probe and not np.isfinite(alpha):
-                raise NumericalBreakdown("nonfinite", i, pol_name, f"alpha={alpha!r}")
-            t_hat[i, i] = alpha
-            u = u - alpha * v - beta_prev * v_prev
-            if i == nkeep and nkeep > 0:
-                # arrowhead coupling to the kept Ritz block
-                border = torch.as_tensor(s_border).to(device=dev, dtype=cdt)
-                u = u - border @ basis[:nkeep].to(cdt)
-                t_hat[i, :nkeep] = s_border
-                t_hat[:nkeep, i] = s_border
-            # Full re-orthogonalization against the rows written so far (the
-            # reference masks the rest, which are zero).
-            u = _orth(u, basis_r[: i + 1])
-            beta = float(torch.sqrt(torch.clamp_min(_dot(u, u), 0.0)))
-            beta = float(_faults.tap_beta(beta, i))
-            if probe:
-                if not np.isfinite(beta):
-                    raise NumericalBreakdown("nonfinite", i, pol_name, f"beta={beta!r}")
-                if beta <= breakdown_tiny and i < m - 1:
-                    raise NumericalBreakdown(
-                        "beta_underflow", i, pol_name, f"beta={beta:.3e} <= {breakdown_tiny:.3e}"
-                    )
-            if i < m - 1:
-                t_hat[i, i + 1] = beta
-                t_hat[i + 1, i] = beta
-            beta_prev, v_prev = beta, v
-            v = u / max(beta, 1e-300)
-            steps += 1
-        beta_m = beta_prev
-
-        # --- Ritz pairs of the projected matrix ---
-        t2 = time.perf_counter()
-        evals, w = jacobi_eigh_host(t_hat)  # |lambda| descending
-        t_lanczos += t2 - t1
-        t_jacobi += time.perf_counter() - t2
-        resid = np.abs(beta_m * w[m - 1, :k])
-        if np.all(resid <= tol * np.maximum(np.abs(evals[:k]), 1e-300)):
-            break
-        if cycle == max_restarts - 1:
-            # Budget spent: stop WITHOUT compressing, so the projection below
-            # uses `w` in the coordinates of the current basis.
-            break
-
-        # --- thick restart: compress to the top-k Ritz vectors ---
-        restarts += 1
-        wk = torch.as_tensor(w[:, :k]).to(device=dev, dtype=rzdt)
-        ritz = ritz_project(basis_z, wk, policy, out_dtype=rzdt).T  # (k, n)
-        basis.zero_()
-        basis[:k] = ritz.to(sdt)
-        if basis_r is not basis:
-            basis_r[:k] = basis[:k].to(rdt)
+        basis = torch.zeros((m, n), dtype=sdt, device=dev)
+        basis_r = basis if rdt == sdt else torch.zeros((m, n), dtype=rdt, device=dev)
+        basis_z = basis_r if rzdt == rdt else basis  # what the Ritz projections read
         t_hat = np.zeros((m, m))
-        t_hat[:k, :k] = np.diag(evals[:k])
-        s_border = beta_m * w[m - 1, :k]
-        nkeep = k
-        # v (the next Lanczos vector) already holds the residual direction
+        nkeep = 0  # locked Ritz vectors at the head of the basis
+        s_border = np.zeros(0)  # arrow column entries for the kept block
+        evals = w = None
+        steps = 0
+        restarts = 0
+        resid = np.zeros(k)
+        beta_m = 0.0
+        breakdown_tiny = float(torch.finfo(cdt).tiny) * 1e3
+        pol_name = getattr(policy, "name", None) or str(policy)
+
+        start_cycle = 0
+        if checkpoint is not None:
+            store, token = checkpoint
+            state = store.load(token)
+            if (state is not None and state.get("engine") == "restarted"
+                    and int(state.get("n", -1)) == n and int(state.get("m", -1)) == m
+                    and int(state.get("k", -1)) == k):
+                basis.copy_(state["basis"])
+                if basis_r is not basis:  # the mirror, rebuilt from the loaded rows
+                    basis_r.copy_(basis)
+                t_hat = np.asarray(state["t_hat"], np.float64)
+                s_border = np.asarray(state["s_border"], np.float64)
+                v = state["v"].to(device=dev, dtype=cdt)
+                nkeep = int(state["nkeep"])
+                steps = int(state["steps"])
+                restarts = int(state["restarts"])
+                start_cycle = int(state["cycle"]) + 1
+
+        for cycle in range(start_cycle, max_restarts):
+            _faults.check_solve_crash(cycle)
+            # --- fill rows nkeep..m-1 with fully re-orthogonalized Lanczos steps ---
+            with span("repro_torch.sweep.lanczos", timings, "lanczos_s"):
+                beta_prev = 0.0
+                v_prev = torch.zeros((n,), dtype=cdt, device=dev)
+                for i in range(nkeep, m):
+                    basis[i].copy_(v)  # rounded to the storage dtype: the SpMV's input too
+                    if basis_r is not basis:
+                        basis_r[i].copy_(basis[i])
+                    u = mv(basis[i]).to(cdt)
+                    u = _faults.tap_spmv(u, i)
+                    alpha = float(_dot(v, u))
+                    if probe and not np.isfinite(alpha):
+                        raise NumericalBreakdown("nonfinite", i, pol_name, f"alpha={alpha!r}")
+                    t_hat[i, i] = alpha
+                    u = u - alpha * v - beta_prev * v_prev
+                    if i == nkeep and nkeep > 0:
+                        # arrowhead coupling to the kept Ritz block
+                        border = torch.as_tensor(s_border).to(device=dev, dtype=cdt)
+                        u = u - border @ basis[:nkeep].to(cdt)
+                        t_hat[i, :nkeep] = s_border
+                        t_hat[:nkeep, i] = s_border
+                    # Full re-orthogonalization against the rows written so far (the
+                    # reference masks the rest, which are zero).
+                    u = _orth(u, basis_r[: i + 1])
+                    beta = float(torch.sqrt(torch.clamp_min(_dot(u, u), 0.0)))
+                    beta = float(_faults.tap_beta(beta, i))
+                    if probe:
+                        if not np.isfinite(beta):
+                            raise NumericalBreakdown("nonfinite", i, pol_name, f"beta={beta!r}")
+                        if beta <= breakdown_tiny and i < m - 1:
+                            raise NumericalBreakdown(
+                                "beta_underflow", i, pol_name,
+                                f"beta={beta:.3e} <= {breakdown_tiny:.3e}")
+                    if i < m - 1:
+                        t_hat[i, i + 1] = beta
+                        t_hat[i + 1, i] = beta
+                    beta_prev, v_prev = beta, v
+                    v = u / max(beta, 1e-300)
+                    steps += 1
+            beta_m = beta_prev
+
+            # --- Ritz pairs of the projected matrix ---
+            with span("repro_torch.ritz.jacobi", timings, "jacobi_s"):
+                evals, w = jacobi_eigh_host(t_hat)  # |lambda| descending
+            resid = np.abs(beta_m * w[m - 1, :k])
+            if np.all(resid <= tol * np.maximum(np.abs(evals[:k]), 1e-300)):
+                break
+            if cycle == max_restarts - 1:
+                # Budget spent: stop WITHOUT compressing, so the projection below
+                # uses `w` in the coordinates of the current basis.
+                break
+
+            # --- thick restart: compress to the top-k Ritz vectors ---
+            restarts += 1
+            wk = torch.as_tensor(w[:, :k]).to(device=dev, dtype=rzdt)
+            ritz = ritz_project(basis_z, wk, policy, out_dtype=rzdt).T  # (k, n)
+            basis.zero_()
+            basis[:k] = ritz.to(sdt)
+            if basis_r is not basis:
+                basis_r[:k] = basis[:k].to(rdt)
+            t_hat = np.zeros((m, m))
+            t_hat[:k, :k] = np.diag(evals[:k])
+            s_border = beta_m * w[m - 1, :k]
+            nkeep = k
+            # v (the next Lanczos vector) already holds the residual direction
+
+            if checkpoint is not None:
+                store, token = checkpoint
+                store.save(token, {
+                    "engine": "restarted", "cycle": cycle, "n": n, "m": m, "k": k,
+                    "nkeep": nkeep, "steps": steps, "restarts": restarts,
+                    "basis": basis, "t_hat": t_hat, "s_border": s_border, "v": v,
+                })
 
         if checkpoint is not None:
             store, token = checkpoint
-            store.save(token, {
-                "engine": "restarted", "cycle": cycle, "n": n, "m": m, "k": k,
-                "nkeep": nkeep, "steps": steps, "restarts": restarts,
-                "basis": basis, "t_hat": t_hat, "s_border": s_border, "v": v,
-            })
-
-    if checkpoint is not None:
-        store, token = checkpoint
-        store.clear(token)  # completed: the snapshot must not resurrect
-    evals_k = torch.as_tensor(evals[:k]).to(device=dev, dtype=policy.output)
-    wk = torch.as_tensor(w[:, :k]).to(device=dev, dtype=rzdt)
-    x = ritz_project(basis_z, wk, policy)
-    lres = LanczosResult(
-        alpha=torch.as_tensor(np.diag(t_hat).copy()).to(device=dev, dtype=cdt),
-        beta=torch.as_tensor(np.diag(t_hat, 1).copy()).to(device=dev, dtype=cdt),
-        basis=basis,
-        beta_last=torch.tensor(beta_m, dtype=cdt, device=dev),
-    )
-    _sync(dev)
+            store.clear(token)  # completed: the snapshot must not resurrect
+        evals_k = torch.as_tensor(evals[:k]).to(device=dev, dtype=policy.output)
+        wk = torch.as_tensor(w[:, :k]).to(device=dev, dtype=rzdt)
+        x = ritz_project(basis_z, wk, policy)
+        lres = LanczosResult(
+            alpha=torch.as_tensor(np.diag(t_hat).copy()).to(device=dev, dtype=cdt),
+            beta=torch.as_tensor(np.diag(t_hat, 1).copy()).to(device=dev, dtype=cdt),
+            basis=basis,
+            beta_last=torch.tensor(beta_m, dtype=cdt, device=dev),
+        )
+        _sync(dev)
     return RestartedSolveOutput(
         eigenvalues=evals_k,
         eigenvectors=x,
@@ -289,8 +287,7 @@ def solve_restarted(
         tridiag=lres,
         iterations=steps,
         restarts=restarts,
-        timings={"lanczos_s": t_lanczos, "jacobi_s": t_jacobi,
-                 "total_s": time.perf_counter() - t0},
+        timings=timings,
     )
 
 
