@@ -9,7 +9,8 @@ start vectors and closed loop), on the card.
 
 Prints one JSON line: the cell, the card and its power limit, the solves,
 ``solve_ms`` (the window over the solves), the mean of each ``timings``
-key in ms (``host_copy_bytes`` as MiB), and two differences in ms:
+key in ms (``host_copy_bytes`` as MiB, the counters ``start_compares``
+and ``v0_digests`` as counts a solve), and two differences in ms:
 ``query_self`` (``query_s`` less the sweep's ``lanczos_s``, ``jacobi_s``
 and ``project_s``: the benchmark's ``query_ms``) and ``query_rest`` (the
 query's time that no span inside it covers).
@@ -42,15 +43,14 @@ from eigbench import cells, harness  # noqa: E402
 
 SWEEP = ("lanczos_s", "jacobi_s", "project_s")
 CHILDREN = ("normalize_s", "plan_s", "finish_s") + SWEEP
+SCALE = {"host_copy_bytes": 2**-20, "start_compares": 1.0, "v0_digests": 1.0}
 
 
 def split(timings: list) -> dict:
     keys = sorted({k for t in timings for k in t})
     out = {}
     for k in keys:
-        xs = [t[k] for t in timings if k in t]
-        out[k] = statistics.fmean(xs) / 2**20 if k == "host_copy_bytes" else \
-            1e3 * statistics.fmean(xs)
+        out[k] = SCALE.get(k, 1e3) * statistics.fmean(t[k] for t in timings if k in t)
     if "query_s" in keys:
         out["query_self"] = 1e3 * statistics.fmean(
             t["query_s"] - sum(t[k] for k in SWEEP) for t in timings)

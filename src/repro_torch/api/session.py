@@ -93,7 +93,7 @@ from ..core.operators import (
 )
 from ..core.precision import PrecisionPolicy, auto_ladder, dtype_name, phase_op_counts
 from ..core.restarted import solve_restarted
-from ..core.trace import HOST_COPY_BYTES, counting, span
+from ..core.trace import HOST_COPY_BYTES, START_COMPARES, V0_DIGESTS, count, counting, span
 from ..kernels.engine import (
     FORMATS,
     IterationPlan,
@@ -298,7 +298,7 @@ class _NormQuery(NamedTuple):
     seed: int
     v0: Any
     jacobi: str
-    start_key: str
+    start_key: str  # "seed:<n>", or "v0#<idx>" of the call's first query with these v0 bytes
     recovery: str  # "none" | "raise" | "auto"
     ckpt_dir: Optional[str]  # solve-checkpoint directory (None = off)
     ckpt_every: int  # chunked Lanczos loop: steps between snapshots
@@ -307,6 +307,74 @@ class _NormQuery(NamedTuple):
 def _norm_group_key(q: _NormQuery) -> tuple:
     """Queries sharing this key are answered by ONE sweep (per start)."""
     return (q.backend, q.pkey, q.pol.name, q.reorth, q.jacobi, q.recovery)
+
+
+def _start_bytes(v0):
+    """``v0``'s bytes in the order ``np.asarray(v0).tobytes()`` gives them,
+    as a flat uint8 view where they live: a tensor on a card stays there,
+    anything else is a NumPy array."""
+    if isinstance(v0, torch.Tensor):
+        flat = v0.detach().reshape(-1).contiguous().view(torch.uint8)
+        return flat if flat.device.type != "cpu" else flat.numpy()
+    return np.ascontiguousarray(np.asarray(v0)).reshape(-1).view(np.uint8)
+
+
+def _same_bytes(a, b, block: int = 1 << 22) -> bool:
+    """Are two :func:`_start_bytes` views equal?  Two host views compare in
+    blocks and stop at the first that differs; otherwise the host view
+    moves to the card and one ``torch.equal`` decides."""
+    if a.shape[0] != b.shape[0]:
+        return False
+    count(START_COMPARES, 1)
+    if isinstance(a, np.ndarray) and isinstance(b, np.ndarray):
+        return all(np.array_equal(a[i: i + block], b[i: i + block])
+                   for i in range(0, a.shape[0], block))
+    a, b = (torch.from_numpy(x if x.flags.writeable else x.copy())
+            if isinstance(x, np.ndarray) else x for x in (a, b))
+    if a.device != b.device:
+        a, b = (a.to(b.device), b) if a.device.type == "cpu" else (a, b.to(a.device))
+    return bool(torch.equal(a, b))
+
+
+def _key_starts(group: List[_NormQuery]) -> List[_NormQuery]:
+    """The group's queries, each ``v0`` query keyed ``v0#<idx>`` of the
+    first query whose ``v0`` has the same bytes: the reference's rule (its
+    key hashes ``np.asarray(v0).tobytes()``) without a hash or a copy off
+    the card.  The same object needs no read; a lone ``v0`` none at all."""
+    firsts: List[list] = []  # [first query of a start, its bytes once read]
+    out = []
+    for q in group:
+        if q.v0 is not None:
+            mine = None
+            for first in firsts:
+                if first[0].v0 is not q.v0:
+                    if first[1] is None:
+                        first[1] = _start_bytes(first[0].v0)
+                    if mine is None:
+                        mine = _start_bytes(q.v0)
+                    if not _same_bytes(first[1], mine):
+                        continue
+                q = q._replace(start_key=first[0].start_key)
+                break
+            else:
+                firsts.append([q, mine])
+        out.append(q)
+    return out
+
+
+def _content_key(q: _NormQuery) -> str:
+    """The start's key where it leaves the call (a checkpoint token, a
+    reseed trail): ``seed:<n>``, or ``v0:`` and the blake2b of the ``v0``'s
+    host bytes, as the reference names it.  A digest adds to the call's
+    ``v0_digests`` and ``v0_digest_s``."""
+    if q.v0 is None:
+        return q.start_key
+    took: Dict[str, float] = {}
+    with span("repro_torch.query.v0_digest", took, "v0_digest_s"):
+        digest = hashlib.blake2b(_host_array(q.v0).tobytes(), digest_size=8)
+    count(V0_DIGESTS, 1)
+    count("v0_digest_s", took["v0_digest_s"])
+    return f"v0:{digest.hexdigest()}"
 
 
 def _tensor_bytes(*ts) -> int:
@@ -612,16 +680,24 @@ class EigenSession:
         advisory under batching (submit a query alone where its budget must
         bind).  Results come back in input order.
 
+        Queries with a ``v0`` share a start where their ``v0`` bytes are
+        equal, compared where the vectors live (on the card for a card
+        tensor), with no copy to the host and no hash.  Only a key that
+        leaves the call, a checkpoint token or a reseed trail's ``"from"``,
+        takes the host digest ``v0:<blake2b>``.
+
         Every result's ``timings`` carry the call's ``query_s`` (from taking
-        the query lock to the return) and ``host_copy_bytes`` (what the call
-        copied from a card to the host), and its own query's spans
-        (``normalize_s``, ``v0_digest_s``, ``plan_s``, ``finish_s``; see
-        :mod:`repro_torch.core.trace`).
+        the query lock to the return) and its counters: ``host_copy_bytes``
+        (what the call copied from a card to the host), ``start_compares``
+        (byte-wise comparisons of two distinct start vectors) and
+        ``v0_digests`` (host digests taken), with ``v0_digest_s`` where one
+        was taken; and its own query's spans (``normalize_s``, ``plan_s``,
+        ``finish_s``; see :mod:`repro_torch.core.trace`).
         """
         if not queries:
             return []
         cfg = defaults or self.cfg
-        call = {HOST_COPY_BYTES: 0.0}
+        call = {HOST_COPY_BYTES: 0.0, START_COMPARES: 0.0, V0_DIGESTS: 0.0}
         with self._query_lock:
             # The range's argument is the call's first query ordinal, so
             # one request's spans can be found together in a trace.
@@ -643,12 +719,12 @@ class EigenSession:
                 results[i] = self._solve_auto(rq, cfg)
             else:
                 with span("repro_torch.query.normalize", spans[i], "normalize_s"):
-                    normal.append(self._normalize(rq, i, cfg, spans[i]))
+                    normal.append(self._normalize(rq, i, cfg))
         groups: Dict[tuple, List[_NormQuery]] = {}
         for q in normal:
             groups.setdefault(_norm_group_key(q), []).append(q)
         for group in groups.values():
-            for idx, res in self._solve_group(group):
+            for idx, res in self._solve_group(_key_starts(group)):
                 results[idx] = res
         for res, own in zip(results, spans):
             res.timings.update(own)
@@ -796,8 +872,7 @@ class EigenSession:
 
     # ---------------------------------------------------------- internals
 
-    def _normalize(self, q: EigQuery, idx: int, cfg: SolverConfig,
-                   spans: Optional[Dict[str, float]] = None) -> _NormQuery:
+    def _normalize(self, q: EigQuery, idx: int, cfg: SolverConfig) -> _NormQuery:
         def pick(v, dflt):
             return dflt if v is _UNSET else v
 
@@ -842,12 +917,8 @@ class EigenSession:
         if recovery not in ("none", "raise", "auto"):
             raise ValueError(f"recovery must be 'none', 'raise', or 'auto'; got {recovery!r}")
         seed = int(pick(q.seed, cfg.seed))
-        if q.v0 is not None:
-            with span("repro_torch.query.v0_digest", spans, "v0_digest_s"):
-                digest = hashlib.blake2b(_host_array(q.v0).tobytes(), digest_size=8)
-            start_key = f"v0:{digest.hexdigest()}"
-        else:
-            start_key = f"seed:{seed}"
+        # A v0's key is this query's own until _key_starts finds its equals.
+        start_key = f"v0#{idx}" if q.v0 is not None else f"seed:{seed}"
         return _NormQuery(
             idx=idx,
             k=k,
@@ -999,7 +1070,7 @@ class EigenSession:
                         raise self._attach_trail(exc, trail)
                     reseeds += 1
                     seed2 = qs[0].seed + 1000 + attempt
-                    entry["from"] = qs[0].start_key
+                    entry["from"] = _content_key(qs[0])
                     entry["to"] = f"seed:{seed2}"
                     qs = [q._replace(seed=seed2, v0=None, start_key=f"seed:{seed2}") for q in qs]
                 elif action == "escalate_policy":
@@ -1152,7 +1223,7 @@ class EigenSession:
         store = SolveCheckpoint(q.ckpt_dir)
         token = SolveCheckpoint.token(
             self.ensure_fingerprint(), backend=backend, policy=pol.name, k=k, m=m,
-            start=q.start_key, tol=q.tol_eff, reorth=q.reorth, package="repro_torch",
+            start=_content_key(q), tol=q.tol_eff, reorth=q.reorth, package="repro_torch",
         )
         return store, token
 

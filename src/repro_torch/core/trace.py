@@ -11,8 +11,14 @@ about 2 µs, the check for a profiler a fraction of one; a range would add
 about 15.  A span with no name keeps host time only.
 
 ``count(key, n)`` adds ``n`` to every record opened by ``counting``, on
-this thread: ``eigsh_many`` opens one for each call, and :func:`to_host`
-counts there the bytes it copies from a card (``host_copy_bytes``).
+this thread: ``eigsh_many`` opens one for each call, and counts there
+
+* ``host_copy_bytes``: the bytes :func:`to_host` copies from a card;
+* ``start_compares``: byte-wise comparisons of two distinct ``v0``s, which
+  group a call's queries by start (only a call with two or more ``v0``s
+  makes any);
+* ``v0_digests``: host digests of a ``v0``, taken only where its key
+  leaves the call (a checkpoint token, a reseed trail's ``"from"``).
 
 The spans of one in-core solve of ``EigenSession.eigsh_many``, as
 ``trace name -> timings key: what it brackets``:
@@ -20,9 +26,7 @@ The spans of one in-core solve of ``EigenSession.eigsh_many``, as
 * ``repro_torch.query -> query_s``: the call, once the session's query
   lock is held;
 * ``repro_torch.query.normalize -> normalize_s``: one query's checks and
-  keys, with inside it
-* ``repro_torch.query.v0_digest -> v0_digest_s``: the ``v0`` copy to the
-  host and its hash (only with a ``v0``);
+  keys;
 * ``repro_torch.query.plan -> plan_s``: the plan's lookup, or its build;
 * ``repro_torch.sweep.lanczos -> lanczos_s``: the sweep, its sync and the
   health probe;
@@ -30,6 +34,11 @@ The spans of one in-core solve of ``EigenSession.eigsh_many``, as
 * ``repro_torch.ritz.project -> project_s``: ``X = V^T W`` and its sync;
 * ``repro_torch.query.finish -> finish_s``: the flags, the precision
   audit and the result.
+
+Where a ``v0``'s content key leaves the call, ``repro_torch.query.v0_digest``
+brackets its copy to the host and its hash: between the plan and the
+sweep for a checkpointed sweep's token, after a failed sweep for a reseed
+trail.  Its host time adds to the call's ``v0_digest_s``.
 """
 
 from __future__ import annotations
@@ -41,9 +50,12 @@ from typing import Dict, Iterator, Optional
 
 import torch
 
-__all__ = ["HOST_COPY_BYTES", "count", "counting", "span", "to_host"]
+__all__ = ["HOST_COPY_BYTES", "START_COMPARES", "V0_DIGESTS", "count", "counting", "span",
+           "to_host"]
 
 HOST_COPY_BYTES = "host_copy_bytes"
+START_COMPARES = "start_compares"
+V0_DIGESTS = "v0_digests"
 
 _open = threading.local()
 
